@@ -1,0 +1,19 @@
+"""symmetry-tpu's serving engine in PyTorch, with hand-written CUDA kernels.
+
+A second package beside `symmetry_tpu` (the JAX reference). It mirrors that
+package's layout so each module's counterpart is found by path:
+
+  - ops/     RoPE, RMSNorm, attention, sampling, and the two CUDA kernels of
+             the serving path (flash prefill, decode attention), each beside
+             its plain PyTorch version;
+  - models/  the llama-family decoder over a stacked-layer parameter dict;
+  - engine/  InferenceEngine (prefill / insert / decode over a slot batch)
+             and its own copy of the continuous-batching Scheduler;
+  - utils/   logging, faults, metrics and tracing (copies, no device code).
+
+The package imports torch and numpy only: never jax, never `symmetry_tpu`.
+Entry points run on "cuda" unless the caller passes device="cpu"; on the
+CPU each kernel's plain version runs in its place.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,102 @@
+"""Token sampling: greedy / temperature / top-k / top-p, batched
+(symmetry_tpu/ops/sampling.py).
+
+Controls are per-slot tensors, so one code path serves a continuous batch
+of mixed greedy and sampled requests. Sampling is restricted to the top
+SAMPLING_TOP_CAP logits, with the same keep masks as the JAX package:
+greedy and any top_k <= cap are exact; top-p loses only the mass beyond the
+cap.
+
+Noise: each slot carries a 64-bit seed and a step counter. A counter-based
+hash of (seed, step, lane) on the device gives the Gumbel noise of a
+categorical draw, so a seeded request reproduces its completion and one
+slot's draws never depend on another's traffic, with no generator object
+per slot. The bits differ from jax.random's threefry: seeded sampling is
+reproducible within this package, not bit-equal to the JAX engine's.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from symmetry_tpu_torch.ops.attention import NEG_INF
+
+SAMPLING_TOP_CAP = 64
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer (xorshift-multiply) on int64 lanes holding
+    values below 2**32. Products wrap in int64; the mask keeps the low 32
+    bits, which the wrap leaves exact, so CPU and CUDA agree bit for bit."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x846CA68B) & _M32
+    return x ^ (x >> 16)
+
+
+def uniform_noise(seed: torch.Tensor, step: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """[B, n] float32 uniforms in (0, 1) from per-row (seed, step) int64."""
+    lo, hi = seed & _M32, (seed >> 32) & _M32
+    h = _mix32(lo ^ 0x9E3779B9)
+    h = _mix32(h ^ hi)
+    h = _mix32(h ^ (step & _M32))
+    lane = torch.arange(n, dtype=torch.int64, device=seed.device)
+    h = _mix32(h[:, None] ^ lane[None, :])
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / 2**24)
+
+
+def masked_top_logits(
+    logits: torch.Tensor,       # [B, V] float32
+    temperature: torch.Tensor,  # [B] float; 0 => greedy
+    top_p: torch.Tensor,        # [B] float in (0, 1]; 1 => disabled
+    top_k: torch.Tensor,        # [B] int; 0 => disabled
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Temperature-scaled logits restricted to the top-`cap` window, with
+    the greedy / top-k / top-p keep mask applied (NEG_INF elsewhere).
+    Returns (masked [B, cap], vocab indices [B, cap])."""
+    safe_t = torch.where(temperature > 0, temperature,
+                         torch.ones_like(temperature))
+    scaled = logits / safe_t[:, None]
+    top_logits, top_idx = torch.topk(scaled, cap, dim=-1, sorted=True)
+
+    ranks = torch.arange(cap, dtype=torch.int64, device=logits.device)
+    # top-k keeps ranks < k (0 disables); greedy is k = 1.
+    k = torch.where(top_k > 0, top_k.to(torch.int64),
+                    torch.full_like(top_k, cap, dtype=torch.int64))
+    k = torch.where(temperature > 0, k, torch.ones_like(k))
+    keep = ranks[None, :] < k[:, None]
+    # top-p keeps the smallest prefix whose mass reaches p (rank 0 always).
+    probs = torch.softmax(top_logits, dim=-1)
+    mass_before = torch.cumsum(probs, dim=-1) - probs
+    keep &= mass_before < top_p[:, None]
+    return torch.where(keep, top_logits,
+                       torch.tensor(NEG_INF, dtype=top_logits.dtype,
+                                    device=logits.device)), top_idx
+
+
+def sample_tokens(
+    logits: torch.Tensor,       # [B, V] float
+    seed: torch.Tensor,         # [B] int64 per-slot seeds
+    step: torch.Tensor,         # [B] int64 per-slot draw counters
+    temperature: torch.Tensor,  # [B] float; 0 => greedy
+    top_p: torch.Tensor,        # [B] float in (0, 1]; 1 => disabled
+    top_k: torch.Tensor,        # [B] int; 0 => disabled
+    cap: int = SAMPLING_TOP_CAP,
+) -> torch.Tensor:
+    """Returns sampled token ids [B] int64.
+
+    A categorical draw is the argmax of masked logits plus Gumbel noise.
+    Greedy rows keep only rank 0 unmasked, and bounded noise cannot lift a
+    NEG_INF lane over it, so greedy is the exact argmax."""
+    cap = min(cap, logits.shape[-1])
+    masked, top_idx = masked_top_logits(logits.to(torch.float32),
+                                        temperature, top_p, top_k, cap)
+    u = uniform_noise(seed, step, cap)
+    gumbel = -torch.log(-torch.log(u))
+    choice = torch.argmax(masked + gumbel, dim=-1)
+    return torch.gather(top_idx, 1, choice[:, None])[:, 0]
