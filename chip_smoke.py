@@ -8,19 +8,31 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
               limit (nvidia-smi);
-  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/;
+  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (four
+              libraries, one nvcc each, started together);
   3. kernels  each kernel against its plain PyTorch version at the serving
-              path's widths (llama3-8b heads, bf16), max abs error <= 2e-2 on
-              valid rows; kernel, plain and library (SDPA, a yardstick only)
-              times from CUDA events, and each kernel's bound;
+              path's widths (llama3-8b heads and weights, bf16): flash and
+              decode attention (bf16 and int8 caches, and a qwen2-7b group
+              of 7) within 2e-2 on valid rows, the KV append bit for bit,
+              W8A16 within one bf16 step of its largest output; kernel,
+              plain and library (a yardstick only) device times (kernel
+              durations summed by torch.profiler; the eager call's CUDA-
+              event time is logged beside), and each kernel's bound;
   4. tiny     the `tiny` preset in float32 through the port's engine and
               Scheduler on the card (kernels) and on the CPU (plain
-              versions): greedy token ids must be identical;
+              versions), dense and then with int8 weights and an int8
+              KV cache: greedy token ids must be identical;
   5. serve    llama3-8b in bf16 at full width and depth (random weights
               from torch.Generator seed 0) behind the port's Scheduler:
               8 greedy requests over the three prefill buckets, 64 new
-              tokens each, through both kernels (launch counts checked);
-  6. report   one JSON line listing the kernels, the nvidia-smi line, and
+              tokens each, through flash and decode attention (launch
+              counts checked);
+  6. int8     the same traffic on llama3-8b at full depth with int8
+              weights (init_params(quantize=True), seed 0) packed for the
+              W8A16 kernel and an int8 KV cache: flash, KV append, int8
+              decode attention and W8A16 on the path (launch counts
+              checked);
+  7. report   one JSON line listing the kernels, the nvidia-smi line, and
               last the {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
@@ -28,6 +40,7 @@ Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -57,9 +70,34 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def device_ms(fn, iters: int) -> float:
+    """Device time of one call of fn: the CUDA kernels' durations summed by
+    torch.profiler over `iters` calls, after a warm-up. Idle gaps between
+    launches (the host's share) are not counted, so a small kernel is not
+    measured by its wrapper's Python overhead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+                  for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == DeviceType.CUDA)
+    if busy_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return busy_us / 1e3 / iters
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over `iters` back-to-back calls (CUDA
-    events), after a warm-up."""
+    """Wall time of one call of fn over `iters` back-to-back calls (CUDA
+    events), after a warm-up: the device time, or the host's launch rate
+    where that is slower."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -141,15 +179,17 @@ def check_flash() -> dict:
     # engine's token budget), full length, so SDPA's causal mode computes
     # the same function.
     q, k, v, seq_lens = flash_case(1, 2048, [2048], None, seed=10)
-    ms = cuda_ms(lambda: flash_prefill(q, k, v, seq_lens), 20)
-    plain_ms = cuda_ms(lambda: flash_prefill_reference(q, k, v, seq_lens), 5)
+    ms = device_ms(lambda: flash_prefill(q, k, v, seq_lens), 20)
+    call_ms = cuda_ms(lambda: flash_prefill(q, k, v, seq_lens), 20)
+    plain_ms = device_ms(lambda: flash_prefill_reference(q, k, v, seq_lens),
+                         5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
     bound_ms, bound_by = bound(*flash_work(q, k, seq_lens, None))
-    log(f"  flash timing B=1 S=2048 H=32 K=8 D=128 bf16: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
+    log(f"  flash timing B=1 S=2048 H=32 K=8 D=128 bf16 (device ms): kernel "
+        f"{ms:.4f} ({call_ms:.4f} per eager call), plain {plain_ms:.4f}, SDPA "
+        f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
     return dict(name="flash_prefill", route="cuda",
                 source="symmetry_tpu_torch/csrc/flash_prefill.cu",
                 replaces="symmetry_tpu/ops/flash.py:129",
@@ -159,67 +199,216 @@ def check_flash() -> dict:
 
 def decode_work(q, k_cache, lengths, window) -> tuple[float, float]:
     """(bytes, flops) for these inputs: q read and out written once, and the
-    live K/V rows of each slot (min(length, window) of them) read once."""
+    live K/V rows of each slot (min(length, window) of them) read once, at
+    the cache's element size, with one float32 scale per row and KV head
+    for an int8 cache."""
     T, K, D = k_cache.shape[2:]
     B, nq, _ = q.shape
     live = np.minimum(np.clip(lengths.cpu().numpy(), 0, T),
                       window if window else T).astype(np.float64)
-    nbytes = 2 * B * nq * D * 2 + live.sum() * 2 * K * D * 2 + 4 * B
+    per_row = 2 * K * D * k_cache.element_size()
+    if k_cache.dtype == torch.int8:
+        per_row += 2 * K * 4
+    nbytes = 2 * B * nq * D * q.element_size() + live.sum() * per_row + 4 * B
     return nbytes, 4.0 * nq * D * live.sum()
 
 
-def check_decode() -> dict:
+def decode_case(L, B, T, nq, K, D, lengths, seed, int8):
+    """q, caches and scales (None for bf16) on the card; int8 caches are
+    quantize_kv of the same bf16 draws, scales position minor."""
+    from symmetry_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+
+    k, v, q = rnd(L, B, T, K, D), rnd(L, B, T, K, D), rnd(B, nq, D)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if not int8:
+        return q, k, v, None, None, lengths
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    del k, v
+    return (q, kq, vq, ks.transpose(-1, -2).contiguous(),
+            vs.transpose(-1, -2).contiguous(), lengths)
+
+
+def check_decode(int8: bool) -> dict:
     import torch.nn.functional as F
 
     from symmetry_tpu_torch.ops.decode_attention import (
         decode_attention, decode_attention_reference)
 
+    label = "int8" if int8 else "bf16"
     L, B, T, nq, K, D = 2, 8, 4096, 32, 8, 128
-    g = torch.Generator(device="cuda").manual_seed(20)
-    k_cache = torch.randn((L, B, T, K, D), generator=g, device="cuda",
-                          dtype=torch.bfloat16)
-    v_cache = torch.randn((L, B, T, K, D), generator=g, device="cuda",
-                          dtype=torch.bfloat16)
-    q = torch.randn((B, nq, D), generator=g, device="cuda",
-                    dtype=torch.bfloat16)
-    lengths = torch.tensor([0, 1, T, 1024, 777, 3000, 2048, 64],
-                           dtype=torch.int32, device="cuda")
+    q, k_cache, v_cache, ks, vs, lengths = decode_case(
+        L, B, T, nq, K, D, [0, 1, T, 1024, 777, 3000, 2048, 64], 20, int8)
     worst = 0.0
-    for layer, window in ((1, None), (0, None), (1, 1000)):
-        got = decode_attention(q, k_cache, v_cache, layer, lengths,
-                               window=window)
+    # llama3-8b heads (32 over 8), then qwen2-7b's group of 7 (28 over 4)
+    for layer, window in ((1, None), (0, None), (1, 1000), (1, "qwen2")):
+        args = (q, k_cache, v_cache, layer, lengths, ks, vs)
+        if window == "qwen2":
+            args = decode_case(2, 4, 512, 28, 4, 128, [512, 300, 1, 77], 21,
+                               int8)
+            args = args[:3] + (layer, args[5]) + args[3:5]
+            window = None
+        got = decode_attention(*args, window=window)
         torch.cuda.synchronize()
-        want = decode_attention_reference(q, k_cache, v_cache, layer,
-                                          lengths, window=window)
+        want = decode_attention_reference(*args, window=window)
         if not torch.isfinite(got).all():
-            raise AssertionError("decode: non-finite output")
-        # slot 0 is empty: its output is garbage by contract
-        err = float((got[1:].float() - want[1:].float()).abs().max())
-        log(f"  decode B={B} T={T} layer={layer} window={window} lengths="
-            f"{lengths.tolist()}: max_abs_err={err:.3e}")
+            raise AssertionError(f"decode {label}: non-finite output")
+        # an empty slot's output is garbage by contract
+        live = args[4] > 0
+        err = float((got[live].float() - want[live].float()).abs().max())
+        log(f"  decode {label} q {tuple(got.shape)} cache "
+            f"{tuple(args[1].shape)} layer={layer} window={window} lengths="
+            f"{args[4].tolist()}: max_abs_err={err:.3e}")
         if err > TOL:
-            raise AssertionError(f"decode error {err} > {TOL}")
+            raise AssertionError(f"decode {label} error {err} > {TOL}")
         worst = max(worst, err)
 
-    ms = cuda_ms(lambda: decode_attention(q, k_cache, v_cache, 1, lengths),
-                 50)
-    plain_ms = cuda_ms(lambda: decode_attention_reference(
-        q, k_cache, v_cache, 1, lengths), 10)
-    kl, vl = (c[1].transpose(1, 2) for c in (k_cache, v_cache))  # [B,K,T,D]
+    ms = device_ms(lambda: decode_attention(q, k_cache, v_cache, 1, lengths,
+                                            ks, vs), 50)
+    call_ms = cuda_ms(lambda: decode_attention(q, k_cache, v_cache, 1,
+                                               lengths, ks, vs), 50)
+    plain_ms = device_ms(lambda: decode_attention_reference(
+        q, k_cache, v_cache, 1, lengths, ks, vs), 10)
+    if int8:  # SDPA's yardstick reads a bf16 copy of the same cache
+        kl, vl = ((c[1].float() * s[1].transpose(-1, -2)[..., None])
+                  .to(torch.bfloat16).transpose(1, 2)
+                  for c, s in ((k_cache, ks), (v_cache, vs)))
+    else:
+        kl, vl = (c[1].transpose(1, 2) for c in (k_cache, v_cache))
     pos = torch.arange(T, device="cuda")
     mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q[:, :, None], kl, vl, attn_mask=mask, enable_gqa=True), 50)
     bound_ms, bound_by = bound(*decode_work(q, k_cache, lengths, None))
-    log(f"  decode timing B=8 T=4096 nq=32 K=8 D=128 bf16 (live "
-        f"{int(lengths.clamp(max=T).sum())} rows): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by})")
-    return dict(name="decode_attention", route="cuda",
+    log(f"  decode timing {label} B=8 T=4096 nq=32 K=8 D=128 (live "
+        f"{int(lengths.clamp(max=T).sum())} rows; device ms): kernel "
+        f"{ms:.4f} ({call_ms:.4f} per eager call), plain {plain_ms:.4f}, SDPA "
+        f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    return dict(name="decode_attention_int8" if int8 else "decode_attention",
+                route="cuda",
                 source="symmetry_tpu_torch/csrc/decode_attention.cu",
                 replaces="symmetry_tpu/ops/decode_attention.py:231",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_kv_append() -> dict:
+    """Bit-equal payload and scales against the plain version at llama3-8b
+    widths (8 slots, capacity 4096, 8 KV heads of 128); an out-of-range
+    position writes row T - 1; rows and scales not written survive."""
+    from symmetry_tpu_torch.ops.kv_append import (kv_append,
+                                                  kv_append_reference)
+
+    L, B, T, K, D = 2, 8, 4096, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(30)
+
+    def state():
+        g.manual_seed(30)
+        return [torch.randint(-127, 128, (L, B, T, K, D), generator=g,
+                              device="cuda", dtype=torch.int8)
+                for _ in range(2)] + [
+            torch.rand((L, B, K, T), generator=g, device="cuda")
+            for _ in range(2)] + [
+            torch.randn((B, K, D), generator=g, device="cuda",
+                        dtype=torch.bfloat16) * 3 for _ in range(2)]
+
+    pos = torch.tensor([0, 1, 127, 128, 2047, T - 1, T, T + 9],
+                       dtype=torch.int32, device="cuda")
+    got, want, pristine = state(), state(), state()
+    kv_append(*got, 1, pos)
+    torch.cuda.synchronize()
+    kv_append_reference(*want, 1, pos)
+    for a, b, name in zip(got[:4], want[:4], ("k", "v", "k_scale",
+                                              "v_scale")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"kv_append {name} differs from the plain "
+                                 f"version")
+    written = torch.zeros((B, T), dtype=torch.bool, device="cuda")
+    written[torch.arange(B, device="cuda"), pos.clamp(max=T - 1).long()] = 1
+    for a, b in ((got[0][1], pristine[0][1]), (got[1][1], pristine[1][1])):
+        if not torch.equal(a[~written], b[~written]):
+            raise AssertionError("kv_append touched a row it did not write")
+    for a, b in ((got[2][1], pristine[2][1]), (got[3][1], pristine[3][1])):
+        if not torch.equal(a.transpose(1, 2)[~written],
+                           b.transpose(1, 2)[~written]):
+            raise AssertionError("kv_append touched a scale it did not write")
+    if not torch.equal(got[0][0], pristine[0][0]):
+        raise AssertionError("kv_append touched another layer")
+    log(f"  kv_append L={L} B={B} T={T} K={K} D={D} bf16 rows, positions "
+        f"{pos.tolist()}: payload and scales bit-equal, untouched rows "
+        f"intact")
+    ms = device_ms(lambda: kv_append(*got, 1, pos), 200)
+    call_ms = cuda_ms(lambda: kv_append(*got, 1, pos), 200)
+    plain_ms = device_ms(lambda: kv_append_reference(*want, 1, pos), 20)
+    nbytes = 2 * B * K * D * (2 + 1) + 2 * B * K * 4 + 4 * B
+    bound_ms, bound_by = bound(nbytes, 2 * B * K * D * 4)
+    log(f"  kv_append timing (device ms): kernel {ms:.6f} ({call_ms:.4f} per "
+        f"eager call), plain {plain_ms:.4f}, bound {bound_ms:.6f} "
+        f"({bound_by}); no library call")
+    return dict(name="kv_append", route="cuda",
+                source="symmetry_tpu_torch/csrc/kv_append.cu",
+                replaces="symmetry_tpu/ops/kv_append.py:151",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def check_w8a16() -> dict:
+    """llama3-8b projection shapes at the decode (8 slots) and prefill
+    (2048-row token budget) row counts. Tolerance: one bf16 step at the
+    largest output, 2**-7 * max|y| (the kernel and the plain version sum
+    in float32 in different orders, then round to bf16)."""
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul, w8a16_reference
+    from symmetry_tpu_torch.ops.quant import pack_quantized, quantize
+
+    shapes = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
+              "wd": (14336, 4096), "lm_head": (4096, 128256)}
+    g = torch.Generator(device="cuda").manual_seed(40)
+    worst, row = 0.0, None
+    for name, (K, N) in shapes.items():
+        w = torch.randn((K, N), generator=g, device="cuda",
+                        dtype=torch.bfloat16).mul_(K ** -0.5)
+        qt = quantize(w)
+        pt = pack_quantized(qt)
+        w_lib = (qt.q.float() * qt.scale).to(torch.bfloat16)
+        del w, qt
+        for M in (8, 2048):
+            x = torch.randn((M, K), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            got = w8a16_matmul(x, pt.q, pt.scale)
+            torch.cuda.synchronize()
+            want = w8a16_reference(x, pt.q, pt.scale)
+            err = float((got.float() - want.float()).abs().max())
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"w8a16 {name} M={M}: error {err} > "
+                                     f"{tol}")
+            worst = max(worst, err)
+            ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
+            call_ms = cuda_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
+            plain_ms = device_ms(
+                lambda: w8a16_reference(x, pt.q, pt.scale), 3)
+            library_ms = device_ms(lambda: torch.matmul(x, w_lib), 20)
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            bound_ms, bound_by = bound(nbytes, 2.0 * M * K * N)
+            log(f"  w8a16 {name} [{K}, {N}] M={M}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}); device ms: kernel {ms:.4f} ({call_ms:.4f} "
+                f"per eager call), plain {plain_ms:.4f}, torch.matmul bf16 "
+                f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+            if (name, M) == ("wg", 8):  # the decode regime's widest leaf
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+            del x, got, want
+        del pt, w_lib
+        torch.cuda.empty_cache()
+    return dict(name="w8a16_matmul", route="cuda",
+                source="symmetry_tpu_torch/csrc/w8a16.cu",
+                replaces="symmetry_tpu/ops/qmm.py:251", max_abs_err=worst,
+                **row)
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +418,13 @@ def check_decode() -> dict:
 def serve(preset_name: str, *, device: str, dtype: torch.dtype,
           prompt_lens: list[int], max_new: int, max_slots: int,
           max_seq_len: int, buckets: tuple[int, ...], decode_block: int,
-          params=None, seed: int = 0, on_ready=None) -> dict:
+          params=None, seed: int = 0, on_ready=None, int8: bool = False) -> dict:
     """Build the engine, warm it, and serve greedy requests through the
     Scheduler. Returns per-request token ids and finish reasons, timings,
     and the scheduler's metrics. `on_ready` runs after warmup, just before
-    the requests are submitted."""
+    the requests are submitted. int8=True serves int8 weights (drawn with
+    init_params(quantize=True) unless given) packed for the W8A16 kernel
+    (fused_dequant) and an int8 KV cache (kv_quant)."""
     from symmetry_tpu_torch.engine.engine import InferenceEngine, SamplingParams
     from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
     from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -249,11 +440,13 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
     cfg = preset(preset_name)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
-        params = init_params(cfg, gen, dtype)
+        params = init_params(cfg, gen, dtype, quantize=int8)
     engine = InferenceEngine(cfg, params, IdTokenizer(cfg.vocab_size),
                              max_slots=max_slots, max_seq_len=max_seq_len,
                              prefill_buckets=buckets, cache_dtype=dtype,
-                             decode_block=decode_block, device=device)
+                             decode_block=decode_block, kv_quant=int8,
+                             fused_dequant=int8, device=device)
+    del params
     engine.warmup()
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(0, min(cfg.vocab_size, 50000), n).tolist()
@@ -339,63 +532,84 @@ def profile_dispatch(label: str, fn) -> None:
 def check_tiny() -> None:
     from symmetry_tpu_torch.models.llama import init_params, preset
 
-    params = init_params(preset("tiny"), torch.Generator().manual_seed(0),
-                         torch.float32)
     kw = dict(dtype=torch.float32, prompt_lens=[5, 14, 27], max_new=12,
               max_slots=2, max_seq_len=64, buckets=(16, 32), decode_block=4)
-    card = serve("tiny", device="cuda", params=params, **kw)["requests"]
-    cpu = serve("tiny", device="cpu", params=params, **kw)["requests"]
-    for r_card, r_cpu in zip(card, cpu):
-        if (r_card["ids"], r_card["reason"]) != (r_cpu["ids"],
-                                                 r_cpu["reason"]):
-            raise AssertionError(f"tiny card {r_card} != cpu {r_cpu}")
-    log(f"  tiny f32: {len(card)} requests, greedy ids identical card vs "
-        f"CPU: {[r['ids'][:6] for r in card]}...")
+    for int8 in (False, True):
+        params = init_params(preset("tiny"),
+                             torch.Generator().manual_seed(0), torch.float32,
+                             quantize=int8)
+        card = serve("tiny", device="cuda", params=params, int8=int8,
+                     **kw)["requests"]
+        cpu = serve("tiny", device="cpu", params=params, int8=int8,
+                    **kw)["requests"]
+        for r_card, r_cpu in zip(card, cpu):
+            if (r_card["ids"], r_card["reason"]) != (r_cpu["ids"],
+                                                     r_cpu["reason"]):
+                raise AssertionError(f"tiny int8={int8} card {r_card} != "
+                                     f"cpu {r_cpu}")
+        log(f"  tiny f32{' int8 weights + int8 KV' if int8 else ''}: "
+            f"{len(card)} requests, greedy ids identical card vs CPU: "
+            f"{[r['ids'][:6] for r in card]}...")
 
 
-def check_full_width(smi: str) -> dict[str, int]:
+def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
+    """Serve llama3-8b at full depth; returns the launch count of every
+    kernel wrapper, all set to 0 just before the requests and read right
+    after them (before the profile runs)."""
     from symmetry_tpu_torch.engine.engine import SamplingParams
     from symmetry_tpu_torch.ops.decode_attention import decode_attention
     from symmetry_tpu_torch.ops.flash import flash_prefill
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    wrappers = {"flash_prefill": flash_prefill,
+                "decode_attention": decode_attention,
+                "kv_append": kv_append, "w8a16_matmul": w8a16_matmul}
 
     def reset():
-        flash_prefill.launches = 0
-        decode_attention.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
 
+    label = "int8 (W8A16 weights, int8 KV)" if int8 else "bf16"
     max_new = 64
     res = serve("llama3-8b", device="cuda", dtype=torch.bfloat16,
                 prompt_lens=[60, 100, 300, 420, 500, 900, 1500, 2000],
                 max_new=max_new, max_slots=8, max_seq_len=4096,
-                buckets=(128, 512, 2048), decode_block=8, on_ready=reset)
-    launches = {"flash_prefill": flash_prefill.launches,
-                "decode_attention": decode_attention.launches}
+                buckets=(128, 512, 2048), decode_block=8, on_ready=reset,
+                int8=int8)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     cfg, m = res["config"], res["metrics"]
-    L = cfg.num_layers
-    log(f"  launches {launches}; scheduler admit_dispatches="
-        f"{m['admit_dispatches']} steps={m['steps']} tokens={m['tokens']}")
+    L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
+    log(f"  {label} launches {launches}; scheduler admit_dispatches="
+        f"{dispatches} steps={steps} tokens={m['tokens']}")
     for i, r in enumerate(res["requests"]):
         if r["reason"] != "length" or r["generated"] != max_new:
             raise AssertionError(f"request {i}: {r['reason']} after "
                                  f"{r['generated']} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r["ids"]):
             raise AssertionError(f"request {i}: token id out of range")
-    if launches["flash_prefill"] != L * m["admit_dispatches"]:
-        raise AssertionError("flash launches != layers x prefill dispatches")
-    if launches["decode_attention"] != L * m["steps"]:
-        raise AssertionError("decode launches != layers x decode steps")
+    want = {"flash_prefill": L * dispatches, "decode_attention": L * steps,
+            "kv_append": L * steps if int8 else 0,
+            # seven projections per layer and the LM head, per forward
+            "w8a16_matmul": (7 * L + 1) * (steps + dispatches) if int8 else 0}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
     engine = res["engine"]
-    profile_dispatch("decode block (8 steps x 8 slots)", engine.decode_steps)
+    profile_dispatch(f"{label} decode block (8 steps x 8 slots)",
+                     engine.decode_steps)
     prompt = list(range(1000, 3000))
-    profile_dispatch("prefill 2000 tokens (bucket 2048, batch 1)",
+    profile_dispatch(f"{label} prefill 2000 tokens (bucket 2048, batch 1)",
                      lambda: engine.prefill_and_insert(0, prompt,
                                                        SamplingParams()))
     ttft = [r["ttft_s"] for r in res["requests"]]
-    log(f"  llama3-8b bf16 on {smi}: 8 requests x {max_new} tokens; TTFT "
-        f"p50 {statistics.median(ttft):.4f} s (max {max(ttft):.4f} s); "
+    log(f"  llama3-8b {label} on {smi}: 8 requests x {max_new} tokens; "
+        f"TTFT p50 {statistics.median(ttft):.4f} s (max {max(ttft):.4f} s); "
         f"aggregate decode {res['decode_tok_s']:.2f} tok/s over 8 streams; "
         f"wall {res['wall_s']:.3f} s; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; weights "
+        f"streamed per decode step {engine.weight_stream_bytes() / 1e9:.3f} "
+        f"GB")
     return launches
 
 
@@ -419,13 +633,26 @@ def main() -> int:
     log(f"  kernels built in {kernels.build_all():.3f} s")
 
     log("phase 3: kernels against their plain versions (bf16)")
-    rows = [check_flash(), check_decode()]
+    rows = [check_flash(), check_decode(int8=False), check_decode(int8=True),
+            check_kv_append(), check_w8a16()]
+    torch.cuda.empty_cache()
 
     log("phase 4: tiny engine, card against CPU (float32)")
     check_tiny()
 
-    log("phase 5: llama3-8b full width through the Scheduler")
-    launches = check_full_width(smi)
+    log("phase 5: llama3-8b bf16 full width through the Scheduler")
+    bf16 = check_full_width(smi, int8=False)
+    gc.collect()  # frees the bf16 engine before the int8 one is built
+    torch.cuda.empty_cache()
+
+    log("phase 6: llama3-8b int8 full width through the Scheduler")
+    int8 = check_full_width(smi, int8=True)
+    # Each route's launches from the serving path it belongs to.
+    launches = {"flash_prefill": bf16["flash_prefill"],
+                "decode_attention": bf16["decode_attention"],
+                "decode_attention_int8": int8["decode_attention"],
+                "kv_append": int8["kv_append"],
+                "w8a16_matmul": int8["w8a16_matmul"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:

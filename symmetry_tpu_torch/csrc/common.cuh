@@ -4,6 +4,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace symtorch {
 
@@ -14,6 +15,7 @@ constexpr float kNegInf = -1073741824.0f;
 // Kernel dtype codes (ops/kernels.py DTYPE_*).
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kInt8 = 2;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -62,6 +64,28 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
   }
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const int8_t* p, float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const char4 c = *reinterpret_cast<const char4*>(p + i);
+      o[i] = c.x; o[i + 1] = c.y; o[i + 2] = c.z; o[i + 3] = c.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = p[i];
+  }
+}
+
+// Eight int8 values packed in a uint2 (little endian) into floats.
+__device__ __forceinline__ void unpack8(const uint2 u, float (&o)[8]) {
+  const char4 a = *reinterpret_cast<const char4*>(&u.x);
+  const char4 b = *reinterpret_cast<const char4*>(&u.y);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
 }  // namespace symtorch

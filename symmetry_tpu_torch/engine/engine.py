@@ -14,9 +14,15 @@ Dispatches are asynchronous on the card: `decode_steps_dispatch` returns a
 HostFuture that the scheduler syncs with np.asarray one iteration later, so
 host work overlaps the device as in the JAX engine.
 
-Knobs outside this slice (mesh, int8 KV and weights, speculative decoding,
-the prefix cache, chunked prefill, disaggregated roles, pipeline
-microbatches, device profiling) raise EngineError naming their ROADMAP item.
+Int8 serving follows the JAX engine: `kv_quant` keeps the KV cache in int8
+with float32 scale planes, and `fused_dequant` packs int8 weights
+(QuantizedTensor leaves, from models/llama.py quantize_params or
+init_params(quantize=True)) into the W8A16 kernel's layout; leaves the
+kernel cannot take stay flat on the mixed dot, logged and counted.
+
+Knobs outside this slice (mesh, speculative decoding, the prefix cache,
+chunked prefill, disaggregated roles, pipeline microbatches, device
+profiling) raise EngineError naming their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -38,9 +44,13 @@ from symmetry_tpu_torch.models.llama import (
     forward_hidden,
     init_cache,
     logits_from_hidden,
+    pack_params,
 )
 from symmetry_tpu_torch.ops import kernels
+from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
 from symmetry_tpu_torch.ops.sampling import sample_tokens
+from symmetry_tpu_torch.utils.logging import logger
+from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
 
 _SEED_MASK = 2**63 - 1
 
@@ -106,8 +116,6 @@ class HostFuture:
 _NOT_PORTED = {
     "mesh": "tensor / pipeline parallel meshes (ROADMAP Queue 1 item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
-    "kv_quant": "int8 KV caches (ROADMAP Queue 1 item 9)",
-    "fused_dequant": "int8 W8A16 weights (ROADMAP Queue 1 item 9)",
     "speculative": "speculative decoding (ROADMAP Queue 1 item 7)",
     "prefix_cache_bytes": "the radix prefix cache (ROADMAP Queue 1 item 6)",
     "prefill_chunk": "chunked prefill (ROADMAP Queue 1 item 6)",
@@ -156,8 +164,6 @@ class InferenceEngine:
         refused = {
             "mesh": mesh is not None,
             "pipeline_microbatches": pipeline_microbatches > 1,
-            "kv_quant": bool(kv_quant),
-            "fused_dequant": bool(fused_dequant),
             "speculative": speculative is not None,
             "prefix_cache_bytes": prefix_cache_bytes > 0,
             "prefill_chunk": prefill_chunk is not None,
@@ -174,6 +180,9 @@ class InferenceEngine:
                               "device='cpu' to run the plain versions")
         self.config = config
         self.params = _to_device(params, self.device)
+        self.fused_dequant = bool(fused_dequant)
+        if self.fused_dequant:
+            self._pack_weights()
         self.tokenizer = tokenizer
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -182,6 +191,7 @@ class InferenceEngine:
         if not self.prefill_buckets:
             raise EngineError("no prefill bucket fits within max_seq_len")
         self.cache_dtype = cache_dtype
+        self.kv_quant = bool(kv_quant)
         if decode_block < 1:
             raise EngineError("decode_block must be >= 1")
         self.decode_block = decode_block
@@ -194,7 +204,7 @@ class InferenceEngine:
         dev = self.device
         self.state = DecodeState(
             cache=init_cache(config, max_slots, max_seq_len, cache_dtype,
-                             device=dev),
+                             quantized=self.kv_quant, device=dev),
             last_token=torch.zeros(max_slots, dtype=torch.int64, device=dev),
             temperature=torch.zeros(max_slots, dtype=torch.float32,
                                     device=dev),
@@ -206,6 +216,26 @@ class InferenceEngine:
         self._base_seed = int.from_bytes(os.urandom(8), "little") & _SEED_MASK
         self._requests_served = 0
 
+    def _pack_weights(self) -> None:
+        """`fused_dequant`: pack the int8 leaves into the W8A16 kernel's
+        panel layout once, here; the layout is the routing (qmatmul
+        dispatches on the leaf type). Leaves the kernel cannot take stay
+        flat on the mixed dot, loudly (log + counter), never silently."""
+        if not _has_int8(self.params):
+            raise EngineError(
+                "fused_dequant found no packable int8 weights: it requires "
+                "int8 weights (quantization: int8); the knob would "
+                "otherwise be silently inert")
+        fallback = METRICS.counter(
+            MetricName.QMM_FALLBACK,
+            "int8 leaves kept on the mixed dot at load", labels=("reason",))
+        degrades: list[tuple[str, str]] = []
+        self.params = pack_params(self.params, report=degrades)
+        for path, reason in degrades:
+            logger.warning(f"fused_dequant: {path} stays on the mixed dot "
+                           f"(reason: {reason})")
+            fallback.inc(reason=reason)
+
     # ------------------------------------------------------------------
     # Device primitives
 
@@ -215,14 +245,24 @@ class InferenceEngine:
         N > 1 is COALESCED prefill (the scheduler batches concurrent
         arrivals into one dispatch). The prefix buffer is allocated empty:
         the prefill-from-empty trunk writes every one of its Sb positions
-        and flash attention never reads it back."""
+        (and, for an int8 cache, their scales) and flash attention never
+        reads it back."""
         N, Sb = tokens.shape
         c = self.config
         shape = (c.num_layers, N, Sb, c.num_kv_heads, c.dim_per_head)
+        kv_dtype = torch.int8 if self.kv_quant else self.cache_dtype
+        scale_shape = (c.num_layers, N, c.num_kv_heads, Sb)
+
+        def scales():
+            return (torch.empty(scale_shape, dtype=torch.float32,
+                                device=self.device)
+                    if self.kv_quant else None)
+
         cache = KVCache(
-            k=torch.empty(shape, dtype=self.cache_dtype, device=self.device),
-            v=torch.empty(shape, dtype=self.cache_dtype, device=self.device),
-            lengths=torch.zeros(N, dtype=torch.int32, device=self.device))
+            k=torch.empty(shape, dtype=kv_dtype, device=self.device),
+            v=torch.empty(shape, dtype=kv_dtype, device=self.device),
+            lengths=torch.zeros(N, dtype=torch.int32, device=self.device),
+            k_scale=scales(), v_scale=scales())
         h, cache = forward_hidden(self.params, c, tokens, cache,
                                   seq_lens=true_len, prefill_flash=True)
         # Project ONLY the last valid position through the LM head.
@@ -240,6 +280,9 @@ class InferenceEngine:
         Sb = prefix.k.shape[2]
         st.cache.k[:, slots, :Sb] = prefix.k
         st.cache.v[:, slots, :Sb] = prefix.v
+        if self.kv_quant:
+            st.cache.k_scale[:, slots, :, :Sb] = prefix.k_scale
+            st.cache.v_scale[:, slots, :, :Sb] = prefix.v_scale
         # The first sampled token's KV is not written yet: the next decode
         # step writes it at position true_len.
         st.cache.lengths[slots] = true_len
@@ -432,9 +475,10 @@ class InferenceEngine:
 
     def weight_stream_bytes(self) -> int:
         """Bytes of parameter data one decode step must stream from device
-        memory: every weight, except the input embedding unless it is tied
-        (it is gathered, not contracted; tied models re-read it as the LM
-        head). Metadata-only, safe from any thread."""
+        memory: every weight (int8 payload + float32 scales, or dense),
+        except the input embedding unless it is tied (it is gathered, not
+        contracted; tied models re-read it as the LM head). Metadata-only,
+        safe from any thread."""
         total = sum(t.numel() * t.element_size()
                     for t in _leaves(self.params))
         if not self.config.tie_embeddings:
@@ -449,14 +493,26 @@ class InferenceEngine:
 
 
 def _leaves(tree: Any):
+    """Every tensor of a params tree, the payload and scales of int8 leaves
+    included."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
+    elif isinstance(tree, (QuantizedTensor, PackedQuantizedTensor)):
+        yield from tree
     else:
         yield tree
+
+
+def _has_int8(tree: Any) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_int8(v) for v in tree.values())
+    return isinstance(tree, (QuantizedTensor, PackedQuantizedTensor))
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (QuantizedTensor, PackedQuantizedTensor)):
+        return type(tree)(*(t.to(device) for t in tree))
     return tree.to(device)

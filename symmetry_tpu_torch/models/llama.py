@@ -11,10 +11,15 @@ Attention routing in `_layer`:
   - prefill from an empty cache (prefill_flash, S > 1): ops/flash.py;
   - one position per slot (S == 1): ops/decode_attention.py;
   - anything else (a continuation over a live cache): ops/attention.py.
-On CUDA tensors the first two launch the package's hand-written kernels.
+An int8 cache (init_cache(quantized=True)) is written by ops/kv_append.py at
+S == 1 and by quantize_kv + index assignment otherwise. Weight leaves may be
+dense, QuantizedTensor or PackedQuantizedTensor (ops/quant.py qmatmul
+routes by layout; packed leaves take ops/qmm.py). On CUDA tensors the
+attention routes, the KV append and packed leaves launch the package's
+hand-written kernels.
 
-Not ported in this slice: MoE (ROADMAP Queue 1 item 13), sequence-parallel
-prefill (item 14) and int8 KV caches (item 9).
+Not ported in this slice: MoE (ROADMAP Queue 1 item 13) and sequence-
+parallel prefill (item 14).
 """
 
 from __future__ import annotations
@@ -28,8 +33,17 @@ import torch.nn.functional as F
 from symmetry_tpu_torch.ops.attention import gqa_attention
 from symmetry_tpu_torch.ops.decode_attention import decode_attention
 from symmetry_tpu_torch.ops.flash import flash_prefill
+from symmetry_tpu_torch.ops.kv_append import kv_append
 from symmetry_tpu_torch.ops.norm import norm_weight, rms_norm
-from symmetry_tpu_torch.ops.quant import qmatmul
+from symmetry_tpu_torch.ops.quant import (
+    PackedQuantizedTensor,
+    QuantizedTensor,
+    pack_tree,
+    qmatmul,
+    quantize_kv,
+    quantize_tree,
+)
+from symmetry_tpu_torch.ops.quant import quantize as quantize_leaf
 from symmetry_tpu_torch.ops.rope import apply_rope
 
 
@@ -159,10 +173,12 @@ def preset(name: str) -> ModelConfig:
 class KVCache(NamedTuple):
     """Static-shape KV cache: [layers, batch, capacity, kv_heads, head_dim].
 
-    The port writes k/v in place (index assignment); `lengths` is replaced,
-    not mutated, by each forward. Quantized caches (k_scale / v_scale
-    planes) are not ported yet: the fields stay so the layout matches the
-    JAX package's."""
+    The port writes k/v (and the scale planes) in place; `lengths` is
+    replaced, not mutated, by each forward. With quantized=True at init,
+    k/v hold int8 payloads and k_scale/v_scale the per-(layer, slot,
+    kv_head, position) float32 dequant scales, [layers, batch, kv_heads,
+    capacity]: position minor, the JAX package's layout, so cache snapshots
+    and handoff frames interchange between the packages."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -175,19 +191,25 @@ class KVCache(NamedTuple):
         return self.k_scale is not None
 
 
-KV_QUANT_NOT_PORTED = ("int8 KV caches are not ported yet "
-                       "(ROADMAP Queue 1 item 9)")
-
-
 def init_cache(
     config: ModelConfig, batch: int, capacity: int,
     dtype: torch.dtype = torch.bfloat16, *, quantized: bool = False,
     device: str | torch.device = "cuda",
 ) -> KVCache:
-    if quantized:
-        raise NotImplementedError(KV_QUANT_NOT_PORTED)
     shape = (config.num_layers, batch, capacity, config.num_kv_heads,
              config.dim_per_head)
+    if quantized:
+        scale_shape = (config.num_layers, batch, config.num_kv_heads,
+                       capacity)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+            k_scale=torch.zeros(scale_shape, dtype=torch.float32,
+                                device=device),
+            v_scale=torch.zeros(scale_shape, dtype=torch.float32,
+                                device=device),
+        )
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -200,23 +222,45 @@ def init_cache(
 
 
 def init_params(config: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.bfloat16) -> dict:
+                dtype: torch.dtype = torch.bfloat16, *,
+                quantize: bool = False) -> dict:
     """Random init on the generator's device: normal draws scaled by
     1/sqrt(fan-in) (0.02 for the embedding and LM head). Real serving
     loads HF weights instead. Each leaf is drawn in its own dtype and
     scaled in place, so no float32 copy of an 8B-parameter model is ever
     held. The draws differ from the JAX package's init; the tests hand both
-    packages the same weights through convert.params_from_numpy."""
+    packages the same weights through convert.params_from_numpy.
+
+    quantize=True makes the QUANT_KEYS leaves int8 QuantizedTensors as
+    they are drawn: one layer slice (the LM head: one column block) is
+    drawn, scaled and quantized at a time, so neither a dense copy of a
+    whole leaf nor a float32 one is ever held."""
     c = config
     if getattr(c, "num_experts", 0):
         raise NotImplementedError(MOE_NOT_PORTED)
     device = generator.device
 
-    def dense(shape, scale=None):
-        scale = scale if scale is not None else shape[-2] ** -0.5
+    def draw(shape, scale):
         w = torch.randn(shape, generator=generator, dtype=dtype,
                         device=device)
         return w.mul_(scale)
+
+    def dense(shape, scale=None, name=None):
+        scale = scale if scale is not None else shape[-2] ** -0.5
+        if not (quantize and name in QUANT_KEYS):
+            return draw(shape, scale)
+        *lead, K, N = shape
+        q = torch.empty(shape, dtype=torch.int8, device=device)
+        s = torch.empty((*lead, N), dtype=torch.float32, device=device)
+        # one [K, cols] slab per layer (stacks) or column block (2-D)
+        cols = N if lead else min(N, _QUANT_INIT_COLS)
+        for i in range(lead[0] if lead else 1):
+            for n0 in range(0, N, cols):
+                qt = quantize_leaf(draw((K, min(cols, N - n0)), scale))
+                dst = (q[i], s[i]) if lead else (q, s)
+                dst[0][:, n0:n0 + cols] = qt.q
+                dst[1][n0:n0 + cols] = qt.scale
+        return QuantizedTensor(q=q, scale=s)
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -227,13 +271,13 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         "layers": {
             "attn_norm": ones((L, E)),
             "mlp_norm": ones((L, E)),
-            "wq": dense((L, E, c.q_dim)),
-            "wk": dense((L, E, c.kv_dim)),
-            "wv": dense((L, E, c.kv_dim)),
-            "wo": dense((L, c.q_dim, E)),
-            "wg": dense((L, E, F)),
-            "wu": dense((L, E, F)),
-            "wd": dense((L, F, E)),
+            "wq": dense((L, E, c.q_dim), name="wq"),
+            "wk": dense((L, E, c.kv_dim), name="wk"),
+            "wv": dense((L, E, c.kv_dim), name="wv"),
+            "wo": dense((L, c.q_dim, E), name="wo"),
+            "wg": dense((L, E, F), name="wg"),
+            "wu": dense((L, E, F), name="wu"),
+            "wd": dense((L, F, E), name="wd"),
         },
         "final_norm": ones((E,)),
     }
@@ -244,8 +288,46 @@ def init_params(config: ModelConfig, generator: torch.Generator,
             params["layers"][name] = torch.zeros((L, width), dtype=dtype,
                                                  device=device)
     if not c.tie_embeddings:
-        params["lm_head"] = dense((E, c.vocab_size), scale=0.02)
+        params["lm_head"] = dense((E, c.vocab_size), scale=0.02,
+                                  name="lm_head")
     return params
+
+
+# Weights eligible for int8 quantization (all the large matmuls; the
+# embedding stays dense: it is gathered, not contracted).
+QUANT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "lm_head")
+# Columns of a 2-D leaf quantized at a time by init_params(quantize=True).
+_QUANT_INIT_COLS = 16384
+
+
+def quantize_params(params: dict) -> dict:
+    """In-place int8 quantization of all QUANT_KEYS leaves (ops/quant.py)."""
+    return quantize_tree(params, QUANT_KEYS)
+
+
+def pack_params(params: dict, *, mesh=None,
+                report: list | None = None) -> dict:
+    """In-place packing of the quantized QUANT_KEYS leaves into the W8A16
+    kernel's panel layout (`fused_dequant`; ops/quant.py pack_tree). The
+    layout is the routing: qmatmul sends PackedQuantizedTensor leaves
+    through the kernel and keeps every other int8 leaf on the mixed dot.
+    Pass `report` to collect the (path, reason) of leaves that stay flat.
+    Single device only: a mesh raises NotImplementedError (ROADMAP Queue 1
+    item 14)."""
+    return pack_tree(params, QUANT_KEYS, mesh=mesh, report=report)
+
+
+def layer_slice(w, i: int):
+    """Layer i of a stacked leaf: a tensor, or a (Packed)QuantizedTensor
+    whose payload and scales both drop the leading layer dim."""
+    if isinstance(w, (QuantizedTensor, PackedQuantizedTensor)):
+        return type(w)(w.q[i], w.scale[i])
+    return w[i]
+
+
+def _stacked_layers(w) -> int:
+    return (w.q if isinstance(w, (QuantizedTensor, PackedQuantizedTensor))
+            else w).shape[0]
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +375,27 @@ def _layer(
     # free slot's length keeps growing with every decode step, and its
     # garbage must land inside its own lane.
     T = cache.k.shape[2]
-    b_idx = torch.arange(B, device=h.device)[:, None]
-    pos_w = torch.clamp(positions, max=T - 1).long()
-    cache.k[layer][b_idx, pos_w] = k.to(cache.k.dtype)
-    cache.v[layer][b_idx, pos_w] = v.to(cache.v.dtype)
+    if cache.quantized and S == 1:
+        # Decode into an int8 cache: one fused call per layer quantizes the
+        # new rows and writes payload and scales in place.
+        kv_append(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                  k[:, 0].contiguous(), v[:, 0].contiguous(), layer,
+                  positions[:, 0].contiguous())
+    else:
+        b_idx = torch.arange(B, device=h.device)[:, None]
+        pos_w = torch.clamp(positions, max=T - 1).long()
+        if cache.quantized:
+            kq, ks = quantize_kv(k)  # ks [B, S, K]
+            vq, vs = quantize_kv(v)
+            cache.k[layer][b_idx, pos_w] = kq
+            cache.v[layer][b_idx, pos_w] = vq
+            # Scale planes are [B, K, T] per layer: the advanced (B, S)
+            # index dims go first, matching the [B, S, K] scale values.
+            cache.k_scale[layer][b_idx, :, pos_w] = ks
+            cache.v_scale[layer][b_idx, :, pos_w] = vs
+        else:
+            cache.k[layer][b_idx, pos_w] = k.to(cache.k.dtype)
+            cache.v[layer][b_idx, pos_w] = v.to(cache.v.dtype)
 
     if prefill_flash and S > 1:
         # Prefill from empty: attention over this call's own K/V; the cache
@@ -306,10 +405,14 @@ def _layer(
         # One position per slot: the full cache is the operand, the layer
         # is selected inside the kernel.
         attn = decode_attention(q[:, 0], cache.k, cache.v, layer, kv_valid,
+                                cache.k_scale, cache.v_scale,
                                 window=config.sliding_window)[:, None]
     else:
-        attn = gqa_attention(q, cache.k[layer], cache.v[layer], positions,
-                             kv_valid, sliding_window=config.sliding_window)
+        attn = gqa_attention(
+            q, cache.k[layer], cache.v[layer], positions, kv_valid,
+            sliding_window=config.sliding_window,
+            k_scale=cache.k_scale[layer] if cache.quantized else None,
+            v_scale=cache.v_scale[layer] if cache.quantized else None)
     h = h + qmatmul(attn.reshape(B, S, nq * D), lp["wo"])
 
     x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)
@@ -330,9 +433,9 @@ def run_layers(
 ) -> torch.Tensor:
     """Run the stack of decoder layers over `h` (a Python loop over the
     stacked layer dim; the cache is written in place)."""
-    n_layers = next(iter(layers_params.values())).shape[0]
+    n_layers = _stacked_layers(layers_params["wq"])
     for i in range(n_layers):
-        lp = {name: w[i] for name, w in layers_params.items()}
+        lp = {name: layer_slice(w, i) for name, w in layers_params.items()}
         h = _layer(h, lp, cache, i, positions, kv_valid, seq_lens, config,
                    use_flash)
     return h
@@ -359,8 +462,6 @@ def forward_hidden(
     if ring_mesh is not None:
         raise NotImplementedError("sequence-parallel prefill (ring_mesh) is "
                                   "not ported yet (ROADMAP Queue 1 item 14)")
-    if cache.quantized:
-        raise NotImplementedError(KV_QUANT_NOT_PORTED)
     B, S = tokens.shape
     if seq_lens is None:
         seq_lens = torch.full((B,), S, dtype=torch.int32,
@@ -371,7 +472,7 @@ def forward_hidden(
     kv_valid = cache.lengths + seq_lens
     use_flash = prefill_flash and S > 1
 
-    n_stacked = params["layers"]["wq"].shape[0]
+    n_stacked = _stacked_layers(params["layers"]["wq"])
     if n_stacked != config.num_layers:
         # The cache is sized by config: a depth mismatch must fail loudly.
         raise ValueError(f"params carry {n_stacked} stacked layers but "

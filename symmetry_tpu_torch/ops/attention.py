@@ -21,12 +21,18 @@ def gqa_attention(
     q_positions: torch.Tensor,  # [B, S] absolute position of each query token
     kv_length: torch.Tensor,    # [B] number of valid cache entries per sample
     sliding_window: int | None = None,  # mistral-style local attention span
+    k_scale: torch.Tensor | None = None,  # [B, n_kv_heads, T] f32: int8 cache
+    v_scale: torch.Tensor | None = None,  # per-token-per-head dequant scales
 ) -> torch.Tensor:
     """Returns [B, S, n_q_heads, head_dim] in q's dtype. Softmax in f32.
 
     Products accumulate in float32, as the JAX version's
     preferred_element_type does; probabilities are rounded to q's dtype
-    before the value product, as there."""
+    before the value product, as there. With k_scale/v_scale set, the
+    caches hold int8 payloads (ops/quant.py quantize_kv) and the dequant is
+    folded into the contractions: k's scale multiplies the scores, v's
+    scale the probabilities (before the rounding), as in the JAX version.
+    This is also the plain version of the int8 decode kernel."""
     B, S, n_q, D = q.shape
     T, n_kv = k_cache.shape[1], k_cache.shape[2]
     group = n_q // n_kv
@@ -34,7 +40,10 @@ def gqa_attention(
 
     qg = q.reshape(B, S, n_kv, group, D).to(torch.float32)
     scores = torch.einsum("bskgd,btkd->bkgst", qg,
-                          k_cache.to(torch.float32)) * scale
+                          k_cache.to(torch.float32))
+    if k_scale is not None:
+        scores = scores * k_scale[:, :, None, None, :]
+    scores = scores * scale
 
     kv_pos = torch.arange(T, dtype=torch.int32, device=q.device)
     # key valid iff written (pos < kv_length) and causal (pos <= query pos)
@@ -48,6 +57,9 @@ def gqa_attention(
 
     probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        # masked positions contribute 0 whatever their garbage scale
+        probs = probs * v_scale[:, :, None, None, :]
     probs = probs.to(q.dtype).to(torch.float32)
 
     out = torch.einsum("bkgst,btkd->bskgd", probs, v_cache.to(torch.float32))

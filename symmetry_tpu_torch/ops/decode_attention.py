@@ -2,19 +2,20 @@
 [L, B, T, K, D] cache, reading only each slot's occupied prefix.
 
 Port of symmetry_tpu/ops/decode_attention.py (`decode_attention`, Pallas
-`_kernel`, bf16/f32 caches). On a CUDA tensor, `decode_attention` launches
-the hand-written Hopper kernel in csrc/decode_attention.cu; on a CPU tensor
-it runs `decode_attention_reference`, which is `gqa_attention` at S = 1 on
-the layer slice. There is no fallback from a CUDA tensor to the plain
-version.
+`_kernel` for bf16/f32 caches and `_quant_kernel` for int8 caches). On a
+CUDA tensor, `decode_attention` launches the hand-written Hopper kernel in
+csrc/decode_attention.cu; on a CPU tensor it runs
+`decode_attention_reference`, which is `gqa_attention` at S = 1 on the layer
+slice. There is no fallback from a CUDA tensor to the plain version.
 
 The full cache is the kernel's operand and `layer` selects its slice by
 pointer offset, never by a copied slice. One thread block serves one
-(slot, KV head) and all of that head's query heads, so each K/V row is read
-once for the group. The TPU kernel's capacity gate (`supports`) is a TPU
-measurement and is not carried over: every single-position decode on the
-card takes this kernel. Int8 caches (`_quant_kernel`) are not ported yet
-(ROADMAP Queue 2).
+(slot, KV head) and up to 8 of that head's query heads, so each K/V row is
+read once per 8 heads; any group size runs (`kernel_supports`). An int8
+cache comes with [L, B, K, T] float32 scale planes: the k scale multiplies
+each score and the v scale each probability, as in `_quant_kernel`. The TPU
+kernel's capacity gate (`supports`) is a TPU measurement and is not carried
+over: every single-position decode on the card takes this kernel.
 """
 
 from __future__ import annotations
@@ -25,15 +26,23 @@ from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.attention import gqa_attention
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-GROUPS = (1, 2, 4, 8)
+
+
+def kernel_supports(head_dim: int, group: int) -> bool:
+    """True when the CUDA kernel takes this head dim and query-heads-per-KV-
+    head group: any group of at least one head (the kernel tiles up to 8
+    heads per block and runs further blocks for more)."""
+    return head_dim in HEAD_DIMS and group >= 1
 
 
 def decode_attention(
     q: torch.Tensor,          # [B, n_q_heads, D] (single decode position)
-    k_cache: torch.Tensor,    # [L, B, T, K, D] FULL cache (bf16/f32)
+    k_cache: torch.Tensor,    # [L, B, T, K, D] FULL cache (bf16/f32 or int8)
     v_cache: torch.Tensor,
     layer: int,               # which layer's cache to read
     kv_length: torch.Tensor,  # [B] int32 valid entries (incl. current token)
+    k_scale: torch.Tensor | None = None,  # [L, B, K, T] f32 (int8 caches;
+    v_scale: torch.Tensor | None = None,  # position minor)
     *,
     window: int | None = None,  # sliding-window span: keys >= length - window
 ) -> torch.Tensor:
@@ -49,37 +58,55 @@ def decode_attention(
                          f"match cache {tuple(k_cache.shape)}")
     if kv_length.shape != (B,):
         raise ValueError(f"kv_length {tuple(kv_length.shape)} != ({B},)")
+    quantized = k_cache.dtype == torch.int8
+    if quantized != (k_scale is not None) or (k_scale is None) != (
+            v_scale is None):
+        raise ValueError("decode_attention: an int8 cache needs both scale "
+                         "planes, and only an int8 cache takes them")
+    if quantized and (k_scale.shape != (L, B, K, T)
+                      or v_scale.shape != k_scale.shape):
+        raise ValueError(f"decode_attention: scales {tuple(k_scale.shape)} / "
+                         f"{tuple(v_scale.shape)} != {(L, B, K, T)}")
     layer = int(layer)
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} layers")
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, layer,
-                                          kv_length, window=window)
+                                          kv_length, k_scale, v_scale,
+                                          window=window)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("kv_length", kv_length)):
+    operands = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                ("kv_length", kv_length)]
+    if quantized:
+        operands += [("k_scale", k_scale), ("v_scale", v_scale)]
+    for name, t in operands:
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
                              f"q on {q.device}")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise TypeError("decode_attention: q and the caches must share one "
-                        "dtype (int8 caches are not ported yet)")
-    if kv_length.dtype != torch.int32:
-        raise TypeError("decode_attention: kv_length must be int32")
-    if D not in HEAD_DIMS or nq // K not in GROUPS:
-        raise ValueError(f"decode_attention: head_dim {D} / group {nq // K} "
-                         f"not in {HEAD_DIMS} / {GROUPS}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("kv_length", kv_length)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be contiguous "
                              f"and 16-byte aligned")
+    if v_cache.dtype != k_cache.dtype or (not quantized
+                                          and k_cache.dtype != q.dtype):
+        raise TypeError("decode_attention: the caches share q's dtype, or "
+                        "are both int8")
+    if quantized and (k_scale.dtype != torch.float32
+                      or v_scale.dtype != torch.float32):
+        raise TypeError("decode_attention: scale planes must be float32")
+    if kv_length.dtype != torch.int32:
+        raise TypeError("decode_attention: kv_length must be int32")
+    if not kernel_supports(D, nq // K):
+        raise ValueError(f"decode_attention: head_dim {D} not in "
+                         f"{HEAD_DIMS}")
     code = kernels.dtype_code(q.dtype)
     out = torch.empty((B, nq, D), dtype=q.dtype, device=q.device)
     lib = kernels.library("decode_attention")
     rc = lib.decode_attention_launch(
-        code, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        code, kernels.DTYPE_INT8 if quantized else code, q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if quantized else None,
+        v_scale.data_ptr() if quantized else None,
         kv_length.data_ptr(), out.data_ptr(), L, B, T, K, D, nq, layer,
         int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(rc, "decode_attention")
@@ -92,7 +119,9 @@ decode_attention.launches = 0
 
 def decode_attention_reference(
     q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-    layer: int, kv_length: torch.Tensor, *, window: int | None = None,
+    layer: int, kv_length: torch.Tensor,
+    k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
+    *, window: int | None = None,
 ) -> torch.Tensor:
     """Plain version: gqa_attention at S = 1 on the layer slice (the decode
     query sits at position length - 1; lengths are clamped to T as the
@@ -100,5 +129,8 @@ def decode_attention_reference(
     T = k_cache.shape[2]
     lengths = torch.clamp(kv_length, max=T)
     positions = (lengths - 1)[:, None]
-    return gqa_attention(q[:, None], k_cache[layer], v_cache[layer],
-                         positions, lengths, sliding_window=window)[:, 0]
+    return gqa_attention(
+        q[:, None], k_cache[layer], v_cache[layer], positions, lengths,
+        sliding_window=window,
+        k_scale=k_scale[layer] if k_scale is not None else None,
+        v_scale=v_scale[layer] if v_scale is not None else None)[:, 0]

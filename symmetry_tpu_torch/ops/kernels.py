@@ -38,15 +38,27 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
                                  _LL, _LL, _LL, _I, _P],
     }),
     "decode_attention": ("decode_attention.cu", {
-        # dtype, q, k_cache, v_cache, kv_length, out,
-        # L, B, T, K, D, n_q, layer, window, stream
-        "decode_attention_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _I, _I, _I, _P],
+        # dtype, kv_dtype, q, k_cache, v_cache, k_scale, v_scale, kv_length,
+        # out, L, B, T, K, D, n_q, layer, window, stream
+        "decode_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _I, _I, _P],
+    }),
+    "kv_append": ("kv_append.cu", {
+        # dtype, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
+        # positions, L, B, T, K, D, layer, stream
+        "kv_append_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _I, _P],
+    }),
+    "w8a16": ("w8a16.cu", {
+        # x_dtype, out_dtype, x, w, scale, out, part, M, K, N, splits,
+        # k_per_split, apply_scale, stream
+        "w8a16_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
     }),
 }
 
 # Kernel dtype codes shared with csrc/.
-DTYPE_F32, DTYPE_BF16 = 0, 1
+DTYPE_F32, DTYPE_BF16, DTYPE_INT8 = 0, 1, 2
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -4,9 +4,11 @@ On the CPU the port's `decode_attention` runs its plain version
 (gqa_attention at S = 1 on the layer slice); it is held against JAX
 `decode_attention(..., interpret=True)` at every block size the JAX tests
 use, and against JAX `gqa_attention`, mirroring tests/test_decode_attention.py
-for the bf16/f32 (unquantized) cases. atol=2e-5: float32 on both sides. The
-CUDA kernel is held against the plain version on the card in
-tests/test_torch_gpu.py.
+for the bf16/f32 cases and the int8 cases (int8 payload, [L, B, K, T]
+scales folded into scores and probabilities). atol=2e-5: float32 on both
+sides. The CUDA kernel is held against the plain version on the card in
+tests/test_torch_gpu.py; `kernel_supports`, the one gate the wrapper uses,
+must take every preset's head dim and group size.
 """
 
 import jax.numpy as jnp
@@ -14,9 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from symmetry_tpu.models import PRESETS as JAX_PRESETS
 from symmetry_tpu.ops.attention import gqa_attention as jax_gqa
 from symmetry_tpu.ops.decode_attention import decode_attention as jax_decode
-from symmetry_tpu_torch.ops.decode_attention import decode_attention
+from symmetry_tpu.ops.quant import quantize_kv as jax_quantize_kv
+from symmetry_tpu_torch.models.llama import PRESETS
+from symmetry_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    kernel_supports,
+)
 
 ATOL = 2e-5
 
@@ -88,7 +96,7 @@ class TestDecodeAttentionPlain:
             port(q, k, v, 1, lengths), jax_kernel(q, k, v, 1, lengths, 32),
             atol=ATOL, rtol=0)
 
-    @pytest.mark.parametrize("G", [1, 2, 8])
+    @pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
     def test_group_sizes(self, G):
         q, k, v, lengths = make_case(G=G, D=32, seed=2)
         np.testing.assert_allclose(
@@ -119,3 +127,101 @@ class TestSlidingWindow:
         np.testing.assert_allclose(
             port(q, k, v, 0, lengths, window=10_000),
             port(q, k, v, 0, lengths), atol=ATOL, rtol=0)
+
+
+def quantized(k, v):
+    """int8 caches and position-minor [L, B, K, T] scales (JAX quantize_kv,
+    as the JAX tests build them)."""
+    kq, ks = jax_quantize_kv(jnp.asarray(k))
+    vq, vs = jax_quantize_kv(jnp.asarray(v))
+    return [np.array(a) for a in (kq, vq, jnp.moveaxis(ks, -1, -2),
+                                  jnp.moveaxis(vs, -1, -2))]
+
+
+def port_int8(q, kq, vq, ks, vs, layer, lengths, window=None):
+    t = [torch.from_numpy(a) for a in (q, kq, vq, ks, vs)]
+    return decode_attention(t[0], t[1], t[2], layer,
+                            torch.from_numpy(lengths), t[3], t[4],
+                            window=window).numpy()
+
+
+def jax_int8(q, kq, vq, ks, vs, layer, lengths, block_t, window=None):
+    return np.asarray(jax_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.int32(layer),
+        jnp.asarray(lengths), k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), block_t=block_t, window=window,
+        interpret=True))
+
+
+class TestInt8Cache:
+    @pytest.mark.parametrize("layer", [0, 1])
+    def test_quantized_matches_folded(self, layer):
+        q, k, v, lengths = make_case(seed=1)
+        kq, vq, ks, vs = quantized(k, v)
+        got = port_int8(q, kq, vq, ks, vs, layer, lengths)
+        np.testing.assert_allclose(
+            got, jax_int8(q, kq, vq, ks, vs, layer, lengths, 32), atol=ATOL,
+            rtol=0)
+        want = np.asarray(jax_gqa(
+            jnp.asarray(q)[:, None], jnp.asarray(kq[layer]),
+            jnp.asarray(vq[layer]), jnp.asarray((lengths - 1)[:, None]),
+            jnp.asarray(lengths), k_scale=jnp.asarray(ks[layer]),
+            v_scale=jnp.asarray(vs[layer])))[:, 0]
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+    @pytest.mark.parametrize("window", [8, 24])
+    def test_quantized_sliding(self, window):
+        q, k, v, lengths = make_case(seed=4)
+        kq, vq, ks, vs = quantized(k, v)
+        np.testing.assert_allclose(
+            port_int8(q, kq, vq, ks, vs, 1, lengths, window=window),
+            jax_int8(q, kq, vq, ks, vs, 1, lengths, 16, window=window),
+            atol=ATOL, rtol=0)
+
+    def test_quantized_empty_slot(self):
+        q, k, v, lengths = make_case(seed=6)
+        lengths[1] = 0
+        kq, vq, ks, vs = quantized(k, v)
+        got = port_int8(q, kq, vq, ks, vs, 0, lengths)
+        assert np.isfinite(got).all()
+        want = jax_int8(q, kq, vq, ks, vs, 0, lengths, 32)
+        np.testing.assert_allclose(got[[0, 2]], want[[0, 2]], atol=ATOL,
+                                   rtol=0)
+
+    @pytest.mark.parametrize("G", [1, 2, 4, 7, 8])
+    def test_quantized_group_sizes(self, G):
+        q, k, v, lengths = make_case(G=G, D=32, seed=7)
+        kq, vq, ks, vs = quantized(k, v)
+        np.testing.assert_allclose(
+            port_int8(q, kq, vq, ks, vs, 1, lengths),
+            jax_int8(q, kq, vq, ks, vs, 1, lengths, 16), atol=ATOL, rtol=0)
+
+    def test_scales_required_with_int8(self):
+        q, k, v, lengths = make_case()
+        kq, vq, ks, _ = quantized(k, v)
+        t = [torch.from_numpy(a) for a in (q, kq, vq, ks)]
+        with pytest.raises(ValueError, match="scale"):
+            decode_attention(t[0], t[1], t[2], 0, torch.from_numpy(lengths))
+        with pytest.raises(ValueError, match="scale"):
+            decode_attention(t[0], t[1], t[2], 0, torch.from_numpy(lengths),
+                             t[3], None)
+
+
+class TestKernelGate:
+    def test_every_preset_runs_the_kernel(self):
+        """The repaired gate: qwen2-7b's group of 7 (28 heads over 4) and
+        every other preset's (head_dim, group) take the CUDA kernel."""
+        assert PRESETS.keys() == JAX_PRESETS.keys()
+        pairs = {(c.dim_per_head, c.num_heads // c.num_kv_heads)
+                 for c in PRESETS.values()}
+        assert (128, 7) in pairs
+        for d, g in sorted(pairs):
+            assert kernel_supports(d, g), (d, g)
+
+    @pytest.mark.parametrize("group", [1, 3, 5, 6, 7, 12, 16])
+    def test_any_group_size(self, group):
+        assert kernel_supports(128, group)
+
+    def test_head_dims(self):
+        assert not kernel_supports(96, 4) and not kernel_supports(512, 1)
+        assert not kernel_supports(128, 0)

@@ -6,8 +6,9 @@ both schedulers serve the same three greedy requests of different prompt
 lengths. A test tokenizer maps every id to its own character, so the
 streamed text carries the exact token ids: they must be identical, and so
 must the finish reasons. Also here: every knob outside the slice raises
-EngineError, seeded sampling reproduces, and the package imports nothing of
-JAX.
+EngineError, fused_dequant refuses dense weights and counts the int8 leaves
+it leaves flat, seeded sampling reproduces, and the package (the int8
+modules included) imports nothing of JAX.
 """
 
 import os
@@ -186,8 +187,6 @@ class TestSampling:
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
         ("mesh", object(), "item 14"),
-        ("kv_quant", True, "item 9"),
-        ("fused_dequant", True, "item 9"),
         ("speculative", object(), "item 7"),
         ("prefix_cache_bytes", 1 << 20, "item 6"),
         ("role", "prefill", "item 11"),
@@ -200,6 +199,43 @@ class TestEngineSurface:
         _, params = weights
         with pytest.raises(EngineError, match=item):
             port_engine(params, 1, **{knob: value})
+
+    def test_fused_dequant_needs_int8_weights(self, weights):
+        """The JAX engine's refusal: fused_dequant on dense weights would be
+        silently inert, so it raises."""
+        _, params = weights
+        with pytest.raises(EngineError, match="int8"):
+            port_engine(params, 1, fused_dequant=True)
+
+    def test_untileable_leaves_stay_flat_and_are_counted(self, weights):
+        """tiny's wk/wv (kv_dim 32) are narrower than one 64-column panel:
+        they stay QuantizedTensors on the mixed dot, each logged and counted
+        in sym_qmm_fallback_total{reason="untileable"}; the rest pack."""
+        from symmetry_tpu_torch.models.llama import quantize_params
+        from symmetry_tpu_torch.ops.quant import (PackedQuantizedTensor,
+                                                  QuantizedTensor)
+        from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
+
+        _, params = weights
+        counter = METRICS.counter(MetricName.QMM_FALLBACK,
+                                  labels=("reason",))
+        before = counter.value(reason="untileable")
+        int8 = quantize_params({**params, "layers": dict(params["layers"])})
+        engine = port_engine(int8, 1, fused_dequant=True, kv_quant=True)
+        layers = engine.params["layers"]
+        assert isinstance(layers["wk"], QuantizedTensor)
+        assert isinstance(layers["wv"], QuantizedTensor)
+        for name in ("wq", "wo", "wg", "wu", "wd"):
+            assert isinstance(layers[name], PackedQuantizedTensor), name
+        assert isinstance(engine.params["lm_head"], PackedQuantizedTensor)
+        assert counter.value(reason="untileable") == before + 2
+        # int8 payload + float32 scales, embedding excluded (untied)
+        want = sum(t.numel() * t.element_size()
+                   for leaf in (*layers.values(), engine.params["lm_head"],
+                                engine.params["final_norm"])
+                   for t in (leaf if isinstance(leaf, tuple) else (leaf,)))
+        assert engine.weight_stream_bytes() == want
+        assert engine.prefill_and_insert(0, [1, 2, 3], SamplingParams()) >= 0
 
     def test_no_cuda_raises_instead_of_falling_back(self, weights,
                                                      monkeypatch):
@@ -240,7 +276,10 @@ import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 20, names
+assert len(names) >= 23, names
+for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
+            "convert"):
+    assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

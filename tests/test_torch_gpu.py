@@ -3,7 +3,8 @@
 Each kernel is held against its plain PyTorch version on the same inputs on
 the card: atol 1e-4 in float32 (TF32 off; only summation order differs) and
 2e-2 in bfloat16 (the plain version rounds its inputs the same way but sums
-in another order). Every test skips here, with its reason, when no CUDA
+in another order); the KV append bit for bit; W8A16 relative to its
+output's magnitude. Every test skips here, with its reason, when no CUDA
 device is present. This file imports nothing of JAX, so on the card it runs
 without the JAX package's test configuration:
 
@@ -19,6 +20,9 @@ from symmetry_tpu_torch.ops.decode_attention import (
     decode_attention_reference,
 )
 from symmetry_tpu_torch.ops.flash import flash_prefill, flash_prefill_reference
+from symmetry_tpu_torch.ops.kv_append import kv_append, kv_append_reference
+from symmetry_tpu_torch.ops.qmm import w8a16_matmul, w8a16_reference
+from symmetry_tpu_torch.ops.quant import pack_quantized, quantize, quantize_kv
 
 
 def cuda_or_skip():
@@ -94,7 +98,7 @@ class TestFlashKernel:
 @pytest.mark.gpu
 class TestDecodeAttentionKernel:
     @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
-    @pytest.mark.parametrize("G", [1, 2, 4, 8])
+    @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 16])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("window", [None, 37])
     def test_kernel_matches_plain(self, D, G, dtype, window):
@@ -115,6 +119,60 @@ class TestDecodeAttentionKernel:
         torch.testing.assert_close(got[1:].float(), want[1:].float(),
                                    atol=tol, rtol=0)
 
+    @pytest.mark.parametrize("D", [16, 64, 128, 256])
+    @pytest.mark.parametrize("G", [1, 4, 7, 8, 16])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("window", [None, 37])
+    def test_int8_kernel_matches_plain(self, D, G, dtype, window):
+        """int8 payload + position-minor scales: the k scale multiplies the
+        scores and the v scale the probabilities, in the kernel and in
+        gqa_attention (which also rounds the probabilities to q's dtype;
+        hence 2e-2 in bf16, 1e-4 in float32)."""
+        dev = cuda_or_skip()
+        T = 160
+        q, k, v, lengths = make_case(B=4, T=T, K=2, G=G, D=D, L=3, seed=13,
+                                     lengths=[0, 1, 77, T])
+        kq, ks = quantize_kv(torch.from_numpy(k))
+        vq, vs = quantize_kv(torch.from_numpy(v))
+        ks, vs = (s.transpose(-1, -2).contiguous().to(dev) for s in (ks, vs))
+        kq, vq = kq.to(dev), vq.to(dev)
+        q = torch.from_numpy(q).to(dev, dtype)
+        lengths = torch.from_numpy(lengths).to(dev)
+        before = decode_attention.launches
+        got = decode_attention(q, kq, vq, 2, lengths, ks, vs, window=window)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 1
+        assert torch.isfinite(got).all()
+        want = decode_attention_reference(q, kq, vq, 2, lengths, ks, vs,
+                                          window=window)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        torch.testing.assert_close(got[1:].float(), want[1:].float(),
+                                   atol=tol, rtol=0)
+
+    @pytest.mark.parametrize("int8", [False, True])
+    def test_qwen2_group_of_seven(self, int8):
+        """qwen2-7b heads: 28 query heads over 4 KV heads, D = 128."""
+        dev = cuda_or_skip()
+        q, k, v, lengths = make_case(B=3, T=96, K=4, G=7, D=128, L=2,
+                                     seed=14, lengths=[96, 50, 3])
+        q = torch.from_numpy(q).to(dev, torch.bfloat16)
+        lengths = torch.from_numpy(lengths).to(dev)
+        if int8:
+            (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(a))
+                                  for a in (k, v))
+            caches = (kq.to(dev), vq.to(dev))
+            scales = tuple(s.transpose(-1, -2).contiguous().to(dev)
+                           for s in (ks, vs))
+        else:
+            caches = tuple(torch.from_numpy(a).to(dev, torch.bfloat16)
+                           for a in (k, v))
+            scales = (None, None)
+        got = decode_attention(q, *caches, 1, lengths, *scales)
+        want = decode_attention_reference(q, *caches, 1, lengths, *scales)
+        assert got.shape == (3, 28, 128)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+
     def test_length_past_capacity_reads_capacity(self):
         dev = cuda_or_skip()
         q, k, v, _ = make_case(B=2, T=64, seed=12)
@@ -123,6 +181,94 @@ class TestDecodeAttentionKernel:
         got = decode_attention(q, k, v, 0, over)
         want = decode_attention(q, k, v, 0, torch.full_like(over, 64))
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+class TestKvAppendKernel:
+    L, B, T, K, D = 3, 8, 64, 2, 128
+
+    def state(self, dev, dtype, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        L, B, T, K, D = self.L, self.B, self.T, self.K, self.D
+        ck = torch.randint(-127, 128, (L, B, T, K, D), generator=g,
+                           dtype=torch.int8)
+        cv = torch.randint(-127, 128, (L, B, T, K, D), generator=g,
+                           dtype=torch.int8)
+        ks = torch.rand((L, B, K, T), generator=g)
+        vs = torch.rand((L, B, K, T), generator=g)
+        kn = (torch.randn((B, K, D), generator=g) * 3).to(dtype)
+        vn = (torch.randn((B, K, D), generator=g) * 3).to(dtype)
+        return [t.to(dev) for t in (ck, cv, ks, vs, kn, vn)]
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("layer", [0, 2])
+    def test_bit_equal_to_plain(self, dtype, layer):
+        """Payload AND scales bit-equal: the same float32 arithmetic, rint
+        and IEEE division on both sides. Untouched rows survive; an
+        out-of-range position writes row T - 1."""
+        dev = cuda_or_skip()
+        T = self.T
+        pos = torch.tensor([0, 1, 31, 32, T - 1, T, T + 5, 40],
+                           dtype=torch.int32, device=dev)
+        got = self.state(dev, dtype, seed=layer)
+        want = self.state(dev, dtype, seed=layer)
+        before = kv_append.launches
+        kv_append(*got, layer, pos)
+        torch.cuda.synchronize()
+        assert kv_append.launches == before + 1
+        kv_append_reference(*want, layer, pos)
+        for g_, w_ in zip(got[:4], want[:4]):
+            assert torch.equal(g_, w_)
+        pristine = self.state(dev, dtype, seed=layer)
+        assert torch.equal(got[0][layer, 7, 41:], pristine[0][layer, 7, 41:])
+        assert torch.equal(got[2][layer, 7, :, :40],
+                           pristine[2][layer, 7, :, :40])
+        other = 1 - layer // 2
+        assert torch.equal(got[0][other], pristine[0][other])
+        q, _ = quantize_kv(got[4][5:6])
+        assert torch.equal(got[0][layer, 5, T - 1], q[0])
+
+
+@pytest.mark.gpu
+class TestW8A16Kernel:
+    @pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 300])
+    @pytest.mark.parametrize("K,N", [(64, 64), (128, 192), (4096, 1024),
+                                     (1024, 512), (96, 128)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_kernel_matches_plain(self, M, K, N, dtype):
+        """Float32 sums on both sides in another order: 1e-4 relative to
+        the output's scale in float32; one bf16 rounding of the output
+        (2**-8 relative) in bf16."""
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(M * 7 + K + N)
+        x = torch.randn((M, K), generator=g).to(dev, dtype)
+        pt = pack_quantized(quantize(torch.randn((K, N), generator=g)
+                                     * 0.05))
+        q, s = pt.q.to(dev), pt.scale.to(dev)
+        before = w8a16_matmul.launches
+        got = w8a16_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert w8a16_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (M, N)
+        want = w8a16_reference(x, q, s)
+        mag = float(want.float().abs().max())
+        tol = 1e-4 * mag if dtype == torch.float32 else 8e-3 * mag
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+
+    @pytest.mark.parametrize("M", [8, 100])
+    def test_raw_sums_without_scale(self, M):
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn((M, 256), generator=g).to(dev, torch.bfloat16)
+        pt = pack_quantized(quantize(torch.randn((256, 128), generator=g)))
+        q, s = pt.q.to(dev), pt.scale.to(dev)
+        got = w8a16_matmul(x, q, s, out_dtype=torch.float32,
+                           apply_scale=False)
+        want = w8a16_reference(x, q, s, out_dtype=torch.float32,
+                               apply_scale=False)
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-5)
 
 
 @pytest.mark.gpu
@@ -154,6 +300,44 @@ class TestEngineOnCard:
             return firsts, np.concatenate(blocks)[:, :len(prompts)]
 
         f_card, t_card = run(dev)
+        f_cpu, t_cpu = run("cpu")
+        assert f_card == f_cpu
+        np.testing.assert_array_equal(t_card, t_cpu)
+
+    def test_tiny_int8_greedy_card_equals_cpu(self):
+        """int8 weights (packed where the kernel takes them) and an int8
+        KV cache: all three int8 kernels on the card, plain versions on
+        the CPU, greedy ids identical."""
+        from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                      SamplingParams)
+        from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+        from symmetry_tpu_torch.models.llama import init_params, preset
+
+        dev = cuda_or_skip()
+        cfg = preset("tiny")
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, quantize=True)
+        prompts = [[5, 6, 7], list(range(20, 40)), [300] * 9]
+
+        def run(device):
+            engine = InferenceEngine(cfg, params, ByteTokenizer(512),
+                                     max_slots=4, max_seq_len=64,
+                                     prefill_buckets=(16, 32),
+                                     cache_dtype=torch.float32,
+                                     decode_block=4, kv_quant=True,
+                                     fused_dequant=True, device=device)
+            firsts = engine.prefill_and_insert_many(
+                [(i, p, SamplingParams()) for i, p in enumerate(prompts)])
+            blocks = [np.asarray(engine.decode_steps_dispatch())
+                      for _ in range(4)]
+            return firsts, np.concatenate(blocks)[:, :len(prompts)]
+
+        counts = (w8a16_matmul.launches, kv_append.launches,
+                  decode_attention.launches)
+        f_card, t_card = run(dev)
+        assert all(after > before for after, before in zip(
+            (w8a16_matmul.launches, kv_append.launches,
+             decode_attention.launches), counts))
         f_cpu, t_cpu = run("cpu")
         assert f_card == f_cpu
         np.testing.assert_array_equal(t_card, t_cpu)

@@ -34,6 +34,7 @@ from symmetry_tpu_torch.models.llama import (
     logits_from_hidden,
     preset,
 )
+from symmetry_tpu_torch.ops.decode_attention import decode_attention
 
 ATOL = 1e-4
 PRESETS = ["tiny", "tiny-mha", "tiny-qwen", "tiny-gemma"]
@@ -187,8 +188,18 @@ class TestModelSurface:
             init_params(preset("tiny-moe"), torch.Generator())
 
     def test_quantized_cache_refused(self):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            init_cache(preset("tiny"), 1, 8, quantized=True, device="cpu")
+        """An int8 cache comes in the JAX layout ([L, B, T, K, D] int8 with
+        [L, B, K, T] float32 scale planes); its payload without the scale
+        planes is refused by decode attention."""
+        cache = init_cache(preset("tiny"), 1, 8, quantized=True,
+                           device="cpu")
+        assert cache.quantized and cache.k.dtype == torch.int8
+        assert cache.k.shape == (2, 1, 8, 2, 16)
+        assert cache.k_scale.shape == (2, 1, 2, 8)
+        assert cache.k_scale.dtype == torch.float32
+        with pytest.raises(ValueError, match="scale"):
+            decode_attention(torch.zeros((1, 4, 16)), cache.k, cache.v, 0,
+                             torch.ones(1, dtype=torch.int32))
 
     def test_ring_mesh_refused(self):
         cfg = preset("tiny")
