@@ -8,16 +8,18 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
               limit (nvidia-smi);
-  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (four
+  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (five
               libraries, one nvcc each, started together);
   3. kernels  each kernel against its plain PyTorch version at the serving
               path's widths (llama3-8b heads and weights, bf16): flash and
               decode attention (bf16 and int8 caches, and a qwen2-7b group
               of 7) within 2e-2 on valid rows, the KV append bit for bit,
-              W8A16 within one bf16 step of its largest output; kernel,
-              plain and library (a yardstick only) device times (kernel
-              durations summed by torch.profiler; the eager call's CUDA-
-              event time is logged beside), and each kernel's bound;
+              W8A16 within one bf16 step of its largest output, W8A8 bit
+              for bit (wq, wg, wd, lm_head at 32, 128 and 2048 rows; no
+              serving path routes it); kernel, plain and library (a
+              yardstick only) device times (kernel durations summed by
+              torch.profiler; the eager call's CUDA-event time is logged
+              beside), and each kernel's bound;
   4. tiny     the `tiny` preset in float32 through the port's engine and
               Scheduler on the card (kernels) and on the CPU (plain
               versions), dense and then with int8 weights and an int8
@@ -32,8 +34,23 @@ Phases (any failure raises and exits non-zero):
               W8A16 kernel and an int8 KV cache: flash, KV append, int8
               decode attention and W8A16 on the path (launch counts
               checked);
-  7. report   one JSON line listing the kernels, the nvidia-smi line, and
-              last the {"ok": true, ...} line.
+  7. host tiny  `python -m symmetry_tpu_torch.engine.host` on `tiny` in
+              float32 with a small prefill_chunk and the prefix cache on,
+              one host on the card and one with --device cpu, fed the same
+              requests: dense, then int8 weights + int8 KV; streamed text
+              identical, a prefix hit on both;
+  8. host     the host serving llama3-8b in bf16 at full depth from the
+              provider's default `tpu:` section (8 slots, capacity 2048,
+              buckets 128/512/2048, prefill_chunk 256, decode_block 16,
+              pipeline_depth 2) plus model_preset and a 1024 MiB prefix
+              cache: 8 chats of 60-1880 tokens (two flash, six chunked),
+              then 4 sharing the longest one's first 1536 tokens (prefix
+              hits: two one-dispatch, two seeded chunked); stats, shutdown
+              (exit 0), TTFT by path, tok/s, memory; then, in-process on the
+              same config, a profile of one chunk step and one cached
+              admission and the chunk attention's device time;
+  9. report   one JSON line listing the six kernel rows, the nvidia-smi
+              line, and last the {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -42,6 +59,9 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -51,8 +71,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores,
+# HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 TOL = 2e-2
 ID_BASE = 0x4E00
@@ -70,28 +92,34 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, name: str = "") -> float:
     """Device time of one call of fn: the CUDA kernels' durations summed by
     torch.profiler over `iters` calls, after a warm-up. Idle gaps between
     launches (the host's share) are not counted, so a small kernel is not
-    measured by its wrapper's Python overhead."""
+    measured by its wrapper's Python overhead. With `name`, only the
+    kernels whose name contains it (one kernel of a wrapper that launches
+    several)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-                  for ev in prof.key_averages()
-                  if getattr(ev, "device_type", None) == DeviceType.CUDA)
-    if busy_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return busy_us / 1e3 / iters
+    # A profiling session now and then records nothing at all (seen once
+    # in a run of many sessions): take another before giving up.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+                      for ev in prof.key_averages()
+                      if getattr(ev, "device_type", None) == DeviceType.CUDA
+                      and name in ev.key)
+        if busy_us > 0:
+            return busy_us / 1e3 / iters
+    raise AssertionError(f"the profiler recorded no device time {name}")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -111,8 +139,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+def bound(nbytes: float, flops: float,
+          peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -411,6 +440,63 @@ def check_w8a16() -> dict:
                 **row)
 
 
+def check_w8a8() -> dict:
+    """llama3-8b projection shapes at M = 32, 128 and 2048 rows: the kernel
+    bit-equal to its plain version (exact int32 sums, the same two rounded
+    multiplies). Timed: the wrapper (row quantization + kernel) against
+    the plain version, torch._int_mm (the int8 product alone, weight in its
+    column-major layout) as the library yardstick, and the bound at the
+    int8 peak. No serving path routes W8A8: its launches are this phase's."""
+    from symmetry_tpu_torch.ops.qmm import (quantize_rows, w8a8_matmul,
+                                            w8a8_reference)
+    from symmetry_tpu_torch.ops.quant import quantize
+
+    shapes = {"wq": (4096, 4096), "wg": (4096, 14336), "wd": (14336, 4096),
+              "lm_head": (4096, 128256)}
+    g = torch.Generator(device="cuda").manual_seed(50)
+    w8a8_matmul.launches = 0
+    row = None
+    for name, (K, N) in shapes.items():
+        qt = quantize(torch.randn((K, N), generator=g, device="cuda",
+                                  dtype=torch.bfloat16).mul_(K ** -0.5))
+        w_col = qt.q.t().contiguous().t()  # _int_mm's fast layout
+        for M in (32, 128, 2048):
+            x = torch.randn((M, K), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            got = w8a8_matmul(x, qt.q, qt.scale)
+            torch.cuda.synchronize()
+            want = w8a8_reference(x, qt.q, qt.scale)
+            if not torch.isfinite(got).all() or not torch.equal(got, want):
+                err = float((got.float() - want.float()).abs().max())
+                raise AssertionError(f"w8a8 {name} M={M}: not bit-equal to "
+                                     f"the plain version (max err {err})")
+            ms = device_ms(lambda: w8a8_matmul(x, qt.q, qt.scale), 10)
+            kern_ms = device_ms(lambda: w8a8_matmul(x, qt.q, qt.scale), 10,
+                                name="w8a8_kernel")
+            plain_ms = device_ms(
+                lambda: w8a8_reference(x, qt.q, qt.scale), 2)
+            xq, _ = quantize_rows(x)
+            library_ms = device_ms(lambda: torch._int_mm(xq, w_col), 10)
+            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            bound_ms, bound_by = bound(nbytes, 2.0 * M * K * N, PEAK_INT8_OPS)
+            log(f"  w8a8 {name} [{K}, {N}] M={M}: bit-equal; device ms: "
+                f"wrapper {ms:.4f} (kernel alone {kern_ms:.4f}), plain "
+                f"{plain_ms:.4f}, torch._int_mm {library_ms:.4f}, bound "
+                f"{bound_ms:.4f} ({bound_by})")
+            if (name, M) == ("wg", 2048):  # the prefill regime's widest leaf
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+            del x, got, want, xq
+        del qt, w_col
+        torch.cuda.empty_cache()
+    return dict(name="w8a8_matmul", route="cuda",
+                source="symmetry_tpu_torch/csrc/w8a8.cu",
+                replaces="symmetry_tpu/ops/qmm.py:129", max_abs_err=0.0,
+                launches=w8a8_matmul.launches,
+                path="none: no serving path routes W8A8 in either package; "
+                     "launches are phase 3's", **row)
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the engine behind the Scheduler
 
@@ -613,6 +699,348 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: the port's engine host (python -m symmetry_tpu_torch.engine.host)
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
+HOST_TIMEOUT = 300.0  # seconds for any one frame; a stall fails the phase
+
+# The provider's default `tpu:` section (provider/config.py TpuConfig) is
+# the base; each phase names only what it changes.
+PROVIDER = {"name": "chip-smoke", "public": False, "serverKey": "00" * 32,
+            "apiProvider": "tpu_native", "dataCollectionEnabled": False}
+
+
+class HostProc:
+    """One engine host subprocess: commands in on stdin, frames read back
+    on a thread, each wait bounded; logs (stderr) to build/chip_smoke/."""
+
+    def __init__(self, label: str, tpu: dict, *, device: str | None = None):
+        import yaml
+
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self.label = label
+        cfg_path = os.path.join(OUT_DIR, f"host_{label}.yaml")
+        with open(cfg_path, "w") as fh:
+            yaml.safe_dump({**PROVIDER, "modelName": label, "tpu": tpu}, fh)
+        self.log_path = os.path.join(OUT_DIR, f"host_{label}.log")
+        self._log = open(self.log_path, "w")
+        argv = [sys.executable, "-m", "symmetry_tpu_torch.engine.host",
+                cfg_path] + (["--device", device] if device else [])
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        self.proc = subprocess.Popen(argv, cwd=ROOT, env=env,
+                                     stdin=subprocess.PIPE,
+                                     stdout=subprocess.PIPE, stderr=self._log,
+                                     text=True, bufsize=1)
+        self.frames: list[dict] = []
+        self._q: queue.Queue = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            frame = json.loads(line)
+            frame["_recv"] = time.monotonic()  # when this process read it
+            self._q.put(frame)
+        self._q.put(None)
+
+    def send(self, obj: dict) -> None:
+        self.proc.stdin.write(json.dumps(obj) + "\n")
+        self.proc.stdin.flush()
+
+    def wait_for(self, pred, timeout: float = HOST_TIMEOUT) -> dict:
+        """Frames until one matches; raises if the host dies or stalls."""
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                frame = self._q.get(timeout=max(0.0, deadline -
+                                                time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(f"host {self.label}: no frame in "
+                                     f"{timeout:.0f} s (log {self.log_path})")
+            if frame is None:
+                raise AssertionError(f"host {self.label} exited rc="
+                                     f"{self.proc.wait()} (log "
+                                     f"{self.log_path})")
+            self.frames.append(frame)
+            if pred(frame):
+                return frame
+
+    def events(self, req_id: str) -> list[dict]:
+        """The request's events, each stamped with its frame's `_recv`."""
+        out = []
+        for f in self.frames:
+            if f.get("op") == "event" and f.get("id") == req_id:
+                out.append(f)
+            elif f.get("op") == "events":
+                out += [{**e, "_recv": f["_recv"]} for e in f["events"]
+                        if e["id"] == req_id]
+        return out
+
+    def wait_done(self, req_ids) -> None:
+        for rid in req_ids:
+            if not any(e.get("done") for e in self.events(rid)):
+                self.wait_for(lambda f, rid=rid: any(
+                    e.get("done") and e.get("id") == rid
+                    for e in ([f] if f.get("op") == "event"
+                              else f.get("events", []))))
+
+    def stats(self) -> dict:
+        self.send({"op": "stats"})
+        return self.wait_for(lambda f: f.get("op") == "stats")
+
+    def shutdown(self, timeout: float = 120.0) -> int:
+        self.send({"op": "shutdown"})
+        try:
+            return self.proc.wait(timeout)
+        finally:
+            self.kill()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._log.close()
+
+    def log_text(self) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()
+
+
+def submit(host: HostProc, req_id: str, content: str | list,
+           max_new: int) -> None:
+    messages = (content if isinstance(content, list)
+                else [{"role": "user", "content": content}])
+    host.send({"op": "submit", "id": req_id, "messages": messages,
+               "max_new": max_new, "sampling": {"temperature": 0.0}})
+
+
+def stream(host: HostProc, req_id: str) -> dict:
+    evs = host.events(req_id)
+    ttft = [e["ttft_s"] for e in evs if "ttft_s" in e]
+    return dict(text="".join(e["text"] for e in evs),
+                tokens=evs[-1]["tokens"], reason=evs[-1]["finish_reason"],
+                reused=evs[0].get("reused"), ttft_s=ttft[0] if ttft else None,
+                first_at=evs[0]["_recv"], done_at=evs[-1]["_recv"])
+
+
+def check_host_tiny() -> None:
+    """The host on `tiny` in float32, card against CPU, from one config with
+    a small prefill_chunk (prompts chunk) and the prefix cache on: dense,
+    then int8 weights (fused) and an int8 KV cache. Requests go one at a
+    time; greedy streamed text must be identical."""
+    long_msg = ("please summarize this rather long message so that its "
+                "prompt spans several prefill chunks of the engine")
+    conversation = [
+        "hello",
+        long_msg,
+        long_msg,  # an exact repeat: a prefix-cache hit
+        [{"role": "user", "content": long_msg},
+         {"role": "assistant", "content": "ok"},
+         {"role": "user", "content": "and now in one short line"}],
+    ]
+    base = {"model_preset": "tiny", "dtype": "float32", "max_batch_size": 2,
+            "max_seq_len": 256, "prefill_buckets": [32, 64, 128, 256],
+            "prefill_chunk": 32, "prefix_cache_mb": 1, "decode_block": 4}
+    for int8 in (False, True):
+        tpu = dict(base, **({"quantization": "int8",
+                             "kv_quantization": "int8",
+                             "fused_dequant": True} if int8 else {}))
+        tag = "int8" if int8 else "f32"
+        hosts = [HostProc(f"tiny_{tag}_cuda", tpu),
+                 HostProc(f"tiny_{tag}_cpu", tpu, device="cpu")]
+        try:
+            for h in hosts:
+                h.wait_for(lambda f: f.get("op") == "ready")
+            for i, content in enumerate(conversation):
+                for h in hosts:
+                    submit(h, f"t{i}", content, 12)
+                for h in hosts:
+                    h.wait_done([f"t{i}"])
+            card, cpu = ([stream(h, f"t{i}") for i in range(len(conversation))]
+                         for h in hosts)
+            stats = hosts[0].stats()
+            for h in hosts:
+                if h.shutdown() != 0:
+                    raise AssertionError(f"host {h.label} exit code != 0")
+        finally:
+            for h in hosts:
+                h.kill()
+        for a, b in zip(card, cpu):
+            if (a["text"], a["tokens"], a["reason"], a["reused"]) != (
+                    b["text"], b["tokens"], b["reason"], b["reused"]):
+                raise AssertionError(f"host tiny {tag}: card {a} != cpu {b}")
+        if not (card[2]["reused"] or 0) > 0:
+            raise AssertionError(f"host tiny {tag}: no prefix hit: {card}")
+        k = stats["kernels"]
+        if min(k["flash_prefill"], k["decode_attention"]) <= 0 or (
+                int8 and min(k["kv_append"], k["w8a16_matmul"]) <= 0):
+            raise AssertionError(f"host tiny {tag}: kernels {k}")
+        log(f"  host tiny {tag}: {len(card)} requests, streamed text "
+            f"identical card vs CPU (reused {[r['reused'] for r in card]}, "
+            f"chunk dispatches {stats['chunk_dispatches']}, card launches "
+            f"{k})")
+
+
+def chat_content(rng: np.random.Generator, n: int) -> str:
+    """n characters of lowercase words: n tokens under the byte tokenizer."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz    "))
+    return "".join(rng.choice(letters, n))
+
+
+def check_host_full(smi: str) -> dict:
+    """llama3-8b in bf16 at full depth behind the port's host, from the
+    provider's default `tpu:` section plus model_preset and a 1024 MiB
+    prefix cache. Wave 1: 8 greedy chats, two <= 256 tokens (flash) and six
+    chunked; wave 2: 4 chats sharing wave 1's longest prompt's first 1536
+    tokens, two with short tails (the one-dispatch hit path) and two with
+    ~300-token tails (the seeded chunked path)."""
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    tpu = {"model_preset": "llama3-8b", "prefix_cache_mb": 1024}
+    defaults = TpuConfig.from_dict(tpu)
+    tok = get_tokenizer(None, vocab_size=128256)
+    head = len(tok.apply_chat_template([{"role": "user", "content": ""}]))
+    rng = np.random.default_rng(0)
+    max_new = 64
+    lens1 = [60, 200, 300, 500, 800, 1100, 1500, 1880]
+    wave1 = [chat_content(rng, n - head) for n in lens1]
+    shared = wave1[-1][:1536 - 7]  # 7 template tokens precede the content
+    wave2 = [shared + chat_content(rng, n) for n in (50, 60, 290, 300)]
+    ids1 = [tok.apply_chat_template([{"role": "user", "content": c}])
+            for c in wave1]
+    ids2 = [tok.apply_chat_template([{"role": "user", "content": c}])
+            for c in wave2]
+    if [ids[:1536] for ids in ids2] != [ids1[-1][:1536]] * 4:
+        raise AssertionError("wave 2 does not share 1536 tokens")
+    log(f"  wave 1 prompt tokens {[len(i) for i in ids1]}, wave 2 "
+        f"{[len(i) for i in ids2]} (prefill_chunk {defaults.prefill_chunk}, "
+        f"buckets {defaults.prefill_buckets}, decode_block "
+        f"{defaults.decode_block}, pipeline_depth {defaults.pipeline_depth})")
+    host = HostProc("llama3_8b", tpu)
+    try:
+        ready = host.wait_for(lambda f: f.get("op") == "ready")
+        before = host.stats()["kernels"]
+        t0 = time.monotonic()
+        for i, c in enumerate(wave1):
+            submit(host, f"a{i}", c, max_new)
+        host.wait_done([f"a{i}" for i in range(len(wave1))])
+        t1 = time.monotonic()
+        for i, c in enumerate(wave2):
+            submit(host, f"b{i}", c, max_new)
+        host.wait_done([f"b{i}" for i in range(len(wave2))])
+        t2 = time.monotonic()
+        stats = host.stats()
+        rc = host.shutdown()
+    finally:
+        host.kill()
+    if rc != 0:
+        raise AssertionError(f"host exit code {rc}")
+    r1 = [stream(host, f"a{i}") for i in range(len(wave1))]
+    r2 = [stream(host, f"b{i}") for i in range(len(wave2))]
+    for r in r1 + r2:
+        if r["reason"] not in ("length", "stop") or not (
+                0 < r["tokens"] <= max_new):
+            raise AssertionError(f"host request ended {r['reason']} after "
+                                 f"{r['tokens']} tokens")
+    if not all((r["reused"] or 0) > 0 for r in r2):
+        raise AssertionError(f"wave 2 without prefix reuse: "
+                             f"{[r['reused'] for r in r2]}")
+    if not stats["engine_alive"]:
+        raise AssertionError("engine thread not alive at stats")
+    blocks = stats["block_syncs"]
+    writes = stats["emit"]["pipe_event_writes"]
+    if writes > blocks + len(r1) + len(r2):
+        raise AssertionError(f"{writes} event writes for {blocks} blocks")
+    launches = {k: v - before[k] for k, v in stats["kernels"].items()}
+    if min(launches["flash_prefill"], launches["decode_attention"]) <= 0:
+        raise AssertionError(f"host path launches {launches}")
+    text = host.log_text()
+    mem = [m for m in re.findall(r"max_memory_allocated=([0-9.]+)GiB", text)]
+
+    def ttft(rs):
+        vals = [r["ttft_s"] for r in rs]
+        return f"p50 {statistics.median(vals):.4f} s (max {max(vals):.4f} s)"
+
+    # Phase 5's definition, per wave: tokens after each request's first,
+    # over the wall from the wave's first first token to its last finish
+    # (frames as this process read them).
+    decoded = sum(r["tokens"] - 1 for r in r1 + r2)
+    decode_wall = sum(max(r["done_at"] for r in rs)
+                      - min(r["first_at"] for r in rs) for rs in (r1, r2))
+    log(f"  llama3-8b bf16 host on {smi}: ready build_s {ready['build_s']} "
+        f"warmup_s {ready['warmup_s']}; max_memory_allocated (host log, "
+        f"ready / stopped) {' / '.join(mem)} GiB")
+    log(f"  TTFT flash (<= 256 tokens, 2) {ttft(r1[:2])}; chunked (6) "
+        f"{ttft(r1[2:])}; prefix hit, short tail (2) {ttft(r2[:2])}; prefix "
+        f"hit, seeded chunked (2) {ttft(r2[2:])}; reused {[r['reused'] for r in r2]}")
+    log(f"  aggregate decode {decoded / decode_wall:.2f} tok/s over both "
+        f"waves ({decoded} tokens; wave 1 {t1 - t0:.3f} s, wave 2 "
+        f"{t2 - t1:.3f} s from submit to last finish); "
+        f"admit_dispatches {stats['admit_dispatches']} chunk_dispatches "
+        f"{stats['chunk_dispatches']} steps {stats['steps']} block_syncs "
+        f"{blocks} pipe_event_writes {writes}; prefix_cache hits "
+        f"{stats['prefix_cache']['hits']} tokens_reused "
+        f"{stats['prefix_cache']['tokens_reused']}; host path launches "
+        f"{launches}")
+    return tpu
+
+
+def profile_host_path(tpu: dict) -> None:
+    """In-process, on the same config: one chunk step at a mid-prompt
+    position, one cached admission (short tail after a 1536-token hit), and
+    the chunk's attention (the plain einsum, gqa_attention) alone."""
+    from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                  SamplingParams)
+    from symmetry_tpu_torch.ops.attention import gqa_attention
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    engine = InferenceEngine.from_tpu_config(TpuConfig.from_dict(tpu))
+    engine.warmup()
+    C = engine.prefill_chunk
+    rng = np.random.default_rng(1)
+    prompt = rng.integers(0, 50000, 1800).tolist()
+    job = engine.start_chunked_prefill(0, prompt, SamplingParams())
+    for _ in range(4):  # 1024 tokens in
+        engine.advance_chunked_prefill(job)
+    cache = job.cache
+    chunk = torch.from_numpy(job.ids[:, 4 * C:5 * C]).cuda()
+    valid = torch.tensor([C], dtype=torch.int32, device="cuda")
+    profile_dispatch(f"chunk step ({C} tokens at positions 1024.., bucket "
+                     f"2048, batch 1)",
+                     lambda: engine._chunk_step(chunk, cache, valid))
+    while engine.advance_chunked_prefill(job) is None:
+        pass
+
+    def cached():  # a fresh tail each call, so each hits at 1536 tokens
+        hit_prompt = prompt[:1536] + rng.integers(0, 50000, 60).tolist()
+        hit = engine.prefix_lookup(hit_prompt)
+        if hit is None or hit.length != 1536:
+            raise AssertionError(f"no 1536-token hit: {hit}")
+        engine.prefill_and_insert_cached([(1, hit_prompt, SamplingParams())],
+                                         hit)
+
+    profile_dispatch("cached admission (1536-token hit + 60-token suffix, "
+                     "bucket 2048)", cached)
+    c = engine.config
+    g = torch.Generator(device="cuda").manual_seed(60)
+    q = torch.randn((1, C, c.num_heads, c.dim_per_head), generator=g,
+                    device="cuda", dtype=torch.bfloat16)
+    kc = torch.randn((1, 2048, c.num_kv_heads, c.dim_per_head), generator=g,
+                     device="cuda", dtype=torch.bfloat16)
+    vc = torch.randn_like(kc)
+    pos = (1024 + torch.arange(C, device="cuda", dtype=torch.int32))[None]
+    kv_len = torch.tensor([1024 + C], dtype=torch.int32, device="cuda")
+    attn_ms = device_ms(lambda: gqa_attention(q, kc, vc, pos, kv_len), 20)
+    log(f"  chunk attention (gqa_attention, plain einsum; q {C} x "
+        f"{c.num_heads} x {c.dim_per_head}, cache 2048 x {c.num_kv_heads}, "
+        f"{1024 + C} live): {attn_ms:.4f} device ms per layer, "
+        f"{attn_ms * c.num_layers:.3f} ms per chunk over {c.num_layers} "
+        f"layers")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -635,6 +1063,7 @@ def main() -> int:
     log("phase 3: kernels against their plain versions (bf16)")
     rows = [check_flash(), check_decode(int8=False), check_decode(int8=True),
             check_kv_append(), check_w8a16()]
+    w8a8_row = check_w8a8()
     torch.cuda.empty_cache()
 
     log("phase 4: tiny engine, card against CPU (float32)")
@@ -657,11 +1086,24 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the path")
+    rows.append(w8a8_row)
+    gc.collect()  # frees the int8 engine before the host phases
+    torch.cuda.empty_cache()
+
+    log("phase 7: engine host, tiny, card against CPU")
+    check_host_tiny()
+
+    log("phase 8: engine host, llama3-8b bf16, the provider's default tpu: "
+        "section")
+    tpu = check_host_full(smi)
+    profile_host_path(tpu)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
-                                  for row in rows]}))
+    print(json.dumps({"kernels": [
+        {**{k: row[k] for k in keys},
+         **({"path": row["path"]} if "path" in row else {})}
+        for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,18 +1,31 @@
 """The serving engine in PyTorch: prefill / insert / decode over a slot batch.
 
-Port of symmetry_tpu/engine/engine.py, main-path subset. The shape
+Port of symmetry_tpu/engine/engine.py, single-device subset. The shape
 discipline is the JAX engine's:
 
   - PREFILL runs a batch of prompts padded to one of a few fixed buckets,
     from an empty cache, through the flash prefill kernel;
+  - CHUNKED PREFILL (prefill_chunk) builds a long prompt's KV chunk by
+    chunk into a batch-1 cache of bucket capacity, one dispatch per
+    chunk, between decode blocks; chunks run the continuation path (the
+    trunk over a live cache, ops/attention.py), as in the JAX package;
   - INSERT copies each prefilled KV row into its decode slot;
   - DECODE advances ALL slots `decode_block` tokens per dispatch at a fixed
     [B, 1] shape; per-slot raggedness lives in length arrays, not shapes.
 
-The decode cache is written in place (index assignment, never a copy).
-Dispatches are asynchronous on the card: `decode_steps_dispatch` returns a
-HostFuture that the scheduler syncs with np.asarray one iteration later, so
-host work overlaps the device as in the JAX engine.
+The radix prefix cache (prefix_cache_bytes) keeps whole-block prompt
+prefixes in a paged KV pool ([L, n_blocks + 1, block_tokens, K, D], block
+0 the trash block); engine/prefix_cache.py (a copy) does the bookkeeping.
+A hit seeds a working buffer by one block gather and prefills only the
+suffix; finished prefills scatter their new tail blocks into the pool.
+Gathers and scatters are indexed copies in plain torch (the JAX package
+does them in XLA, outside any kernel).
+
+The decode cache, prefill buffers and the pool are written in place
+(index assignment, never a copy). Dispatches are asynchronous on the card:
+`decode_steps_dispatch` returns a HostFuture that the scheduler syncs with
+np.asarray one iteration later, so host work overlaps the device as in the
+JAX engine.
 
 Int8 serving follows the JAX engine: `kv_quant` keeps the KV cache in int8
 with float32 scale planes, and `fused_dequant` packs int8 weights
@@ -20,9 +33,9 @@ with float32 scale planes, and `fused_dequant` packs int8 weights
 init_params(quantize=True)) into the W8A16 kernel's layout; leaves the
 kernel cannot take stay flat on the mixed dot, logged and counted.
 
-Knobs outside this slice (mesh, speculative decoding, the prefix cache,
-chunked prefill, disaggregated roles, pipeline microbatches, device
-profiling) raise EngineError naming their ROADMAP item.
+Knobs outside this slice (mesh, pipeline microbatches, speculative
+decoding, disaggregated roles, device profiling) raise EngineError naming
+their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -31,20 +44,28 @@ The engine is synchronous and single-threaded by design: exactly one thread
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from symmetry_tpu_torch.engine.tokenizer import Tokenizer
+from symmetry_tpu_torch.engine.prefix_cache import (
+    BlockPool,
+    RadixHit,
+    RadixIndex,
+)
+from symmetry_tpu_torch.engine.tokenizer import Tokenizer, get_tokenizer
 from symmetry_tpu_torch.models.llama import (
     KVCache,
     ModelConfig,
     forward_hidden,
     init_cache,
+    init_params,
     logits_from_hidden,
     pack_params,
+    preset,
 )
 from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
@@ -97,6 +118,41 @@ class SamplingParams:
         )
 
 
+@dataclass
+class ChunkedPrefill:
+    """An in-progress chunked prefill: one prompt's KV prefix being built
+    chunk by chunk, so that admitting a long prompt never stalls the active
+    decode streams for more than about one chunk.
+
+    With `start_pos` > 0 the cache was SEEDED from a prefix-cache hit (its
+    first start_pos positions already hold that prefix's KV) and `ids`
+    carries only the uncached suffix. The JAX package's (prefill key,
+    decode key) pair becomes the request's (seed, step): the first token
+    is drawn at `step`, decode continues at step + 1."""
+
+    slot: int
+    ids: np.ndarray           # [1, n_chunks * C] padded suffix tokens
+    true_len: int             # FULL prompt length (prefix + suffix)
+    n_chunks: int
+    cache: Any                # batch-1 prefix KVCache (bucket capacity)
+    temp: torch.Tensor        # [1]
+    top_p: torch.Tensor       # [1]
+    top_k: torch.Tensor       # [1]
+    seed: torch.Tensor        # [1] the request's noise stream
+    step: torch.Tensor        # [1] draw index of the first-token sample
+    done_chunks: int = 0
+    start_pos: int = 0        # tokens already in the cache at start
+    full_ids: tuple[int, ...] = ()  # the whole prompt (prefix-store key)
+
+    @property
+    def remaining_chunks(self) -> int:
+        return self.n_chunks - self.done_chunks
+
+    @property
+    def suffix_len(self) -> int:
+        return self.true_len - self.start_pos
+
+
 class HostFuture:
     """A device tensor handed to the scheduler unsynced. np.asarray (its
     `__array__`) copies it to the host, blocking on this dispatch only —
@@ -115,21 +171,27 @@ class HostFuture:
 # Knobs outside this slice -> the ROADMAP item that brings them.
 _NOT_PORTED = {
     "mesh": "tensor / pipeline parallel meshes (ROADMAP Queue 1 item 14)",
+    "multihost": "multi-host meshes (ROADMAP Queue 1 item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
     "speculative": "speculative decoding (ROADMAP Queue 1 item 7)",
-    "prefix_cache_bytes": "the radix prefix cache (ROADMAP Queue 1 item 6)",
-    "prefill_chunk": "chunked prefill (ROADMAP Queue 1 item 6)",
     "role": "disaggregated prefill/decode roles (ROADMAP Queue 1 item 11)",
     "profile_sample": "device profiling probes (ROADMAP Queue 1 item 12)",
+    "checkpoint_path": "checkpoint loading (ROADMAP Queue 1 item 10)",
 }
+
+
+def _refuse(knob: str) -> EngineError:
+    return EngineError(f"{knob}: {_NOT_PORTED[knob]} is not ported to the "
+                       f"PyTorch engine yet")
 
 
 class InferenceEngine:
     """Owns params + decode state; exposes prefill/insert/decode primitives.
 
-    The constructor keeps the JAX engine's signature plus `device`;
-    prefix_block_tokens and prefix_gossip_* only tune the prefix cache and
-    are inert while it is refused.
+    The constructor keeps the JAX engine's signature plus `device`, with
+    one default changed: prefill_chunk is None (every prompt takes the
+    one-dispatch flash prefill) unless the caller sets it, as
+    from_tpu_config does from the provider's `tpu:` section (256 there).
 
     Thread-safety: NOT thread-safe; exactly one thread (the scheduler's
     engine thread) may call the mutating methods.
@@ -165,15 +227,12 @@ class InferenceEngine:
             "mesh": mesh is not None,
             "pipeline_microbatches": pipeline_microbatches > 1,
             "speculative": speculative is not None,
-            "prefix_cache_bytes": prefix_cache_bytes > 0,
-            "prefill_chunk": prefill_chunk is not None,
             "role": role != "unified",
             "profile_sample": profile_sample > 0,
         }
         for knob, on in refused.items():
             if on:
-                raise EngineError(f"{knob}: {_NOT_PORTED[knob]} is not "
-                                  f"ported to the PyTorch engine yet")
+                raise _refuse(knob)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
@@ -195,6 +254,9 @@ class InferenceEngine:
         if decode_block < 1:
             raise EngineError("decode_block must be >= 1")
         self.decode_block = decode_block
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise EngineError("prefill_chunk must be >= 1 (or None)")
+        self.prefill_chunk = prefill_chunk
         self.prefill_token_budget = (prefill_token_budget
                                      if prefill_token_budget is not None
                                      else self.PREFILL_TOKEN_BUDGET)
@@ -215,6 +277,48 @@ class InferenceEngine:
         )
         self._base_seed = int.from_bytes(os.urandom(8), "little") & _SEED_MASK
         self._requests_served = 0
+        # (batch, bucket) -> persistent prefill buffer; see
+        # _prefill_scratch_for.
+        self._prefill_scratch: dict[tuple[int, int], KVCache] = {}
+
+        # Radix prefix cache over a paged KV block pool. `prefix_align` is
+        # the suffix width of the one-dispatch hit path (min(prefill_chunk,
+        # smallest bucket)); matching is at `prefix_block` granularity. Off
+        # by default (budget 0, or no prefill_chunk): no lookups, no pool.
+        self.prefix_align = (min(self.prefill_chunk, self.prefill_buckets[0])
+                             if self.prefill_chunk is not None else None)
+        self.prefix_block = int(prefix_block_tokens)
+        if self.prefix_block < 1:
+            raise EngineError("prefix_block_tokens must be >= 1")
+        self.block_pool: BlockPool | None = None
+        self.prefix_index: RadixIndex | None = None
+        self._pool_kv: KVCache | None = None
+        # Pool-gossip rider: digests per summary, and the minimum seconds
+        # between recomputes (stats probes share one walk).
+        self.prefix_gossip_blocks = int(prefix_gossip_blocks)
+        self.prefix_gossip_s = float(prefix_gossip_s)
+        self._gossip_cache: tuple[float, dict | None] | None = None
+        if prefix_cache_bytes > 0 and self.prefix_align:
+            for b in self.prefill_buckets:
+                if b % self.prefix_block:
+                    raise EngineError(
+                        f"prefix_block_tokens {self.prefix_block} must "
+                        f"divide every prefill bucket (bucket {b} does "
+                        f"not): the block gathers and scatters index "
+                        f"buckets in whole blocks")
+            block_bytes = self.prefix_block * self.kv_bytes_per_token()
+            # The pool must at least hold one smallest-bucket prefix or
+            # every insert is a guaranteed rejection.
+            n_blocks = max(int(prefix_cache_bytes) // block_bytes,
+                           self.prefill_buckets[0] // self.prefix_block)
+            self.block_pool = BlockPool(n_blocks, self.prefix_block,
+                                        block_bytes)
+            self.prefix_index = RadixIndex(self.block_pool)
+            # The device half, allocated once: [L, n_blocks + 1, block, K,
+            # D] (+1: id 0 is the trash block that pad lanes write to).
+            self._pool_kv = init_cache(config, n_blocks + 1,
+                                       self.prefix_block, cache_dtype,
+                                       quantized=self.kv_quant, device=dev)
 
     def _pack_weights(self) -> None:
         """`fused_dequant`: pack the int8 leaves into the W8A16 kernel's
@@ -239,37 +343,48 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # Device primitives
 
-    def _prefill(self, tokens, true_len, temp, top_p, top_k, seed, step):
+    def _prefill(self, tokens, true_len, temp, top_p, top_k, seed, step,
+                 scratch: KVCache):
         """tokens [N, Sb] padded; returns (first tokens [N], prefix KV).
 
         N > 1 is COALESCED prefill (the scheduler batches concurrent
-        arrivals into one dispatch). The prefix buffer is allocated empty:
-        the prefill-from-empty trunk writes every one of its Sb positions
-        (and, for an int8 cache, their scales) and flash attention never
-        reads it back."""
-        N, Sb = tokens.shape
-        c = self.config
-        shape = (c.num_layers, N, Sb, c.num_kv_heads, c.dim_per_head)
-        kv_dtype = torch.int8 if self.kv_quant else self.cache_dtype
-        scale_shape = (c.num_layers, N, c.num_kv_heads, Sb)
-
-        def scales():
-            return (torch.empty(scale_shape, dtype=torch.float32,
-                                device=self.device)
-                    if self.kv_quant else None)
-
-        cache = KVCache(
-            k=torch.empty(shape, dtype=kv_dtype, device=self.device),
-            v=torch.empty(shape, dtype=kv_dtype, device=self.device),
-            lengths=torch.zeros(N, dtype=torch.int32, device=self.device),
-            k_scale=scales(), v_scale=scales())
-        h, cache = forward_hidden(self.params, c, tokens, cache,
+        arrivals into one dispatch). `scratch` is the persistent prefix
+        buffer of this (N, Sb) shape (_prefill_scratch_for), written in
+        place: the prefill-from-empty trunk writes every one of its Sb
+        positions (and, for an int8 cache, their scales) and flash
+        attention never reads it back, so dirty reuse is sound once the
+        lengths are reset to the empty-cache contract."""
+        cache = scratch._replace(lengths=torch.zeros_like(scratch.lengths))
+        h, cache = forward_hidden(self.params, self.config, tokens, cache,
                                   seq_lens=true_len, prefill_flash=True)
-        # Project ONLY the last valid position through the LM head.
-        rows = torch.arange(N, device=self.device)
-        h_last = h[rows, (true_len - 1).long()][:, None]      # [N, 1, E]
-        last = logits_from_hidden(self.params, c, h_last)[:, 0]
-        return sample_tokens(last, seed, step, temp, top_p, top_k), cache
+        return self._sample_at(h, true_len - 1, temp, top_p, top_k, seed,
+                               step), cache
+
+    def _sample_at(self, h, last_idx, temp, top_p, top_k, seed, step):
+        """Project ONLY position last_idx[n] of each row through the LM head
+        and sample the first tokens [N]."""
+        rows = torch.arange(h.shape[0], device=self.device)
+        h_last = h[rows, last_idx.long()][:, None]               # [N, 1, E]
+        last = logits_from_hidden(self.params, self.config, h_last)[:, 0]
+        return sample_tokens(last, seed, step, temp, top_p, top_k)
+
+    def _chunk_step(self, tokens, cache: KVCache, seq_len) -> KVCache:
+        """Extend a prefix cache by one prompt chunk through the
+        continuation path (absolute-position masking against the KV that
+        earlier chunks wrote; the flash path's empty-cache contract does
+        not hold past chunk 0)."""
+        _, cache = forward_hidden(self.params, self.config, tokens, cache,
+                                  seq_lens=seq_len)
+        return cache
+
+    def _chunk_final(self, tokens, cache: KVCache, seq_len, last_idx, temp,
+                     top_p, top_k, seed, step):
+        """Last chunk (or a cached hit's suffix): also sample the first
+        token at last_idx, as `_prefill` does."""
+        h, cache = forward_hidden(self.params, self.config, tokens, cache,
+                                  seq_lens=seq_len)
+        return self._sample_at(h, last_idx, temp, top_p, top_k, seed,
+                               step), cache
 
     def _insert_all(self, prefix: KVCache, slots, true_len, first_token,
                     temp, top_p, top_k, seed, step) -> None:
@@ -292,6 +407,70 @@ class InferenceEngine:
         st.top_k[slots] = top_k
         st.seed[slots] = seed
         st.step[slots] = step
+
+    # Block pool moves (the radix prefix cache's device side).
+
+    def _insert_from_blocks(self, scratch: KVCache, ids, p: int) -> KVCache:
+        """Seed every row of a (batch, bucket) working buffer from pool
+        blocks, in place: `ids` [bucket // prefix_block] names the block
+        covering each bucket span (pad lanes carry the trash block; their
+        garbage lands at positions >= p, which the suffix continuation
+        never attends) and every row's length becomes `p`."""
+        L, B = scratch.k.shape[:2]
+
+        def gather(pool_arr, dst):
+            sel = pool_arr[:, ids]                      # [L, nb, PB, K, D]
+            dst.copy_(sel.reshape((L, 1, -1) + sel.shape[3:]).expand_as(dst))
+
+        def gather_scale(pool_arr, dst):
+            sel = pool_arr[:, ids].movedim(1, 2)        # [L, K, nb, PB]
+            dst.copy_(sel.reshape(L, 1, sel.shape[1], -1).expand_as(dst))
+
+        pool = self._pool_kv
+        gather(pool.k, scratch.k)
+        gather(pool.v, scratch.v)
+        if self.kv_quant:
+            gather_scale(pool.k_scale, scratch.k_scale)
+            gather_scale(pool.v_scale, scratch.v_scale)
+        return scratch._replace(lengths=torch.full_like(scratch.lengths, p))
+
+    def _write_blocks(self, row: KVCache, ids) -> None:
+        """Scatter a batch-1 row buffer (capacity one bucket) into pool
+        blocks, in place: bucket span j lands in block ids[j]. Spans not to
+        be stored (resident prefix blocks, positions past the prefix) point
+        at the trash block, where nobody reads."""
+        pool, nb = self._pool_kv, ids.shape[0]
+
+        def put(pool_arr, row_arr):
+            src = row_arr[:, 0].reshape((row_arr.shape[0], nb, -1)
+                                        + row_arr.shape[3:])
+            pool_arr[:, ids] = src.to(pool_arr.dtype)
+
+        def put_scale(pool_arr, row_arr):
+            src = row_arr[:, 0].reshape(row_arr.shape[0], row_arr.shape[2],
+                                        nb, -1).movedim(2, 1)
+            pool_arr[:, ids] = src.to(pool_arr.dtype)   # [L, nb, K, PB]
+
+        put(pool.k, row.k)
+        put(pool.v, row.v)
+        if self.kv_quant:
+            put_scale(pool.k_scale, row.k_scale)
+            put_scale(pool.v_scale, row.v_scale)
+
+    def _extract_prefix_row(self, prefix: KVCache, row: int, p: int
+                            ) -> KVCache:
+        """Row `row` of a batch-N prefill buffer as a batch-1 buffer valid
+        through `p` tokens. A view, not a copy: the scatter that reads it
+        is queued before the buffer's next use (device order is FIFO)."""
+
+        def take(arr):
+            return arr[:, row:row + 1] if arr is not None else None
+
+        return KVCache(k=take(prefix.k), v=take(prefix.v),
+                       lengths=torch.full((1,), p, dtype=torch.int32,
+                                          device=self.device),
+                       k_scale=take(prefix.k_scale),
+                       v_scale=take(prefix.v_scale))
 
     def _decode_one(self) -> torch.Tensor:
         """Advance every slot one token."""
@@ -372,42 +551,344 @@ class InferenceEngine:
 
         padded = np.zeros((batch, bucket), np.int64)
         lens = np.zeros((batch,), np.int32)
+        rows = self._sampling_rows(assignments, batch)
+        slots = np.zeros((batch,), np.int64)
+        for i in range(batch):
+            # Pad rows replay the last request BIT-IDENTICALLY (same prompt,
+            # slot, seed and step; _sampling_rows): every row is inserted,
+            # and anything short of an identical overwrite would corrupt
+            # the last real slot's state.
+            slot, ids, _ = assignments[min(i, n_req - 1)]
+            slots[i] = slot
+            padded[i, :len(ids)] = ids
+            lens[i] = len(ids)
+
+        lens_t = self._dev(lens)
+        toks, prefix = self._prefill(self._dev(padded), lens_t, *rows,
+                                     self._prefill_scratch_for(batch,
+                                                               bucket))
+        # The prefill drew with `step`; decode continues at step + 1.
+        self._insert_all(prefix, self._dev(slots), lens_t, toks, *rows[:4],
+                         rows[4] + 1)
+        # Populate the prefix cache from this batch before the buffer goes
+        # back to the pool (the next same-shape prefill overwrites it).
+        if self.prefix_index is not None:
+            self.prefix_index.note_miss(n_req)  # admitted uncached
+            self._maybe_store_prefix(assignments[:n_req], prefix)
+        self._store_prefill_scratch(batch, bucket, prefix)
+        host_toks = toks.cpu().numpy()
+        return [int(host_toks[i]) for i in range(n_req)]
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sampling_rows(self, assignments, batch: int) -> tuple:
+        """(temperature, top_p, top_k, seed, step) device tensors [batch]
+        for a dispatch: one seed derivation per real request (shared by
+        every admission path, so a seeded request samples identically
+        however it was admitted), pad rows copying the last request."""
+        n_req = len(assignments)
         temps = np.zeros((batch,), np.float32)
         top_ps = np.ones((batch,), np.float32)
         top_ks = np.zeros((batch,), np.int64)
         seeds = np.zeros((batch,), np.int64)
         steps = np.zeros((batch,), np.int64)
-        slots = np.zeros((batch,), np.int64)
         for i in range(batch):
-            # Pad rows replay the last request BIT-IDENTICALLY — same
-            # prompt, slot, seed and step — because every row is inserted:
-            # anything short of an identical overwrite would corrupt the
-            # last real slot's state.
-            slot, ids, sampling = assignments[min(i, n_req - 1)]
-            slots[i] = slot
-            padded[i, :len(ids)] = ids
-            lens[i] = len(ids)
+            sampling = assignments[min(i, n_req - 1)][2]
             temps[i] = sampling.temperature
             top_ps[i] = sampling.top_p
             top_ks[i] = sampling.top_k
             if i >= n_req:
                 seeds[i], steps[i] = seeds[n_req - 1], steps[n_req - 1]
+            else:
+                seeds[i], steps[i] = self._request_seed(sampling)
+        return tuple(self._dev(a) for a in (temps, top_ps, top_ks, seeds,
+                                            steps))
+
+    # ------------------------------------------------------------------
+    # Shared-prefix KV cache (engine side; bookkeeping in prefix_cache.py)
+
+    def prefix_lookup(self, prompt_ids: list[int]) -> RadixHit | None:
+        """Pinned longest block-aligned prefix hit for this prompt, or None.
+        The scheduler groups admissions by the hit's group key and must
+        release() hits it does not dispatch; the engine releases hits it
+        consumes."""
+        if self.prefix_index is None:
+            return None
+        return self.prefix_index.lookup(prompt_ids)
+
+    def _bucket_ids(self, bucket: int, blocks=(), at: int = 0
+                    ) -> torch.Tensor:
+        """Block-id lane vector for one bucket's gather or scatter: lane j
+        covers bucket positions [j * PB, (j + 1) * PB). Lanes outside
+        `blocks` (placed from lane `at`) carry the trash block 0."""
+        ids = np.zeros((bucket // self.prefix_block,), np.int64)
+        if len(blocks):
+            ids[at:at + len(blocks)] = blocks
+        return self._dev(ids)
+
+    def seeded_chunk_ok(self, prompt_len: int) -> bool:
+        """True when a long-suffix hit can run as a seeded chunked prefill:
+        the prompt's bucket holds more than one chunk (the JAX engine
+        compiles chunk programs only there; the port keeps its routing)."""
+        return (self.prefill_chunk is not None
+                and self.bucket_for(prompt_len) > self.prefill_chunk)
+
+    def prefill_and_insert_cached(
+        self, assignments: list[tuple[int, list[int], SamplingParams]],
+        hit: RadixHit,
+    ) -> list[int]:
+        """Admit a group of requests that SHARE a cached prefix: one block
+        gather seeds every row of the (batch, bucket) working buffer, one
+        continuation dispatch prefills only the uncached suffixes (at most
+        prefix_align tokens each) and samples first tokens, one insert
+        installs every slot. The finished rows then extend the radix tree
+        with their new tail blocks. Releases `hit` in all paths."""
+        try:
+            if not assignments:
+                return []
+            p, A = hit.length, self.prefix_align
+            n_req = len(assignments)
+            bucket = max(self.bucket_for(len(ids))
+                         for _, ids, _ in assignments)
+            allowed = self.prefill_batches_for(bucket)
+            if n_req > allowed[-1]:
+                raise EngineError(
+                    f"cached-prefill group of {n_req} exceeds the bucket's "
+                    f"batch cap {allowed[-1]} (scheduler partitions to cap)")
+            for _, ids, _ in assignments:
+                if not p < len(ids) <= p + A:
+                    raise EngineError(
+                        f"cached-prefill suffix out of range: prompt "
+                        f"{len(ids)} vs prefix {p} (suffix cap {A})")
+                if tuple(ids[:p]) != hit.tokens:
+                    raise EngineError("prompt diverges from cached prefix")
+            batch = next(b for b in allowed if b >= n_req)
+
+            suffix = np.zeros((batch, A), np.int64)
+            sfx_lens = np.zeros((batch,), np.int32)
+            full_lens = np.zeros((batch,), np.int32)
+            slots = np.zeros((batch,), np.int64)
+            for i in range(batch):
+                # pad rows replay the last request bit-identically
+                slot, ids, _ = assignments[min(i, n_req - 1)]
+                sfx = ids[p:]
+                suffix[i, :len(sfx)] = sfx
+                sfx_lens[i] = len(sfx)
+                full_lens[i] = len(ids)
+                slots[i] = slot
+            rows = self._sampling_rows(assignments, batch)
+
+            scratch = self._insert_from_blocks(
+                self._prefill_scratch_for(batch, bucket),
+                self._bucket_ids(bucket, hit.blocks), p)
+            # The gather out of the pool is queued ahead of any later
+            # scatter into a since-freed block: safe to unpin now.
+            hit.release()
+            sfx_t = self._dev(sfx_lens)
+            toks, prefix = self._chunk_final(self._dev(suffix), scratch,
+                                             sfx_t, sfx_t - 1, *rows)
+            self._insert_all(prefix, self._dev(slots), self._dev(full_lens),
+                             toks, *rows[:4], rows[4] + 1)
+            # The rows hold prefix + suffix KV: extend the tree with the new
+            # tail blocks before the buffer goes back to the scratch pool,
+            # so the next turn of a session hits at its full history.
+            self._maybe_store_prefix(assignments[:n_req], prefix)
+            self._store_prefill_scratch(batch, bucket, prefix)
+            self.prefix_index.note_reuse(n_req, p)
+            host_toks = toks.cpu().numpy()
+            return [int(host_toks[i]) for i in range(n_req)]
+        finally:
+            hit.release()
+
+    def _maybe_store_prefix(self, assignments, prefix: KVCache) -> None:
+        """Store ONE newly built prefix of a prefill batch into the pool (at
+        most one scatter per admission dispatch): the first row whose
+        whole-block prefix has an unresident tail. Only the NEW blocks are
+        written; blocks the tree holds stay shared by reference."""
+        PB = self.prefix_block
+        for row, (_slot, ids, _sampling) in enumerate(assignments):
+            p = PB * (len(ids) // PB)
+            if p < PB:
                 continue
-            seeds[i], steps[i] = self._request_seed(sampling)
+            plan = self.prefix_index.plan_insert(ids[:p])
+            if plan is None:
+                continue  # fully resident, or rejected even after LRU
+            try:
+                # inside the try: a failed dispatch must abort the plan, or
+                # its pinned prefix and allocated blocks leak
+                row_cache = self._extract_prefix_row(prefix, row, p)
+                self._write_blocks(row_cache, self._bucket_ids(
+                    row_cache.k.shape[2], plan.new_ids,
+                    at=plan.matched_len // PB))
+            except Exception:
+                plan.abort()
+                raise
+            plan.commit()
+            return
 
-        def dev(a):
-            return torch.from_numpy(a).to(self.device)
+    def prefix_cache_stats(self) -> dict | None:
+        return (self.prefix_index.stats()
+                if self.prefix_index is not None else None)
 
-        lens_t, temps_t, top_ps_t, top_ks_t = (
-            dev(lens), dev(temps), dev(top_ps), dev(top_ks))
-        seeds_t, steps_t = dev(seeds), dev(steps)
-        toks, prefix = self._prefill(dev(padded), lens_t, temps_t, top_ps_t,
-                                     top_ks_t, seeds_t, steps_t)
-        # The prefill drew with `step`; decode continues at step + 1.
-        self._insert_all(prefix, dev(slots), lens_t, toks, temps_t, top_ps_t,
-                         top_ks_t, seeds_t, steps_t + 1)
-        host_toks = toks.cpu().numpy()
-        return [int(host_toks[i]) for i in range(n_req)]
+    def prefix_cache_summary(self) -> dict | None:
+        """Compact radix-cache summary for pool gossip (RadixIndex.summary),
+        recomputed at most every `prefix_gossip_s` seconds. None when the
+        cache or the rider is off. Read from the host's serve thread; the
+        walk is read-only."""
+        if self.prefix_index is None or self.prefix_gossip_blocks <= 0:
+            return None
+        now = time.monotonic()
+        cached = self._gossip_cache
+        if cached is not None and now - cached[0] < self.prefix_gossip_s:
+            return cached[1]
+        summary = self.prefix_index.summary(self.prefix_gossip_blocks)
+        self._gossip_cache = (now, summary)
+        return summary
+
+    def kv_bytes_per_token(self) -> int:
+        """Bytes of KV one token position occupies: k + v payloads, plus
+        the scale planes when int8."""
+        c = self.config
+        per_plane = c.num_layers * c.num_kv_heads
+        if self.kv_quant:
+            return 2 * per_plane * (c.dim_per_head + 4)
+        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+        return 2 * per_plane * c.dim_per_head * itemsize
+
+    # ------------------------------------------------------------------
+    # Chunked prefill (long prompts, interleaved with decode blocks)
+
+    def wants_chunked(self, prompt_len: int) -> bool:
+        """True when this prompt should prefill chunk by chunk: more than
+        one chunk long (a single-chunk prompt is one dispatch already)."""
+        return (self.prefill_chunk is not None
+                and prompt_len > self.prefill_chunk)
+
+    def start_chunked_prefill(self, slot: int, prompt_ids: list[int],
+                              sampling: SamplingParams,
+                              hit: RadixHit | None = None) -> ChunkedPrefill:
+        """Begin a chunked prefill for `slot`; advance_chunked_prefill
+        drives it (one dispatch per call). With a prefix-cache `hit`, the
+        cache is seeded from the pool and the chunks cover only the
+        uncached suffix. The hit is released here in all paths."""
+        try:
+            if not prompt_ids:
+                raise EngineError("empty prompt")
+            C = self.prefill_chunk
+            if C is None:
+                raise EngineError("chunked prefill needs prefill_chunk")
+            true_len = len(prompt_ids)
+            bucket = self.bucket_for(true_len)  # validates; cache capacity
+            start = 0
+            if hit is not None:
+                start = hit.length
+                if not 0 < start < true_len:
+                    raise EngineError("cached prefix does not fit prompt")
+                if tuple(prompt_ids[:start]) != hit.tokens:
+                    raise EngineError("prompt diverges from cached prefix")
+            sfx_len = true_len - start
+            n_chunks = -(-sfx_len // C)
+            padded = np.zeros((1, n_chunks * C), np.int64)
+            padded[0, :sfx_len] = prompt_ids[start:]
+            temp, top_p, top_k, seed, step = self._sampling_rows(
+                [(slot, prompt_ids, sampling)], 1)
+
+            cache = self._new_prefix_cache(bucket)
+            if hit is not None:
+                cache = self._insert_from_blocks(
+                    cache, self._bucket_ids(bucket, hit.blocks), start)
+                hit.release()  # gather queued; blocks free to evict
+                self.prefix_index.note_reuse(1, start)
+            elif self.prefix_index is not None:
+                self.prefix_index.note_miss(1)  # admitted uncached
+            return ChunkedPrefill(
+                slot=slot, ids=padded, true_len=true_len, n_chunks=n_chunks,
+                cache=cache, temp=temp, top_p=top_p, top_k=top_k,
+                seed=seed, step=step, start_pos=start,
+                full_ids=tuple(prompt_ids))
+        finally:
+            if hit is not None:
+                hit.release()
+
+    def advance_chunked_prefill(self, job: ChunkedPrefill) -> int | None:
+        """Run ONE chunk; returns the first sampled token when the prompt
+        is complete (the slot is then live), else None. Chunk offsets are
+        relative to the suffix the job carries: with a seeded start_pos the
+        cache lengths already place the writes past the prefix."""
+        C = self.prefill_chunk
+        c0 = job.done_chunks * C
+        chunk = self._dev(job.ids[:, c0:c0 + C])
+        valid = torch.tensor([min(C, job.suffix_len - c0)],
+                             dtype=torch.int32, device=self.device)
+        if job.done_chunks < job.n_chunks - 1:
+            job.cache = self._chunk_step(chunk, job.cache, valid)
+            job.done_chunks += 1
+            return None
+        last_idx = torch.tensor([job.suffix_len - 1 - c0], dtype=torch.int64,
+                                device=self.device)
+        toks, cache = self._chunk_final(chunk, job.cache, valid, last_idx,
+                                        job.temp, job.top_p, job.top_k,
+                                        job.seed, job.step)
+        job.done_chunks += 1
+        job.cache = None
+        self._insert_all(cache,
+                         torch.tensor([job.slot], device=self.device),
+                         torch.tensor([job.true_len], dtype=torch.int32,
+                                      device=self.device),
+                         toks, job.temp, job.top_p, job.top_k, job.seed,
+                         job.step + 1)
+        # The finished buffer holds the FULL prompt's KV: scatter its
+        # unresident whole blocks into the pool before it is dropped
+        # (blocks the tree already holds, e.g. a seeded job's prefix, stay
+        # shared by reference).
+        if self.prefix_index is not None and job.full_ids:
+            PB = self.prefix_block
+            p = PB * (job.true_len // PB)
+            plan = (self.prefix_index.plan_insert(job.full_ids[:p])
+                    if p >= PB else None)
+            if plan is not None:
+                try:
+                    self._write_blocks(cache, self._bucket_ids(
+                        cache.k.shape[2], plan.new_ids,
+                        at=plan.matched_len // PB))
+                except Exception:
+                    plan.abort()
+                    raise
+                plan.commit()
+        return int(toks.cpu().numpy()[0])
+
+    def _new_prefix_cache(self, capacity: int, batch: int = 1) -> KVCache:
+        """A zeroed batch-N prefix cache. Zeros, not garbage: the
+        continuation attention multiplies unwritten positions' values by an
+        exactly-zero probability, and uninitialized memory may hold NaN."""
+        return init_cache(self.config, batch, capacity, self.cache_dtype,
+                          quantized=self.kv_quant, device=self.device)
+
+    def _prefill_scratch_for(self, batch: int, bucket: int) -> KVCache:
+        """The persistent prefix buffer for this (batch, bucket) prefill
+        shape, written in place by each prefill and stored back, so a shape
+        in active use allocates nothing (see `_prefill`)."""
+        scratch = self._prefill_scratch.pop((batch, bucket), None)
+        if scratch is None:
+            scratch = self._new_prefix_cache(bucket, batch)
+        return scratch
+
+    def _store_prefill_scratch(self, batch: int, bucket: int,
+                               prefix: KVCache) -> None:
+        """Return a prefix buffer to the pool, LRU-bounded to twice the
+        token budget (or this shape), so rare shapes churn their buffers
+        instead of pinning every grid shape's KV for good."""
+        key = (batch, bucket)
+        self._prefill_scratch.pop(key, None)
+        self._prefill_scratch[key] = prefix  # most-recently-used last
+        cap = 2 * max(self.prefill_token_budget, batch * bucket)
+        total = sum(b * bk for (b, bk) in self._prefill_scratch)
+        for old_key in list(self._prefill_scratch):
+            if total <= cap or old_key == key:
+                continue
+            self._prefill_scratch.pop(old_key)  # dropped ref frees memory
+            total -= old_key[0] * old_key[1]
 
     def release_slot(self, slot: int) -> None:
         """A finished slot's cache lane is garbage until reuse (insert
@@ -416,35 +897,65 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """Run the serving shapes once before traffic: the kernels build (at
-        first use, from csrc/), one decode block runs, and every bucket
-        prefills and inserts at its widest batch, so an out-of-memory shows
-        at startup rather than at the first burst. There is nothing to
-        compile beyond the kernels: PyTorch runs eagerly. Call before the
-        first insert — warmup advances device state with garbage that is
-        only harmless on an empty cache (inserts target slot 0 at length 0).
+        first use, from csrc/), one decode block runs, every bucket
+        prefills and inserts at its widest batch, each chunk-capable bucket
+        runs a chunk step and a final chunk, and with the prefix cache on,
+        every (batch, bucket) block gather, suffix continuation and scatter
+        runs once, so an out-of-memory shows at startup rather than at the
+        first burst. There is nothing to compile beyond the kernels:
+        PyTorch runs eagerly. Call before the first insert — warmup advances
+        device state with garbage that is only harmless on an empty cache
+        (inserts target slot 0 at length 0; pool writes the trash block).
         """
         if self.device.type == "cuda":
             kernels.build_all()
         self.decode_steps_dispatch()
+
+        def full(n, value, dtype):
+            return torch.full((n,), value, dtype=dtype, device=self.device)
+
+        def rows(n):  # temperature, top_p, top_k, seed, step
+            return (full(n, 0.0, torch.float32), full(n, 1.0, torch.float32),
+                    full(n, 0, torch.int64), full(n, 0, torch.int64),
+                    full(n, 0, torch.int64))
+
+        def zeros(n, width):
+            return torch.zeros((n, width), dtype=torch.int64,
+                               device=self.device)
+
         for bucket in self.prefill_buckets:
             n = max(b for b in self.prefill_batches_for(bucket)
                     if b <= self.max_slots)
-
-            def full(value, dtype, n=n):
-                return torch.full((n,), value, dtype=dtype,
-                                  device=self.device)
-
             toks, prefix = self._prefill(
-                torch.zeros((n, bucket), dtype=torch.int64,
-                            device=self.device),
-                full(1, torch.int32), full(0.0, torch.float32),
-                full(1.0, torch.float32), full(0, torch.int64),
-                full(0, torch.int64), full(0, torch.int64))
-            self._insert_all(prefix, full(0, torch.int64),
-                             full(0, torch.int32), toks,
-                             full(0.0, torch.float32),
-                             full(1.0, torch.float32), full(0, torch.int64),
-                             full(0, torch.int64), full(1, torch.int64))
+                zeros(n, bucket), full(n, 1, torch.int32), *rows(n),
+                self._prefill_scratch_for(n, bucket))
+            self._insert_all(prefix, full(n, 0, torch.int64),
+                             full(n, 0, torch.int32), toks, *rows(n))
+            self._store_prefill_scratch(n, bucket, prefix)
+        C = self.prefill_chunk
+        for bucket in (self.prefill_buckets if C is not None else ()):
+            if bucket <= C:
+                continue
+            one = full(1, 1, torch.int32)
+            cache = self._chunk_step(zeros(1, C), self._new_prefix_cache(
+                bucket), one)
+            self._chunk_final(zeros(1, C), cache, one,
+                              full(1, 0, torch.int64), *rows(1))
+        if self.prefix_index is not None:
+            A = self.prefix_align
+            for bucket in self.prefill_buckets:
+                # every lane at the trash block: the garbage lands where
+                # nobody reads
+                self._write_blocks(self._new_prefix_cache(bucket),
+                                   self._bucket_ids(bucket))
+                for batch in self.prefill_batches_for(bucket):
+                    scratch = self._insert_from_blocks(
+                        self._prefill_scratch_for(batch, bucket),
+                        self._bucket_ids(bucket), 0)
+                    _, prefix = self._chunk_final(
+                        zeros(batch, A), scratch, full(batch, 1, torch.int32),
+                        full(batch, 0, torch.int64), *rows(batch))
+                    self._store_prefill_scratch(batch, bucket, prefix)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -490,6 +1001,92 @@ class InferenceEngine:
         """Compiled-variant count per primitive. Empty: the engine runs
         eagerly; CUDA graph capture is later work."""
         return {}
+
+    # ------------------------------------------------------------------
+
+    @classmethod
+    def from_tpu_config(cls, tpu_cfg: Any, *,
+                        device: str | torch.device = "cuda"
+                        ) -> "InferenceEngine":
+        """Build from a provider config's `tpu:` section
+        (provider/config.py TpuConfig), on the card unless the caller asks
+        for the CPU.
+
+        The weights are `init_params(preset(model_preset or "tiny"))` drawn
+        from torch.Generator(d).manual_seed(0), d the card when one is
+        present and else the CPU: random weights of the preset's shape, NOT
+        the JAX package's jax.random.key(0) weights.
+        Knobs outside this slice raise EngineError naming their ROADMAP
+        item: checkpoint_path, a mesh of more than one device, multihost,
+        pipeline microbatches, speculative decoding, a tier role and
+        profile_sample."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise EngineError("no CUDA device is available; pass "
+                              "device='cpu' to run the plain versions")
+        if tpu_cfg.multihost:
+            raise _refuse("multihost")
+        mesh = dict(tpu_cfg.mesh or {})
+        if int(np.prod([int(v) for v in mesh.values()] or [1])) > 1:
+            raise _refuse("mesh")
+        if tpu_cfg.checkpoint_path:
+            raise _refuse("checkpoint_path")
+        dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                  "float16": torch.float16}
+        if tpu_cfg.dtype not in dtypes:
+            raise EngineError(f"unsupported tpu.dtype {tpu_cfg.dtype!r}; "
+                              f"expected one of {sorted(dtypes)}")
+        dtype = dtypes[tpu_cfg.dtype]
+        if tpu_cfg.quantization not in (None, "int8"):
+            raise EngineError(
+                f"unsupported tpu.quantization {tpu_cfg.quantization!r}")
+        if tpu_cfg.kv_quantization not in (None, "int8"):
+            raise EngineError(f"unsupported tpu.kv_quantization "
+                              f"{tpu_cfg.kv_quantization!r}")
+        config = preset(tpu_cfg.model_preset or "tiny")
+        # Drawn on the card whenever one is present (then moved to
+        # `device`), so that one config gives the same weights on a machine
+        # whatever the engine's device: a host on the card and one with
+        # --device cpu serve the same model. The CUDA and CPU generators
+        # draw different numbers from one seed.
+        draw_on = "cuda" if torch.cuda.is_available() else "cpu"
+        params = init_params(config,
+                             torch.Generator(device=draw_on).manual_seed(0),
+                             dtype, quantize=tpu_cfg.quantization == "int8")
+        # The byte fallback must span the MODEL's vocab, or sampled ids
+        # stream as silence (tokenizer.py).
+        tokenizer = get_tokenizer(tpu_cfg.tokenizer_path,
+                                  vocab_size=config.vocab_size)
+        spec = getattr(tpu_cfg, "speculative", None)
+        return cls(
+            config, params, tokenizer,
+            max_slots=tpu_cfg.max_batch_size,
+            max_seq_len=tpu_cfg.max_seq_len,
+            prefill_buckets=tpu_cfg.prefill_buckets,
+            cache_dtype=dtype,
+            decode_block=getattr(tpu_cfg, "decode_block", 1),
+            kv_quant=tpu_cfg.kv_quantization == "int8",
+            pipeline_microbatches=tpu_cfg.pipeline_microbatches,
+            prefill_chunk=getattr(tpu_cfg, "prefill_chunk", 256),
+            prefill_token_budget=getattr(tpu_cfg, "prefill_token_budget",
+                                         None),
+            prefix_cache_bytes=int(
+                (getattr(tpu_cfg, "prefix_cache_mb", None) or 0) * 2**20),
+            prefix_block_tokens=int(
+                getattr(tpu_cfg, "prefix_block_tokens", None) or 16),
+            prefix_gossip_blocks=int(
+                getattr(tpu_cfg, "prefix_gossip_blocks", None) or 0),
+            # is-None, not falsy-or: an explicit 0.0 means "recompute on
+            # every heartbeat probe", not the default cadence
+            prefix_gossip_s=float(
+                2.0 if getattr(tpu_cfg, "prefix_gossip_s", None) is None
+                else tpu_cfg.prefix_gossip_s),
+            speculative=spec if spec not in (None, False) else None,
+            fused_dequant=bool(getattr(tpu_cfg, "fused_dequant", False)),
+            profile_sample=int(getattr(tpu_cfg, "profile_sample", 0) or 0),
+            role=getattr(tpu_cfg, "role", "unified") or "unified",
+            device=device,
+        )
 
 
 def _leaves(tree: Any):

@@ -384,6 +384,15 @@ def _layer(
     else:
         b_idx = torch.arange(B, device=h.device)[:, None]
         pos_w = torch.clamp(positions, max=T - 1).long()
+        if S > 1 and not prefill_flash:
+            # A continuation (a prompt chunk, a cached hit's suffix) may
+            # run pad tokens past the capacity. The JAX package drops those
+            # writes; here they clamp onto row T - 1, so each carries the
+            # row this call writes at T - 1: index assignment with
+            # duplicate indices then stays deterministic.
+            src = (pos_w - positions[:, :1]).clamp(0, S - 1)[..., None, None]
+            k = torch.take_along_dim(k, src, dim=1)
+            v = torch.take_along_dim(v, src, dim=1)
         if cache.quantized:
             kq, ks = quantize_kv(k)  # ks [B, S, K]
             vq, vs = quantize_kv(v)

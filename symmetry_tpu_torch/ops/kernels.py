@@ -55,6 +55,10 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
         "w8a16_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _P],
     }),
+    "w8a8": ("w8a8.cu", {
+        # out_dtype, xq, w, xs, ws, out, M, K, N, stream
+        "w8a8_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    }),
 }
 
 # Kernel dtype codes shared with csrc/.

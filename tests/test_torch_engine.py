@@ -188,12 +188,10 @@ class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
         ("mesh", object(), "item 14"),
         ("speculative", object(), "item 7"),
-        ("prefix_cache_bytes", 1 << 20, "item 6"),
         ("role", "prefill", "item 11"),
         ("role", "decode", "item 11"),
         ("pipeline_microbatches", 2, "item 14"),
         ("profile_sample", 4, "item 12"),
-        ("prefill_chunk", 256, "item 6"),
     ])
     def test_knobs_outside_the_slice_raise(self, weights, knob, value, item):
         _, params = weights
@@ -276,9 +274,10 @@ import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 23, names
+assert len(names) >= 29, names
 for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
-            "convert"):
+            "convert", "engine.host", "engine.prefix_cache", "provider.config",
+            "protocol.keys"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)

@@ -21,7 +21,12 @@ from symmetry_tpu_torch.ops.decode_attention import (
 )
 from symmetry_tpu_torch.ops.flash import flash_prefill, flash_prefill_reference
 from symmetry_tpu_torch.ops.kv_append import kv_append, kv_append_reference
-from symmetry_tpu_torch.ops.qmm import w8a16_matmul, w8a16_reference
+from symmetry_tpu_torch.ops.qmm import (
+    w8a8_matmul,
+    w8a8_reference,
+    w8a16_matmul,
+    w8a16_reference,
+)
 from symmetry_tpu_torch.ops.quant import pack_quantized, quantize, quantize_kv
 
 
@@ -269,6 +274,46 @@ class TestW8A16Kernel:
                                apply_scale=False)
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.gpu
+class TestW8A8Kernel:
+    @pytest.mark.parametrize("M", [1, 5, 31, 32, 128, 300])
+    @pytest.mark.parametrize("K,N", [(16, 8), (128, 256), (192, 320),
+                                     (4096, 1024), (80, 136)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_bit_equal_to_plain(self, M, K, N, dtype):
+        """Exact int32 sums and the same two rounded multiplies: the
+        kernel equals the plain version bit for bit, ragged tiles too."""
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(M * 7 + K + N)
+        x = torch.randn((M, K), generator=g).to(dev, dtype)
+        qt = quantize(torch.randn((K, N), generator=g) * 0.05)
+        q, s = qt.q.to(dev), qt.scale.to(dev)
+        before = w8a8_matmul.launches
+        got = w8a8_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert w8a8_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (M, N)
+        assert torch.equal(got, w8a8_reference(x, q, s))
+
+    def test_float32_out_from_bf16_rows(self):
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(11)
+        x = torch.randn((64, 256), generator=g).to(dev, torch.bfloat16)
+        qt = quantize(torch.randn((256, 128), generator=g))
+        q, s = qt.q.to(dev), qt.scale.to(dev)
+        got = w8a8_matmul(x, q, s, out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, w8a8_reference(x, q, s,
+                                               out_dtype=torch.float32))
+
+    def test_rejects_untileable(self):
+        dev = cuda_or_skip()
+        qt = quantize(torch.randn((100, 64)))
+        with pytest.raises(ValueError):
+            w8a8_matmul(torch.randn((8, 100), device=dev), qt.q.to(dev),
+                        qt.scale.to(dev))
 
 
 @pytest.mark.gpu
