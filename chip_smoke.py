@@ -11,15 +11,21 @@ Phases (any failure raises and exits non-zero):
   2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (five
               libraries, one nvcc each, started together);
   3. kernels  each kernel against its plain PyTorch version at the serving
-              path's widths (llama3-8b heads and weights, bf16): flash and
-              decode attention (bf16 and int8 caches, and a qwen2-7b group
-              of 7) within 2e-2 on valid rows, the KV append bit for bit,
-              W8A16 within one bf16 step of its largest output, W8A8 bit
-              for bit (wq, wg, wd, lm_head at 32, 128 and 2048 rows; no
-              serving path routes it); kernel, plain and library (a
-              yardstick only) device times (kernel durations summed by
-              torch.profiler; the eager call's CUDA-event time is logged
-              beside), and each kernel's bound;
+              path's widths (llama3-8b heads and weights, bf16): flash
+              (the tensor-core variant) and decode attention (bf16 and
+              int8 caches, and a qwen2-7b group of 7) within 2e-2 on valid
+              rows, the KV append bit for bit, W8A16 within one bf16 step
+              of its largest output, W8A8 bit for bit (wq, wg, wd, lm_head
+              at 32, 128 and 2048 rows; no serving path routes it);
+              kernel, plain and library (a yardstick only) device times
+              (kernel durations summed by torch.profiler, decode's split
+              and combine kernels together; the eager call's CUDA-event
+              time is logged beside), and each kernel's bound; flash also
+              at the coalesced-prefill shape (B=4 S=512, ragged) and
+              decode also at phase 5's lengths; then flash (both variants)
+              and decode (bf16, int8) once more under
+              torch.cuda.set_sync_debug_mode("error"): no wrapper may
+              synchronize with the host;
   4. tiny     the `tiny` preset in float32 through the port's engine and
               Scheduler on the card (kernels) and on the CPU (plain
               versions), dense and then with int8 weights and an int8
@@ -28,12 +34,13 @@ Phases (any failure raises and exits non-zero):
               from torch.Generator seed 0) behind the port's Scheduler:
               8 greedy requests over the three prefill buckets, 64 new
               tokens each, through flash and decode attention (launch
-              counts checked);
+              counts checked, and every flash launch on the tensor-core
+              variant);
   6. int8     the same traffic on llama3-8b at full depth with int8
               weights (init_params(quantize=True), seed 0) packed for the
               W8A16 kernel and an int8 KV cache: flash, KV append, int8
               decode attention and W8A16 on the path (launch counts
-              checked);
+              checked, flash as in phase 5);
   7. host tiny  `python -m symmetry_tpu_torch.engine.host` on `tiny` in
               float32 with a small prefill_chunk and the prefix cache on,
               one host on the card and one with --device cpu, fed the same
@@ -78,6 +85,8 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 TOL = 2e-2
 ID_BASE = 0x4E00
+# Phases 5-6's prompt lengths (tokens), over the buckets 128, 512, 2048.
+PHASE5_PROMPTS = [60, 100, 300, 420, 500, 900, 1500, 2000]
 
 
 def log(msg: str) -> None:
@@ -219,6 +228,22 @@ def check_flash() -> dict:
     log(f"  flash timing B=1 S=2048 H=32 K=8 D=128 bf16 (device ms): kernel "
         f"{ms:.4f} ({call_ms:.4f} per eager call), plain {plain_ms:.4f}, SDPA "
         f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    # The coalesced-prefill shape: four prompts of the 512 bucket in one
+    # dispatch, ragged; SDPA gets the same causal-and-length mask.
+    lens = [512, 420, 300, 129]
+    q, k, v, seq_lens = flash_case(4, 512, lens, None, seed=11)
+    r_ms = device_ms(lambda: flash_prefill(q, k, v, seq_lens), 20)
+    r_plain = device_ms(lambda: flash_prefill_reference(q, k, v, seq_lens), 5)
+    pos = torch.arange(512, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None]
+            & (pos[None, None, :] < seq_lens[:, None, None]))[:, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    r_lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+    r_bound, r_by = bound(*flash_work(q, k, seq_lens, None))
+    log(f"  flash timing B=4 S=512 lens={lens} (device ms): kernel "
+        f"{r_ms:.4f}, plain {r_plain:.4f}, SDPA (mask) {r_lib:.4f}, bound "
+        f"{r_bound:.4f} ({r_by})")
     return dict(name="flash_prefill", route="cuda",
                 source="symmetry_tpu_torch/csrc/flash_prefill.cu",
                 replaces="symmetry_tpu/ops/flash.py:129",
@@ -267,7 +292,7 @@ def check_decode(int8: bool) -> dict:
     import torch.nn.functional as F
 
     from symmetry_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference)
+        decode_attention, decode_attention_reference, live_blocks)
 
     label = "int8" if int8 else "bf16"
     L, B, T, nq, K, D = 2, 8, 4096, 32, 8, 128
@@ -318,12 +343,52 @@ def check_decode(int8: bool) -> dict:
         f"{int(lengths.clamp(max=T).sum())} rows; device ms): kernel "
         f"{ms:.4f} ({call_ms:.4f} per eager call), plain {plain_ms:.4f}, SDPA "
         f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
+    # Phase 5's slots halfway through their 64 new tokens.
+    p5 = torch.tensor([n + 32 for n in PHASE5_PROMPTS], dtype=torch.int32,
+                      device="cuda")
+    p5_ms = device_ms(lambda: decode_attention(q, k_cache, v_cache, 1, p5,
+                                               ks, vs), 50)
+    p5_mask = (pos[None, :] < p5[:, None])[:, None, None, :]
+    p5_lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kl, vl, attn_mask=p5_mask, enable_gqa=True), 50)
+    p5_bound, p5_by = bound(*decode_work(q, k_cache, p5, None))
+    log(f"  decode timing {label} at phase 5's lengths {p5.tolist()} (device "
+        f"ms): kernel {p5_ms:.4f}, SDPA {p5_lib:.4f}, bound {p5_bound:.4f} "
+        f"({p5_by}); {live_blocks(p5.tolist(), T, K, nq // K)} live split "
+        f"blocks, {live_blocks(lengths.tolist(), T, K, nq // K)} at the "
+        f"lengths above")
     return dict(name="decode_attention_int8" if int8 else "decode_attention",
                 route="cuda",
                 source="symmetry_tpu_torch/csrc/decode_attention.cu",
                 replaces="symmetry_tpu/ops/decode_attention.py:231",
                 max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def check_no_host_sync() -> None:
+    """Neither attention wrapper synchronizes with the host: flash (both
+    variants) and decode (bf16 and int8) run under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any
+    synchronizing call."""
+    from symmetry_tpu_torch.ops.decode_attention import decode_attention
+    from symmetry_tpu_torch.ops.flash import flash_prefill
+
+    q, k, v, seq_lens = flash_case(2, 256, [256, 100], None, seed=12)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    bf16 = decode_case(2, 4, 512, 32, 8, 128, [512, 3, 0, 300], 22, False)
+    int8 = decode_case(2, 4, 512, 32, 8, 128, [512, 3, 0, 300], 22, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flash_prefill(q, k, v, seq_lens, window=64)
+        flash_prefill(qf, kf, vf, seq_lens)
+        for c in (bf16, int8):
+            decode_attention(c[0], c[1], c[2], 1, c[5], c[3], c[4], window=200)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  sync debug mode \"error\": flash (tensor-core and FMA) and "
+        "decode (bf16, int8) launched without a host synchronization")
 
 
 def check_kv_append() -> dict:
@@ -655,20 +720,24 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
+        for variant in flash_prefill.variant_launches:
+            flash_prefill.variant_launches[variant] = 0
         torch.cuda.reset_peak_memory_stats()
 
     label = "int8 (W8A16 weights, int8 KV)" if int8 else "bf16"
     max_new = 64
     res = serve("llama3-8b", device="cuda", dtype=torch.bfloat16,
-                prompt_lens=[60, 100, 300, 420, 500, 900, 1500, 2000],
+                prompt_lens=PHASE5_PROMPTS,
                 max_new=max_new, max_slots=8, max_seq_len=4096,
                 buckets=(128, 512, 2048), decode_block=8, on_ready=reset,
                 int8=int8)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    variants = dict(flash_prefill.variant_launches)
     cfg, m = res["config"], res["metrics"]
     L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
-    log(f"  {label} launches {launches}; scheduler admit_dispatches="
-        f"{dispatches} steps={steps} tokens={m['tokens']}")
+    log(f"  {label} launches {launches}, flash by variant {variants}; "
+        f"scheduler admit_dispatches={dispatches} steps={steps} "
+        f"tokens={m['tokens']}")
     for i, r in enumerate(res["requests"]):
         if r["reason"] != "length" or r["generated"] != max_new:
             raise AssertionError(f"request {i}: {r['reason']} after "
@@ -681,6 +750,10 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
             "w8a16_matmul": (7 * L + 1) * (steps + dispatches) if int8 else 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    # bf16 at head_dim 128: every flash launch takes the tensor-core kernel.
+    if variants != {"tensor_core": L * dispatches, "fma": 0}:
+        raise AssertionError(f"flash variants {variants}: not every launch "
+                             f"went to the tensor-core kernel")
     engine = res["engine"]
     profile_dispatch(f"{label} decode block (8 steps x 8 slots)",
                      engine.decode_steps)
@@ -1063,6 +1136,7 @@ def main() -> int:
     log("phase 3: kernels against their plain versions (bf16)")
     rows = [check_flash(), check_decode(int8=False), check_decode(int8=True),
             check_kv_append(), check_w8a16()]
+    check_no_host_sync()
     w8a8_row = check_w8a8()
     torch.cuda.empty_cache()
 

@@ -17,6 +17,13 @@ constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kInt8 = 2;
 
+// 2^x in one instruction (relative error ~2^-22; 0 for very negative x).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -63,20 +70,6 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p,
   } else {
 #pragma unroll
     for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void load_row(const int8_t* p, float (&o)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const char4 c = *reinterpret_cast<const char4*>(p + i);
-      o[i] = c.x; o[i + 1] = c.y; o[i + 2] = c.z; o[i + 3] = c.w;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = p[i];
   }
 }
 

@@ -3,19 +3,25 @@
 
 Port of symmetry_tpu/ops/decode_attention.py (`decode_attention`, Pallas
 `_kernel` for bf16/f32 caches and `_quant_kernel` for int8 caches). On a
-CUDA tensor, `decode_attention` launches the hand-written Hopper kernel in
+CUDA tensor, `decode_attention` launches the hand-written Hopper kernels in
 csrc/decode_attention.cu; on a CPU tensor it runs
 `decode_attention_reference`, which is `gqa_attention` at S = 1 on the layer
 slice. There is no fallback from a CUDA tensor to the plain version.
 
 The full cache is the kernel's operand and `layer` selects its slice by
-pointer offset, never by a copied slice. One thread block serves one
-(slot, KV head) and up to 8 of that head's query heads, so each K/V row is
-read once per 8 heads; any group size runs (`kernel_supports`). An int8
-cache comes with [L, B, K, T] float32 scale planes: the k scale multiplies
-each score and the v scale each probability, as in `_quant_kernel`. The TPU
-kernel's capacity gate (`supports`) is a TPU measurement and is not carried
-over: every single-position decode on the card takes this kernel.
+pointer offset, never by a copied slice. Each call launches two kernels:
+the split kernel runs one thread block per (KV head x chunk of up to 8 of
+its query heads, slot, span of `SPAN` positions) -- `split_plan` cuts the
+capacity T into those spans -- and writes each live span's float32 partial
+softmax (max, sum, unnormalized output) to scratch; the combine kernel
+merges a slot's spans into the output. Blocks whose span holds no live
+position exit at once. The number of spans comes from T alone, so the
+wrapper never reads a device value. Any group size runs
+(`kernel_supports`). An int8 cache comes with [L, B, K, T] float32 scale
+planes: the k scale multiplies each score and the v scale each
+probability, as in `_quant_kernel`. The TPU kernel's capacity gate
+(`supports`) is a TPU measurement and is not carried over: every
+single-position decode on the card takes this kernel.
 """
 
 from __future__ import annotations
@@ -26,13 +32,40 @@ from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.attention import gqa_attention
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# Positions a block of the split kernel reads: 16 spans at a 4096
+# capacity, so 8 slots x 8 KV heads give up to 1024 blocks on 132 SMs.
+SPAN = 256
 
 
 def kernel_supports(head_dim: int, group: int) -> bool:
-    """True when the CUDA kernel takes this head dim and query-heads-per-KV-
-    head group: any group of at least one head (the kernel tiles up to 8
-    heads per block and runs further blocks for more)."""
+    """True when the CUDA kernels take this head dim and query-heads-per-KV-
+    head group: any group of at least one head (`group_tile`)."""
     return head_dim in HEAD_DIMS and group >= 1
+
+
+def split_plan(capacity: int) -> list[tuple[int, int]]:
+    """The spans [start, end) the split kernel cuts a capacity into, in
+    order; they cover [0, capacity) with no gap or overlap."""
+    return [(s, min(s + SPAN, capacity)) for s in range(0, capacity, SPAN)]
+
+
+def group_tile(group: int) -> int:
+    """Query heads a block serves: the smallest register tile of 1, 2, 4 or
+    8 heads that holds the group (groups above 8 take several blocks)."""
+    return next(t for t in (1, 2, 4, 8) if t >= min(group, 8))
+
+
+def live_blocks(lengths, capacity: int, n_kv: int, group: int,
+                window: int | None = None) -> int:
+    """Split-kernel blocks that find live rows for these slot lengths (the
+    rest exit at once): spans meeting [max(len - window, 0), len)."""
+    per_head = 0
+    for n in lengths:
+        n = min(max(int(n), 0), capacity)
+        lo = max(n - window, 0) if window else 0
+        per_head += sum(max(a, lo) < min(b, n)
+                        for a, b in split_plan(capacity))
+    return per_head * n_kv * -(-group // group_tile(group))
 
 
 def decode_attention(
@@ -101,14 +134,18 @@ def decode_attention(
                          f"{HEAD_DIMS}")
     code = kernels.dtype_code(q.dtype)
     out = torch.empty((B, nq, D), dtype=q.dtype, device=q.device)
+    n_spans = len(split_plan(T))
+    scratch = torch.empty(B * nq * n_spans * (D + 2), dtype=torch.float32,
+                          device=q.device)
     lib = kernels.library("decode_attention")
     rc = lib.decode_attention_launch(
         code, kernels.DTYPE_INT8 if quantized else code, q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        kv_length.data_ptr(), out.data_ptr(), L, B, T, K, D, nq, layer,
-        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+        kv_length.data_ptr(), out.data_ptr(), scratch.data_ptr(), L, B, T, K,
+        D, nq, layer, int(window or 0), SPAN, n_spans,
+        torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(rc, "decode_attention")
     decode_attention.launches += 1
     return out

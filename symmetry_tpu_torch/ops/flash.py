@@ -1,16 +1,22 @@
 """Flash attention for prefill: causal, GQA, ragged lengths, optional window.
 
 Port of symmetry_tpu/ops/flash.py (`flash_prefill`, Pallas `_flash_kernel`).
-On a CUDA tensor, `flash_prefill` launches the hand-written Hopper kernel in
-csrc/flash_prefill.cu; on a CPU tensor it runs `flash_prefill_reference`,
-a masked float32 softmax over materialized scores. Nothing else is accepted:
-there is no fallback from a CUDA tensor to the plain version.
+On a CUDA tensor, `flash_prefill` launches one of two hand-written Hopper
+kernels in csrc/flash_prefill.cu, chosen by `flash_variant` from (dtype,
+head_dim): bf16 at head_dim 64, 128 or 256 takes the tensor-core kernel
+(wgmma, P rounded to bf16 before the P V product as the JAX kernel rounds
+it), everything else the float32 FMA kernel (float32 inputs must not pass
+through the tensor cores' reduced precision). On a CPU tensor it runs
+`flash_prefill_reference`, a masked float32 softmax over materialized
+scores. Nothing else is accepted: there is no fallback from a CUDA tensor to
+the plain version or from one variant to the other.
 
-The kernel streams K/V tiles through shared memory with an online softmax,
+Both kernels stream K/V tiles through shared memory with an online softmax,
 so the [H, S, S] scores never reach device memory. Inputs keep the model's
 [B, S, H, D] layout and are read through their strides (no transpose copy);
 query head h reads KV head h // group in place, so repeated K/V is never
-materialized.
+materialized. The tensor-core kernel loads through TMA tensor maps, so its
+strides must be multiples of 8 elements and its data 16-byte aligned.
 """
 
 from __future__ import annotations
@@ -21,9 +27,19 @@ from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.attention import NEG_INF
 
 # The bucket contract of the JAX kernel: S must be a multiple of
-# min(BLOCK, S). The CUDA kernel tiles 64 rows and masks the ragged edge.
+# min(BLOCK, S). The CUDA kernels tile 64 (FMA) or 128 (tensor-core) query
+# rows and mask the ragged edge.
 BLOCK = 128
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128, 256)
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that serves (dtype, head_dim): "tensor_core" for
+    bf16 at head_dim 64, 128 or 256, else "fma"."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+        return "tensor_core"
+    return "fma"
 
 
 def _check_args(q, k, v, seq_lens):
@@ -78,19 +94,35 @@ def flash_prefill(
             raise ValueError(f"flash_prefill: {name}'s head_dim must be "
                              f"contiguous")
     code = kernels.dtype_code(q.dtype)
+    variant = flash_variant(q.dtype, D)
+    if variant == "tensor_core":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3]):
+                raise ValueError(
+                    f"flash_prefill: the tensor-core kernel's TMA loads "
+                    f"need 16-byte-aligned rows; {name}'s strides "
+                    f"{t.stride()} must be multiples of 8 and its data "
+                    f"16-byte aligned")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = kernels.library("flash_prefill")
-    rc = lib.flash_prefill_launch(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), B, S, H, K, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
-    kernels.check(rc, "flash_prefill")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seq_lens.data_ptr(),
+            out.data_ptr(), B, S, H, K, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], int(window or 0),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if variant == "tensor_core":
+        rc = lib.flash_prefill_tc_launch(*args)
+    else:
+        rc = lib.flash_prefill_launch(code, *args)
+    kernels.check(rc, f"flash_prefill ({variant})")
     flash_prefill.launches += 1
+    flash_prefill.variant_launches[variant] += 1
     return out
 
 
 flash_prefill.launches = 0
+# Launches by kernel variant (flash_variant); they sum to `launches`.
+flash_prefill.variant_launches = {"tensor_core": 0, "fma": 0}
 
 
 def flash_prefill_reference(

@@ -36,12 +36,18 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
         "flash_prefill_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
                                  _LL, _LL, _LL, _I, _P],
+        # the tensor-core variant (bf16): the same without the dtype
+        "flash_prefill_tc_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                                    _LL, _LL, _LL, _LL, _I, _P],
     }),
     "decode_attention": ("decode_attention.cu", {
         # dtype, kv_dtype, q, k_cache, v_cache, k_scale, v_scale, kv_length,
-        # out, L, B, T, K, D, n_q, layer, window, stream
-        "decode_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _I, _I, _I, _P],
+        # out, scratch, L, B, T, K, D, n_q, layer, window, span, n_spans,
+        # stream
+        "decode_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _P],
     }),
     "kv_append": ("kv_append.cu", {
         # dtype, k_new, v_new, k_cache, v_cache, k_scale, v_scale,

@@ -6,9 +6,13 @@ On the CPU the port's `decode_attention` runs its plain version
 use, and against JAX `gqa_attention`, mirroring tests/test_decode_attention.py
 for the bf16/f32 cases and the int8 cases (int8 payload, [L, B, K, T]
 scales folded into scores and probabilities). atol=2e-5: float32 on both
-sides. The CUDA kernel is held against the plain version on the card in
+sides. The CUDA kernels are held against the plain version on the card in
 tests/test_torch_gpu.py; `kernel_supports`, the one gate the wrapper uses,
-must take every preset's head dim and group size.
+must take every preset's head dim and group size. The CUDA kernels split
+each slot's capacity into the spans of `split_plan` and merge the spans'
+partial softmaxes: the plan must cover the capacity exactly, and a torch
+model of that arithmetic (float32 partials per live span, then the merge)
+must equal the JAX kernel at the same atol.
 """
 
 import jax.numpy as jnp
@@ -22,8 +26,12 @@ from symmetry_tpu.ops.decode_attention import decode_attention as jax_decode
 from symmetry_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from symmetry_tpu_torch.models.llama import PRESETS
 from symmetry_tpu_torch.ops.decode_attention import (
+    SPAN,
     decode_attention,
+    group_tile,
     kernel_supports,
+    live_blocks,
+    split_plan,
 )
 
 ATOL = 2e-5
@@ -225,3 +233,122 @@ class TestKernelGate:
     def test_head_dims(self):
         assert not kernel_supports(96, 4) and not kernel_supports(512, 1)
         assert not kernel_supports(128, 0)
+
+
+class TestSplitPlan:
+    @pytest.mark.parametrize("capacity", [16, 64, 2048, 4096, 32768])
+    def test_spans_cover_capacity_exactly(self, capacity):
+        plan = split_plan(capacity)
+        assert plan[0][0] == 0 and plan[-1][1] == capacity
+        for (a, b), (c, _) in zip(plan, plan[1:]):
+            assert b == c, "gap or overlap between spans"
+        assert all(0 < b - a <= SPAN for a, b in plan)
+        assert len(plan) == -(-capacity // SPAN)
+        for name, c in PRESETS.items():
+            K, G = c.num_kv_heads, c.num_heads // c.num_kv_heads
+            chunks = -(-G // group_tile(G))
+            # a full slot makes every span live; an empty one none
+            assert live_blocks([capacity], capacity, K, G) == (
+                len(plan) * K * chunks), name
+            assert live_blocks([0], capacity, K, G) == 0, name
+
+    def test_llama3_8b_fills_the_card(self):
+        """llama3-8b, 8 slots, capacity 4096, chip_smoke phase 3's lengths:
+        at least one live block for each of the H100's 132 SMs."""
+        c = PRESETS["llama3-8b"]
+        lengths = [0, 1, 4096, 1024, 777, 3000, 2048, 64]
+        assert live_blocks(lengths, 4096, c.num_kv_heads,
+                           c.num_heads // c.num_kv_heads) >= 132
+
+    def test_window_floor_skips_spans(self):
+        # length 600, window 50: rows [550, 600) live only in span 2
+        assert live_blocks([600], 768, 1, 1, window=50) == 1
+        # length 600, window 100: rows [500, 600) in spans 1 and 2, not 0
+        assert live_blocks([600], 768, 1, 1, window=100) == 2
+        # length 300, window 100: the floor 200 crosses the edge at 256
+        assert live_blocks([300], 768, 1, 1, window=100) == 2
+
+    @pytest.mark.parametrize("group,tile", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                            (7, 8), (8, 8), (16, 8)])
+    def test_group_tile(self, group, tile):
+        assert group_tile(group) == tile
+
+
+def split_model(q, k, v, lengths, window=None, ks=None, vs=None):
+    """The split kernels' arithmetic in float32 torch: per slot and query
+    head, one partial (max, sum, unnormalized output) for each span of
+    split_plan holding live rows [max(len - window, 0), len), then their
+    merge. q [B, nq, D]; k, v [B, T, K, D] (one layer); ks, vs [B, K, T]."""
+    B, nq, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = nq // K
+    out = torch.zeros((B, nq, D), dtype=torch.float32)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), T)
+        lo = max(n - window, 0) if window else 0
+        for h in range(nq):
+            kv = h // G
+            parts = []
+            for a, e in split_plan(T):
+                a, e = max(a, lo), min(e, n)
+                if a >= e:
+                    continue  # the block exits at once
+                s = (k[b, a:e, kv] @ q[b, h]) * D ** -0.5
+                if ks is not None:
+                    s = s * ks[b, kv, a:e]
+                m = s.max()
+                p = torch.exp(s - m)
+                w = p * vs[b, kv, a:e] if vs is not None else p
+                parts.append((m, p.sum(), w @ v[b, a:e, kv]))
+            if not parts:
+                continue  # finite zeros
+            mx = max(m for m, _, _ in parts)
+            den = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+            num = sum(acc * torch.exp(m - mx) for m, _, acc in parts)
+            out[b, h] = num / torch.clamp(den, min=1e-30)
+    return out
+
+
+class TestSplitModel:
+    """Lengths on, one before and one past a span edge, 0, T and past T;
+    empty spans below the length, above it and below a window floor."""
+    T = 3 * SPAN
+
+    def case(self, seed, lengths):
+        q, k, v, lengths = make_case(B=len(lengths), T=self.T, K=2, G=4,
+                                     D=64, seed=seed, lengths=lengths)
+        # bf16-valued float32 inputs, as the card's bf16 path sees them
+        q, k, v = (torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in (q, k, v))
+        return q, k, v, lengths
+
+    @pytest.mark.parametrize("window", [None, 100])
+    def test_bf16_valued_matches_jax(self, window):
+        T = self.T
+        lengths = ([0, 1, SPAN - 1, SPAN, SPAN + 1, 300, T, T + 37]
+                   if window is None else [0, 1, SPAN + 1, 300, 600, T])
+        q, k, v, lengths = self.case(8, lengths)
+        got = split_model(torch.from_numpy(q), torch.from_numpy(k[1]),
+                          torch.from_numpy(v[1]), lengths, window).numpy()
+        want = jax_kernel(q, k, v, 1, np.minimum(lengths, T), 256,
+                          window=window)
+        assert np.isfinite(got).all()
+        live = lengths > 0  # an empty slot's output is garbage by contract
+        np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=0)
+
+    @pytest.mark.parametrize("window", [None, 100])
+    def test_int8_matches_jax(self, window):
+        T = self.T
+        lengths = ([0, 1, SPAN, SPAN + 1, T, T + 5] if window is None
+                   else [0, 2, SPAN + 1, 300, 600, T])
+        q, k, v, lengths = self.case(9, lengths)
+        kq, vq, ks, vs = quantized(k, v)
+        got = split_model(*(torch.from_numpy(a) for a in (
+            q, kq[0].astype(np.float32), vq[0].astype(np.float32))),
+            lengths, window, torch.from_numpy(ks[0]),
+            torch.from_numpy(vs[0])).numpy()
+        want = jax_int8(q, kq, vq, ks, vs, 0, np.minimum(lengths, T), 256,
+                        window=window)
+        assert np.isfinite(got).all()
+        live = lengths > 0
+        np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=0)

@@ -4,8 +4,11 @@ On the CPU the port's `flash_prefill` runs its plain version; it is held
 against JAX `flash_prefill(..., interpret=True)` on the same numpy inputs,
 mirroring tests/test_flash.py. Valid rows are compared at atol=2e-5
 (float32 on both sides; the kernel's online softmax and the plain
-version's one-shot softmax differ only in summation order). The CUDA kernel
-is held against the plain version on the card in tests/test_torch_gpu.py.
+version's one-shot softmax differ only in summation order). The CUDA kernels
+are held against the plain version on the card in tests/test_torch_gpu.py;
+`flash_variant`, the one gate the wrapper routes by, must send bf16 at every
+production preset's head dim to the tensor-core kernel and float32 to the
+FMA kernel.
 """
 
 import dataclasses
@@ -22,8 +25,13 @@ from symmetry_tpu.models import preset as jax_preset
 from symmetry_tpu.models.llama import forward_hidden as jax_forward_hidden
 from symmetry_tpu.ops.flash import flash_prefill as jax_flash
 from symmetry_tpu_torch.convert import params_from_numpy
-from symmetry_tpu_torch.models.llama import forward_hidden, init_cache, preset
-from symmetry_tpu_torch.ops.flash import flash_prefill
+from symmetry_tpu_torch.models.llama import (
+    PRESETS,
+    forward_hidden,
+    init_cache,
+    preset,
+)
+from symmetry_tpu_torch.ops.flash import HEAD_DIMS, flash_prefill, flash_variant
 
 ATOL = 2e-5
 
@@ -114,3 +122,29 @@ class TestFlashInModel:
         np.testing.assert_allclose(c_got.k.numpy(), np.asarray(c_want.k),
                                    atol=1e-4, rtol=0)
         np.testing.assert_array_equal(c_got.lengths.numpy(), seq_lens)
+
+
+class TestFlashVariant:
+    PRODUCTION = sorted(n for n in PRESETS if not n.startswith("tiny"))
+
+    @pytest.mark.parametrize("name", PRODUCTION)
+    def test_bf16_production_presets_take_tensor_cores(self, name):
+        assert flash_variant(torch.bfloat16,
+                             PRESETS[name].dim_per_head) == "tensor_core"
+
+    @pytest.mark.parametrize("head_dim", HEAD_DIMS)
+    def test_float32_takes_fma(self, head_dim):
+        assert flash_variant(torch.float32, head_dim) == "fma"
+
+    def test_production_head_dims_covered(self):
+        """llama3.2-1b (64), the 8b-class models (128) and gemma (256)."""
+        dims = {PRESETS[n].dim_per_head for n in self.PRODUCTION}
+        assert dims == {64, 128, 256}
+
+    def test_cpu_counts_no_launch(self):
+        before = (flash_prefill.launches, dict(flash_prefill.variant_launches))
+        q, k, v = (torch.from_numpy(a) for a in case(5, 1, 16, 2, 1, 64))
+        flash_prefill(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                      torch.tensor([16], dtype=torch.int32))
+        assert (flash_prefill.launches,
+                flash_prefill.variant_launches) == before

@@ -3,8 +3,11 @@
 Each kernel is held against its plain PyTorch version on the same inputs on
 the card: atol 1e-4 in float32 (TF32 off; only summation order differs) and
 2e-2 in bfloat16 (the plain version rounds its inputs the same way but sums
-in another order); the KV append bit for bit; W8A16 relative to its
-output's magnitude. Every test skips here, with its reason, when no CUDA
+in another order; the tensor-core flash kernel also rounds its softmax
+probabilities to bf16 before the P V product, as the JAX kernel rounds p to
+the value dtype, where the plain version keeps them in float32: about 2**-9
+relative on each weight, below one bf16 step of the output); the KV append
+bit for bit; W8A16 relative to its output's magnitude. Every test skips here, with its reason, when no CUDA
 device is present. This file imports nothing of JAX, so on the card it runs
 without the JAX package's test configuration:
 
@@ -16,10 +19,15 @@ import pytest
 import torch
 
 from symmetry_tpu_torch.ops.decode_attention import (
+    SPAN,
     decode_attention,
     decode_attention_reference,
 )
-from symmetry_tpu_torch.ops.flash import flash_prefill, flash_prefill_reference
+from symmetry_tpu_torch.ops.flash import (
+    flash_prefill,
+    flash_prefill_reference,
+    flash_variant,
+)
 from symmetry_tpu_torch.ops.kv_append import kv_append, kv_append_reference
 from symmetry_tpu_torch.ops.qmm import (
     w8a8_matmul,
@@ -100,6 +108,68 @@ class TestFlashKernel:
             flash_prefill(q, q.bfloat16(), q, torch.ones(1, dtype=torch.int32,
                                                          device=dev))
 
+    def check_bf16(self, B, S, H, K, D, lens, window=None, seed=21):
+        """One bf16 call at llama-like widths against the plain version on
+        valid rows; the tensor-core variant must have taken it."""
+        dev = cuda_or_skip()
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in case(seed, B, S, H, K, D))
+        seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+        assert flash_variant(q.dtype, D) == "tensor_core"
+        before = flash_prefill.variant_launches["tensor_core"]
+        got = flash_prefill(q, k, v, seq_lens, window=window)
+        torch.cuda.synchronize()
+        assert flash_prefill.variant_launches["tensor_core"] == before + 1
+        want = flash_prefill_reference(q, k, v, seq_lens, window=window)
+        assert torch.isfinite(got).all()
+        for b, n in enumerate(lens):
+            torch.testing.assert_close(got[b, :n].float(),
+                                       want[b, :n].float(), atol=2e-2,
+                                       rtol=0)
+
+    @pytest.mark.parametrize("S", [16, 32, 64, 2048])
+    def test_tensor_core_buckets(self, S):
+        """Buckets smaller than one 128-row tile, and the largest."""
+        self.check_bf16(2, S, 32, 8, 128, [S, S // 2 + 1])
+
+    def test_tensor_core_ragged_batch(self):
+        self.check_bf16(4, 2048, 32, 8, 128, [2048, 1900, 1025, 17])
+
+    @pytest.mark.parametrize("D", [64, 128, 256])
+    @pytest.mark.parametrize("window", [130, 200])
+    def test_tensor_core_window_crosses_tile_edge(self, D, window):
+        self.check_bf16(2, 512, 8, 2, D, [512, 333], window=window)
+
+    def test_strided_inputs_bf16(self):
+        """bf16 q/k/v as views of one fused projection: the tensor-core
+        kernel reads them through their strides."""
+        dev = cuda_or_skip()
+        B, S, H, K, D = 2, 256, 8, 2, 128
+        qkv = torch.randn(B, S, H + 2 * K, D, device=dev,
+                          dtype=torch.bfloat16)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + K], qkv[:, :, H + K:]
+        seq_lens = torch.tensor([256, 70], dtype=torch.int32, device=dev)
+        before = flash_prefill.variant_launches["tensor_core"]
+        got = flash_prefill(q, k, v, seq_lens)
+        assert flash_prefill.variant_launches["tensor_core"] == before + 1
+        want = flash_prefill_reference(q, k, v, seq_lens)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   atol=2e-2, rtol=0)
+        torch.testing.assert_close(got[1, :70].float(), want[1, :70].float(),
+                                   atol=2e-2, rtol=0)
+
+    def test_tensor_core_rejects_unaligned_rows(self):
+        """A bf16 view whose rows are not 16-byte aligned raises; it is
+        never routed to the other kernel."""
+        dev = cuda_or_skip()
+        flat = torch.zeros(1 + 16 * 2 * 64, device=dev, dtype=torch.bfloat16)
+        q = flat[1:].view(1, 16, 2, 64)
+        lens = torch.ones(1, dtype=torch.int32, device=dev)
+        before = dict(flash_prefill.variant_launches)
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_prefill(q, q, q, lens)
+        assert flash_prefill.variant_launches == before
+
 @pytest.mark.gpu
 class TestDecodeAttentionKernel:
     @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
@@ -178,6 +248,38 @@ class TestDecodeAttentionKernel:
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=0)
 
+    @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+    @pytest.mark.parametrize("window", [None, 300])
+    def test_span_edges(self, kind, window):
+        """Lengths on, one before and one past a span edge, a full slot, an
+        empty one; a window floor that crosses spans."""
+        dev = cuda_or_skip()
+        T = 4 * SPAN
+        lengths = [SPAN - 1, SPAN, SPAN + 1, 2 * SPAN, T, 0, 1, 700]
+        q, k, v, lengths = make_case(B=8, T=T, K=2, G=4, D=128, L=2,
+                                     seed=15, lengths=lengths)
+        dtype = torch.float32 if kind == "float32" else torch.bfloat16
+        q = torch.from_numpy(q).to(dev, dtype)
+        lengths = torch.from_numpy(lengths).to(dev)
+        if kind == "int8":
+            (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(a))
+                                  for a in (k, v))
+            caches = (kq.to(dev), vq.to(dev))
+            scales = tuple(s.transpose(-1, -2).contiguous().to(dev)
+                           for s in (ks, vs))
+        else:
+            caches = tuple(torch.from_numpy(a).to(dev, dtype)
+                           for a in (k, v))
+            scales = (None, None)
+        got = decode_attention(q, *caches, 1, lengths, *scales, window=window)
+        want = decode_attention_reference(q, *caches, 1, lengths, *scales,
+                                          window=window)
+        assert torch.isfinite(got).all()
+        live = lengths > 0
+        tol = 1e-4 if kind == "float32" else 2e-2
+        torch.testing.assert_close(got[live].float(), want[live].float(),
+                                   atol=tol, rtol=0)
+
     def test_length_past_capacity_reads_capacity(self):
         dev = cuda_or_skip()
         q, k, v, _ = make_case(B=2, T=64, seed=12)
@@ -186,6 +288,42 @@ class TestDecodeAttentionKernel:
         got = decode_attention(q, k, v, 0, over)
         want = decode_attention(q, k, v, 0, torch.full_like(over, 64))
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+class TestNoHostSync:
+    def test_attention_wrappers_never_synchronize(self):
+        """Flash (both variants) and decode (bf16 and int8) launch under
+        torch.cuda.set_sync_debug_mode("error"), which raises on any call
+        that synchronizes the host with the card."""
+        dev = cuda_or_skip()
+        q, k, v = (torch.from_numpy(a).to(dev)
+                   for a in case(3, 2, 256, 8, 2, 128))
+        seq_lens = torch.tensor([256, 99], dtype=torch.int32, device=dev)
+        qd, kd, vd, lengths = make_case(B=4, T=600, seed=16,
+                                        lengths=[600, 0, 3, 300])
+        qd, kd, vd = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                      for a in (qd, kd, vd))
+        lengths = torch.from_numpy(lengths).to(dev)
+        (kq, ks), (vq, vs) = (quantize_kv(x) for x in (kd, vd))
+        ks, vs = (s.transpose(-1, -2).contiguous() for s in (ks, vs))
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        for fn in (lambda: flash_prefill(qb, kb, vb, seq_lens, window=64),
+                   lambda: flash_prefill(q, k, v, seq_lens),
+                   lambda: decode_attention(qd, kd, vd, 1, lengths,
+                                            window=100),
+                   lambda: decode_attention(qd, kq, vq, 0, lengths, ks, vs)):
+            fn()  # first use: builds and loads the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            flash_prefill(qb, kb, vb, seq_lens, window=64)
+            flash_prefill(q, k, v, seq_lens)
+            decode_attention(qd, kd, vd, 1, lengths, window=100)
+            decode_attention(qd, kq, vq, 0, lengths, ks, vs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
