@@ -15,15 +15,18 @@ Phases (any failure raises and exits non-zero):
               (the tensor-core variant) and decode attention (bf16 and
               int8 caches, and a qwen2-7b group of 7) within 2e-2 on valid
               rows, the KV append bit for bit, W8A16 within one bf16 step
-              of its largest output, W8A8 bit for bit (wq, wg, wd, lm_head
-              at 32, 128 and 2048 rows; no serving path routes it);
-              kernel, plain and library (a yardstick only) device times
-              (kernel durations summed by torch.profiler, decode's split
-              and combine kernels together; the eager call's CUDA-event
-              time is logged beside), and each kernel's bound; flash also
-              at the coalesced-prefill shape (B=4 S=512, ragged) and
-              decode also at phase 5's lengths; then flash (both variants)
-              and decode (bf16, int8) once more under
+              of its largest output (wq, wk, wg, wd, lm_head at 8 rows, the
+              GEMV kernel, and at 128, 512 and 2048 rows, the tensor-core
+              kernel), W8A8 bit for bit (wq, wg, wd, lm_head at 32, 128
+              and 2048 rows, K splits included; no serving path routes
+              it); kernel, plain and library (a yardstick only) device
+              times (kernel durations summed by torch.profiler, decode's
+              split and combine kernels together; the eager call's
+              CUDA-event time is logged beside), and each kernel's bound;
+              flash also at the coalesced-prefill shape (B=4 S=512,
+              ragged) and decode also at phase 5's lengths; then flash
+              (both variants), decode (bf16, int8), W8A16 (both regimes)
+              and W8A8 (whole and split over K) once more under
               torch.cuda.set_sync_debug_mode("error"): no wrapper may
               synchronize with the host;
   4. tiny     the `tiny` preset in float32 through the port's engine and
@@ -40,7 +43,8 @@ Phases (any failure raises and exits non-zero):
               weights (init_params(quantize=True), seed 0) packed for the
               W8A16 kernel and an int8 KV cache: flash, KV append, int8
               decode attention and W8A16 on the path (launch counts
-              checked, flash as in phase 5);
+              checked, W8A16's per regime: the tensor-core kernel at
+              prefill, the GEMV kernel at decode; flash as in phase 5);
   7. host tiny  `python -m symmetry_tpu_torch.engine.host` on `tiny` in
               float32 with a small prefill_chunk and the prefix cache on,
               one host on the card and one with --device cpu, fed the same
@@ -56,7 +60,8 @@ Phases (any failure raises and exits non-zero):
               (exit 0), TTFT by path, tok/s, memory; then, in-process on the
               same config, a profile of one chunk step and one cached
               admission and the chunk attention's device time;
-  9. report   one JSON line listing the six kernel rows, the nvidia-smi
+  9. report   one JSON line listing the seven kernel rows (W8A16 one per
+              regime), the nvidia-smi
               line, and last the {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
@@ -366,17 +371,26 @@ def check_decode(int8: bool) -> dict:
 
 
 def check_no_host_sync() -> None:
-    """Neither attention wrapper synchronizes with the host: flash (both
-    variants) and decode (bf16 and int8) run under
+    """No wrapper synchronizes with the host: flash (both variants), decode
+    (bf16 and int8), W8A16 (GEMV, GEMV split over K, tensor-core) and W8A8
+    (whole and split over K, its row quantization included) run under
     torch.cuda.set_sync_debug_mode("error"), which raises on any
     synchronizing call."""
     from symmetry_tpu_torch.ops.decode_attention import decode_attention
     from symmetry_tpu_torch.ops.flash import flash_prefill
+    from symmetry_tpu_torch.ops.qmm import w8a8_matmul, w8a16_matmul
+    from symmetry_tpu_torch.ops.quant import pack_quantized, quantize
 
     q, k, v, seq_lens = flash_case(2, 256, [256, 100], None, seed=12)
     qf, kf, vf = (x.float() for x in (q, k, v))
     bf16 = decode_case(2, 4, 512, 32, 8, 128, [512, 3, 0, 300], 22, False)
     int8 = decode_case(2, 4, 512, 32, 8, 128, [512, 3, 0, 300], 22, True)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    qt = quantize(torch.randn((4096, 1024), generator=g, device="cuda",
+                              dtype=torch.bfloat16).mul_(4096 ** -0.5))
+    pt = pack_quantized(qt)
+    xs = [torch.randn((m, 4096), generator=g, device="cuda",
+                      dtype=torch.bfloat16) for m in (8, 128, 2048)]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -384,11 +398,15 @@ def check_no_host_sync() -> None:
         flash_prefill(qf, kf, vf, seq_lens)
         for c in (bf16, int8):
             decode_attention(c[0], c[1], c[2], 1, c[5], c[3], c[4], window=200)
+        for x in xs:
+            w8a16_matmul(x, pt.q, pt.scale)
+            w8a8_matmul(x, qt.q, qt.scale)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    log("  sync debug mode \"error\": flash (tensor-core and FMA) and "
-        "decode (bf16, int8) launched without a host synchronization")
+    log("  sync debug mode \"error\": flash (tensor-core and FMA), decode "
+        "(bf16, int8), W8A16 (GEMV, tensor-core) and W8A8 (split over K and "
+        "whole) launched without a host synchronization")
 
 
 def check_kv_append() -> dict:
@@ -451,18 +469,23 @@ def check_kv_append() -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def check_w8a16() -> dict:
+def check_w8a16() -> list[dict]:
     """llama3-8b projection shapes at the decode (8 slots) and prefill
-    (2048-row token budget) row counts. Tolerance: one bf16 step at the
-    largest output, 2**-7 * max|y| (the kernel and the plain version sum
-    in float32 in different orders, then round to bf16)."""
+    (the 128 and 512 buckets, the 2048-row token budget) row counts: 8 rows
+    take the GEMV kernel, the others the tensor-core kernel; one row of the
+    `kernels` line for each regime, at the widest leaf (`wg`). Tolerance:
+    one bf16 step at the largest output, 2**-7 * max|y| (the kernel and
+    the plain version sum in float32 in different orders, then round to
+    bf16)."""
     from symmetry_tpu_torch.ops.qmm import w8a16_matmul, w8a16_reference
     from symmetry_tpu_torch.ops.quant import pack_quantized, quantize
 
     shapes = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
               "wd": (14336, 4096), "lm_head": (4096, 128256)}
+    regimes = {8: "gemv", 2048: "tc"}  # the rows reported, both on `wg`
     g = torch.Generator(device="cuda").manual_seed(40)
-    worst, row = 0.0, None
+    worst = {"gemv": 0.0, "tc": 0.0}
+    rows = {}
     for name, (K, N) in shapes.items():
         w = torch.randn((K, N), generator=g, device="cuda",
                         dtype=torch.bfloat16).mul_(K ** -0.5)
@@ -470,7 +493,8 @@ def check_w8a16() -> dict:
         pt = pack_quantized(qt)
         w_lib = (qt.q.float() * qt.scale).to(torch.bfloat16)
         del w, qt
-        for M in (8, 2048):
+        for M in (8, 128, 512, 2048):
+            regime = "gemv" if M == 8 else "tc"
             x = torch.randn((M, K), generator=g, device="cuda",
                             dtype=torch.bfloat16)
             got = w8a16_matmul(x, pt.q, pt.scale)
@@ -481,7 +505,7 @@ def check_w8a16() -> dict:
             if not torch.isfinite(got).all() or err > tol:
                 raise AssertionError(f"w8a16 {name} M={M}: error {err} > "
                                      f"{tol}")
-            worst = max(worst, err)
+            worst[regime] = max(worst[regime], err)
             ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
             call_ms = cuda_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
             plain_ms = device_ms(
@@ -489,20 +513,23 @@ def check_w8a16() -> dict:
             library_ms = device_ms(lambda: torch.matmul(x, w_lib), 20)
             nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
             bound_ms, bound_by = bound(nbytes, 2.0 * M * K * N)
-            log(f"  w8a16 {name} [{K}, {N}] M={M}: max_abs_err={err:.3e} "
-                f"(tol {tol:.3e}); device ms: kernel {ms:.4f} ({call_ms:.4f} "
-                f"per eager call), plain {plain_ms:.4f}, torch.matmul bf16 "
-                f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by})")
-            if (name, M) == ("wg", 8):  # the decode regime's widest leaf
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms)
+            log(f"  w8a16 {name} [{K}, {N}] M={M} ({regime}): "
+                f"max_abs_err={err:.3e} (tol {tol:.3e}); device ms: kernel "
+                f"{ms:.4f} ({call_ms:.4f} per eager call), plain "
+                f"{plain_ms:.4f}, torch.matmul bf16 {library_ms:.4f}, bound "
+                f"{bound_ms:.4f} ({bound_by})")
+            if name == "wg" and M in regimes:
+                rows[regime] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=library_ms)
             del x, got, want
         del pt, w_lib
         torch.cuda.empty_cache()
-    return dict(name="w8a16_matmul", route="cuda",
-                source="symmetry_tpu_torch/csrc/w8a16.cu",
-                replaces="symmetry_tpu/ops/qmm.py:251", max_abs_err=worst,
-                **row)
+    return [dict(name=f"w8a16_matmul[{regime}]", route="cuda",
+                 source="symmetry_tpu_torch/csrc/w8a16.cu",
+                 replaces="symmetry_tpu/ops/qmm.py:251",
+                 max_abs_err=worst[regime], **rows[regime])
+            for regime in ("gemv", "tc")]
 
 
 def check_w8a8() -> dict:
@@ -537,7 +564,7 @@ def check_w8a8() -> dict:
                                      f"the plain version (max err {err})")
             ms = device_ms(lambda: w8a8_matmul(x, qt.q, qt.scale), 10)
             kern_ms = device_ms(lambda: w8a8_matmul(x, qt.q, qt.scale), 10,
-                                name="w8a8_kernel")
+                                name="w8a8_")  # product (+ the K-split sum)
             plain_ms = device_ms(
                 lambda: w8a8_reference(x, qt.q, qt.scale), 2)
             xq, _ = quantize_rows(x)
@@ -720,6 +747,7 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
+        w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
         for variant in flash_prefill.variant_launches:
             flash_prefill.variant_launches[variant] = 0
         torch.cuda.reset_peak_memory_stats()
@@ -733,10 +761,12 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
                 int8=int8)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     variants = dict(flash_prefill.variant_launches)
+    regimes = {"gemv": w8a16_matmul.launches_gemv,
+               "tc": w8a16_matmul.launches_tc}
     cfg, m = res["config"], res["metrics"]
     L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
-    log(f"  {label} launches {launches}, flash by variant {variants}; "
-        f"scheduler admit_dispatches={dispatches} steps={steps} "
+    log(f"  {label} launches {launches}, flash by variant {variants}, "
+        f"W8A16 by regime {regimes}; scheduler admit_dispatches={dispatches} steps={steps} "
         f"tokens={m['tokens']}")
     for i, r in enumerate(res["requests"]):
         if r["reason"] != "length" or r["generated"] != max_new:
@@ -750,6 +780,11 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
             "w8a16_matmul": (7 * L + 1) * (steps + dispatches) if int8 else 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    # Prefill rows take the tensor-core kernel; decode steps (8 rows), and
+    # a prefill's LM head on its last rows, the GEMV kernel.
+    if sum(regimes.values()) != launches["w8a16_matmul"] or (
+            int8 and min(regimes.values()) <= 0):
+        raise AssertionError(f"W8A16 launches by regime {regimes}")
     # bf16 at head_dim 128: every flash launch takes the tensor-core kernel.
     if variants != {"tensor_core": L * dispatches, "fma": 0}:
         raise AssertionError(f"flash variants {variants}: not every launch "
@@ -769,7 +804,9 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; weights "
         f"streamed per decode step {engine.weight_stream_bytes() / 1e9:.3f} "
         f"GB")
-    return launches
+    del launches["w8a16_matmul"]
+    return {**launches, **{f"w8a16_matmul[{r}]": n
+                           for r, n in regimes.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -1135,7 +1172,7 @@ def main() -> int:
 
     log("phase 3: kernels against their plain versions (bf16)")
     rows = [check_flash(), check_decode(int8=False), check_decode(int8=True),
-            check_kv_append(), check_w8a16()]
+            check_kv_append(), *check_w8a16()]
     check_no_host_sync()
     w8a8_row = check_w8a8()
     torch.cuda.empty_cache()
@@ -1155,7 +1192,8 @@ def main() -> int:
                 "decode_attention": bf16["decode_attention"],
                 "decode_attention_int8": int8["decode_attention"],
                 "kv_append": int8["kv_append"],
-                "w8a16_matmul": int8["w8a16_matmul"]}
+                "w8a16_matmul[gemv]": int8["w8a16_matmul[gemv]"],
+                "w8a16_matmul[tc]": int8["w8a16_matmul[tc]"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:

@@ -646,33 +646,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (wg == 0) named_sync(1, 256);
 }
 
-// cuTensorMapEncodeTiled, a driver API call, reached through the runtime
-// so the library links against nothing beyond cudart.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The [B, S, heads, D] bf16 tensor at `base` with element strides (batch,
 // seq, head) as a 4-D TMA map {D, heads, S, B}, boxes of 64 columns x
 // `rows` rows, 128-byte swizzle, zero fill past the edges.

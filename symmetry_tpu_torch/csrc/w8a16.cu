@@ -26,25 +26,41 @@
 //    split K so that about 264 blocks are in flight; the splits' float32
 //    partials are summed, scaled and cast by `w8a16_epilogue_kernel`.
 //  - M > 16 bf16 rows (prefill: up to the 2048-row token budget):
-//    operations bound. `w8a16_wmma_kernel`: 128 x 64 output tiles, 8 warps
-//    of 32 x 32, WMMA bf16 16x16x16 fragments with float32 accumulators;
-//    each 32-deep K step copies the x tile and the int8 weight tile,
-//    converted to bf16, into shared memory, the next step's global loads
-//    already in flight in registers. The grid walks M fastest, so a weight
-//    panel is read from device memory once and from L2 by the other row
-//    tiles.
-// Not yet: TMA, wgmma, a deeper pipeline (later work).
-#include <mma.h>
+//    operations bound (2 * M * K * N bf16 operations against the card's
+//    dense bf16 peak). `tc::w8a16_tc_kernel`: a persistent grid, one block
+//    per SM, over 256 x 128 output tiles (128 x 128 where the taller tile
+//    would leave SMs idle or mostly masked), M fastest, so the blocks
+//    running together share few weight panels and read each from device
+//    memory once. Four warpgroups a block:
+//     - a producer thread brings, per 64-deep K step, the tile's x rows by
+//       TMA (128-byte swizzle, rows past M and columns past K zero-filled)
+//       and the step's two weight panels, 4 KB contiguous each in the
+//       panel layout, by bulk copies, into rings of four (six for the
+//       short tile) stages with an mbarrier each;
+//     - a converter warpgroup turns each int8 stage into a bf16 staging
+//       tile (a ring of three) in the swizzled MN-major layout wgmma reads
+//       as a transposed B, by a byte permute into the mantissa of 2^23 and
+//       one subtraction (exact for all 256 values), off the products'
+//       critical path;
+//     - two consumer warpgroups run wgmma m64n128k16 bf16 x bf16 -> f32
+//       (x K-major from its stage, the weight MN-major from the staging
+//       tile), one step's group in flight while the next step's barriers
+//       are awaited, then scale, cast and store their rows in whole
+//       32-byte sectors, rows past M masked.
+//    A K that is a multiple of 32 but not of 64 ends in a half step: x is
+//    zero there, so whatever the stage holds adds nothing. No library
+//    product anywhere.
+#include <cuda.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace symtorch {
 namespace {
-
-using namespace nvcuda;
 
 constexpr int PW = 64;  // packed panel width (output columns)
 
@@ -153,130 +169,304 @@ __global__ void w8a16_epilogue_kernel(const float* __restrict__ part,
   }
 }
 
-// ---- WMMA regime -----------------------------------------------------------
-constexpr int TM = 128, TN = PW, TK = 32;
-constexpr int XS_LD = TK + 8;   // bf16 row pitch of the x tile (80 bytes)
-constexpr int WS_LD = TN + 8;   // bf16 row pitch of the weight tile
-constexpr int X_BYTES = TM * XS_LD * 2;
-constexpr int W_BYTES = TK * WS_LD * 2;
-constexpr int C_BYTES = 8 * 32 * 32 * 4;  // per-warp 32x32 f32 epilogue
-constexpr int SMEM_BYTES =
-    (X_BYTES + W_BYTES) > C_BYTES ? (X_BYTES + W_BYTES) : C_BYTES;
+// ---- Tensor-core regime -----------------------------------------------------
+// One block per SM walks the (rows x 128 columns) output tiles, M fastest.
+// Four warpgroups: two consumers, the converter, the producer.
+namespace tc {
 
-template <typename TO>
-__global__ void __launch_bounds__(256)
-w8a16_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                  const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, TO* __restrict__ out,
-                  int M, int K, int N, int apply_scale) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  auto xs = reinterpret_cast<__nv_bfloat16(*)[XS_LD]>(smem);
-  auto ws = reinterpret_cast<__nv_bfloat16(*)[WS_LD]>(smem + X_BYTES);
+constexpr int NT = 512;
+constexpr int BN = 2 * PW;        // output columns per tile: a panel pair
+constexpr int BK = 64;            // K rows per step: one 128-byte row of x
+constexpr int BSTAGES = 3;        // bf16 weight staging tiles
+constexpr int W8_BYTES = BK * BN;       // int8 weight stage: [2][64][64]
+constexpr int WB_BYTES = BK * BN * 2;   // bf16 staging tile: [2][64][128 B]
+constexpr int kConsumerRegs = 200;
+constexpr int kConverterRegs = 88;
+constexpr int kProducerRegs = 24;
 
-  const int m0 = blockIdx.x * TM;
-  const int panel = blockIdx.y;
+// MT: 64-row wgmma tiles per consumer warpgroup; a tile has 128 * MT rows.
+template <int MT>
+struct Cfg {
+  static constexpr int BM = 128 * MT;
+  static constexpr uint32_t X_BYTES = BM * BK * 2;
+  // x and int8 weight stages in flight: a short tile has the room for
+  // more, and with few tiles on the card it needs them to keep enough
+  // bytes on their way from device memory.
+  static constexpr int STAGES = MT == 1 ? 6 : 4;
+  // 1 KB alignment slack, the x and int8 rings, the bf16 staging tiles.
+  static constexpr size_t SMEM = 1024 + size_t(STAGES) * (X_BYTES + W8_BYTES) +
+                                 size_t(BSTAGES) * WB_BYTES;
+  static_assert(STAGES <= 6 && SMEM <= 232448, "ring does not fit");
+};
+
+constexpr int MAX_STAGES = 6;
+struct Bars {
+  uint64_t x_full[MAX_STAGES], x_empty[MAX_STAGES], w_full[MAX_STAGES],
+      w_empty[MAX_STAGES], b_full[BSTAGES], b_empty[BSTAGES];
+};
+
+// Four int8 values (one 32-bit word, already XORed with 0x80808080) to two
+// bf16 pairs, exactly: byte b becomes the float 2^23 + b by a byte permute
+// into the mantissa of 0x4B000000, and 2^23 + 128 is subtracted.
+__device__ __forceinline__ void cvt4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const float f0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7651)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7652)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7653)) - 8388736.f;
+  lo = pack_bf16(f0, f1);
+  hi = pack_bf16(f2, f3);
+}
+
+template <int MT, typename TO>
+__global__ void __launch_bounds__(NT, 1)
+w8a16_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                const int8_t* __restrict__ w, const float* __restrict__ scale,
+                TO* __restrict__ out, int M, int K, int N, int apply_scale) {
+  using C = Cfg<MT>;
+  constexpr int BM = C::BM;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ __align__(1024) uint8_t tc_smem[];
+  __shared__ Bars bars;
+  const uint32_t sX = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const uint32_t sW8 = sX + STAGES * C::X_BYTES;
+  const uint32_t sWB = sW8 + STAGES * W8_BYTES;
+  const uint32_t x_full = smem_u32(&bars.x_full[0]);  // + 8 s
+  const uint32_t x_empty = smem_u32(&bars.x_empty[0]);
+  const uint32_t w_full = smem_u32(&bars.w_full[0]);
+  const uint32_t w_empty = smem_u32(&bars.w_empty[0]);
+  const uint32_t b_full = smem_u32(&bars.b_full[0]);
+  const uint32_t b_empty = smem_u32(&bars.b_empty[0]);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp & 3, wn = warp >> 2;  // warp tile: rows wm*32, cols wn*32
-  const int8_t* wp = w + (long long)panel * K * PW;
-
-  // Global -> register staging: two 16-byte x chunks and one 8-byte weight
-  // chunk per thread per K step.
-  uint4 xr[2];
-  uint2 wr;
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;
-      const int row = c >> 2, col = (c & 3) * 8;
-      xr[i] = m0 + row < M
-                  ? *reinterpret_cast<const uint4*>(
-                        x + (long long)(m0 + row) * K + k0 + col)
-                  : make_uint4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(x_full + 8 * s, 1);
+      mbar_init(x_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(w_full + 8 * s, 1);
+      mbar_init(w_empty + 8 * s, 4);  // one per converter warp
     }
-    wr = *reinterpret_cast<const uint2*>(wp + (long long)k0 * PW + tid * 8);
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * 256;
-      *reinterpret_cast<uint4*>(&xs[c >> 2][(c & 3) * 8]) = xr[i];
+    for (int s = 0; s < BSTAGES; ++s) {
+      mbar_init(b_full + 8 * s, 128);  // every converter thread
+      mbar_init(b_empty + 8 * s, 8);
     }
-    float f[8];
-    unpack8(wr, f);
-    __align__(16) __nv_bfloat16 h[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16(f[j]);  // exact
-    *reinterpret_cast<uint4*>(&ws[tid >> 3][(tid & 7) * 8]) =
-        *reinterpret_cast<const uint4*>(h);
-  };
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.f);
+  const int m_tiles = (M + BM - 1) / BM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles;
+  const int nk = (K + BK - 1) / BK;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int lane = tid & 31;
 
-  const int nk = K / TK;
-  load(0);
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();  // the previous step's fragments are loaded
-    store();
-    __syncthreads();
-    if (kt + 1 < nk) load((kt + 1) * TK);  // in flight during the MMAs
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &xs[wm * 32 + i * 16][kk], XS_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bf[j], &ws[kk][wn * 32 + j * 16], WS_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], a[i], bf[j], c[i][j]);
+  if (wg == 3) {
+    // Producer: one thread. Per K step, one TMA box of x (BM rows x 64
+    // columns, zero-filled past M and K) and one bulk copy per weight
+    // panel (64 K rows x 64 bytes, contiguous in the panel layout).
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid != 3 * 128) return;
+    int it = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int m0 = (t % m_tiles) * BM;
+      const int p0 = (t / m_tiles) * 2;
+      const int np = min(2, N / PW - p0);  // panels this tile has
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) {
+          const uint32_t ph = ((it / STAGES) & 1) ^ 1;
+          mbar_wait(x_empty + 8 * s, ph);
+          mbar_wait(w_empty + 8 * s, ph);
+        }
+        mbar_expect_tx(x_full + 8 * s, C::X_BYTES);
+        tma_load_2d(sX + s * C::X_BYTES, &tx, x_full + 8 * s, ks * BK, m0);
+        const uint32_t wbytes = min(BK, K - ks * BK) * PW;
+        mbar_expect_tx(w_full + 8 * s, wbytes * np);
+        for (int p = 0; p < np; ++p)
+          bulk_load(sW8 + s * W8_BYTES + p * (BK * PW),
+                    w + ((long long)(p0 + p) * K + ks * BK) * PW, wbytes,
+                    w_full + 8 * s);
+      }
     }
+    return;
   }
 
-  // Epilogue: each warp parks its 32x32 sums in shared memory (reusing the
-  // tiles), then writes 32 consecutive columns per row, scaled and cast.
-  __syncthreads();
-  float* cs = reinterpret_cast<float*>(smem) + warp * 32 * 32;
+  if (wg == 2) {
+    // Converter: int8 stage -> bf16 staging tile in the MN-major layout
+    // wgmma reads under the 128-byte swizzle (row k of a panel is 128
+    // bytes, its 16-byte chunk c at c ^ (k % 8)). A thread converts four
+    // 16-byte pieces a step; neighbouring lanes read neighbouring pieces,
+    // and a quarter warp's eight stores land on eight distinct chunks.
+    // Rows past K and panels past N convert whatever the stage holds: any
+    // byte gives a finite bf16, x is zero there, the columns are masked.
+    setmaxnreg_dec<kConverterRegs>();
+    const int ct = tid - 2 * 128;
+    const int steps = ((tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                       (int)gridDim.x) * nk;
+    for (int it = 0; it < steps; ++it) {
+      const int s = it % STAGES, b = it % BSTAGES;
+      mbar_wait(w_full + 8 * s, (it / STAGES) & 1);
+      if (it >= BSTAGES) mbar_wait(b_empty + 8 * b, ((it / BSTAGES) & 1) ^ 1);
+      const uint32_t src = sW8 + s * W8_BYTES, dst = sWB + b * WB_BYTES;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int j = ct + 128 * i;      // 16-byte piece of the stage
+        const int row = j >> 2, q = j & 3;  // row = panel * 64 + k
+        uint32_t v[4];
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                     : "r"(src + j * 16));
+        uint32_t o[8];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + i * 16 * 32 + j * 16, c[i][j], 32,
-                              wmma::mem_row_major);
-  __syncwarp();
-  const int n = panel * PW + wn * 32 + lane;
-  const float sc = apply_scale ? scale[n] : 1.f;
-  for (int rr = 0; rr < 32; ++rr) {
-    const int m = m0 + wm * 32 + rr;
-    if (m < M) out[(long long)m * N + n] = from_f<TO>(cs[rr * 32 + lane] * sc);
+        for (int e = 0; e < 4; ++e)
+          cvt4(v[e] ^ 0x80808080u, o[2 * e], o[2 * e + 1]);
+        const uint32_t base = dst + row * 128;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           base + (((2 * q + h) ^ (row & 7)) << 4)),
+                       "r"(o[4 * h]), "r"(o[4 * h + 1]), "r"(o[4 * h + 2]),
+                       "r"(o[4 * h + 3])
+                       : "memory");
+      }
+      fence_proxy_async();
+      mbar_arrive(b_full + 8 * b);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(w_empty + 8 * s);
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows 64 MT wg .. 64 MT (wg + 1) - 1 of the
+  // tile, MT accumulators of 64 x 128. One K step is 4 MT products a
+  // warpgroup (x K-major from its stage, the weight MN-major from the
+  // staging tile); one step's group stays in flight while the next step's
+  // barriers are awaited.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int warp = (tid >> 5) & 3;
+  float acc[MT][64];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = (t % m_tiles) * BM;
+    const int n0 = (t / m_tiles) * BN;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int s = it % STAGES, b = it % BSTAGES;
+      mbar_wait(x_full + 8 * s, (it / STAGES) & 1);
+      mbar_wait(b_full + 8 * b, (it / BSTAGES) & 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db =
+            smem_desc(sWB + b * WB_BYTES + kk * 2048, BK * 128, 1024);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          wgmma_ss_n128_bt(acc[mt],
+                           smem_desc(sX + s * C::X_BYTES +
+                                         (wg * MT + mt) * (64 * 128) + kk * 32,
+                                     16, 1024),
+                           db, (ks | kk) != 0);
+      }
+      wgmma_commit();
+      // the previous step's products are done: hand back its buffers (a
+      // tile's last step is handed back below, after its full wait)
+      wgmma_wait<1>();
+      if (ks > 0 && lane == 0) {
+        mbar_arrive(x_empty + 8 * ((it - 1) % STAGES));
+        mbar_arrive(b_empty + 8 * ((it - 1) % BSTAGES));
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+    if (lane == 0) {
+      mbar_arrive(x_empty + 8 * ((it - 1) % STAGES));
+      mbar_arrive(b_empty + 8 * ((it - 1) % BSTAGES));
+    }
+    // Epilogue: entry 4c + 2i + j of an accumulator is row 16 warp +
+    // lane / 4 + 8 i, column 8 c + 2 (lane % 4) + j; scaled, cast, stored.
+    // float32: a pair a thread, 32 contiguous bytes a quad. bf16: a pair is
+    // 4 bytes, so lanes q and q ^ 1 of a quad trade pairs of two
+    // neighbouring chunks -- the even lane ends with four columns of chunk
+    // c, the odd lane with four of chunk c + 1 -- and a quad again stores
+    // 32 contiguous bytes a row, a whole sector.
+    const int q = lane & 3;
+#pragma unroll
+    for (int c = 0; c < BN / 8; c += 2) {
+      if (n0 + 8 * c >= N) continue;  // N % 64 == 0: whole chunk pairs
+      float2 s0 = make_float2(1.f, 1.f), s1 = s0;
+      if (apply_scale) {
+        s0 = *reinterpret_cast<const float2*>(scale + n0 + 8 * c + 2 * q);
+        s1 = *reinterpret_cast<const float2*>(scale + n0 + 8 * c + 8 + 2 * q);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = m0 + (wg * MT + mt) * 64 + warp * 16 + (lane >> 2) + 8 * i;
+          const float a0 = acc[mt][4 * c + 2 * i] * s0.x;
+          const float a1 = acc[mt][4 * c + 2 * i + 1] * s0.y;
+          const float b0 = acc[mt][4 * c + 4 + 2 * i] * s1.x;
+          const float b1 = acc[mt][4 * c + 4 + 2 * i + 1] * s1.y;
+          TO* o = out + (long long)m * N + n0 + 8 * c;
+          if constexpr (std::is_same<TO, float>::value) {
+            if (m >= M) continue;
+            *reinterpret_cast<float2*>(o + 2 * q) = make_float2(a0, a1);
+            *reinterpret_cast<float2*>(o + 8 + 2 * q) = make_float2(b0, b1);
+          } else {
+            const uint32_t pa = pack_bf16(a0, a1), pb = pack_bf16(b0, b1);
+            const uint32_t got =
+                __shfl_xor_sync(0xffffffffu, (q & 1) ? pa : pb, 1);
+            if (m >= M) continue;
+            *reinterpret_cast<uint2*>(o + ((q & 1) ? 8 + 2 * (q - 1) : 2 * q)) =
+                (q & 1) ? make_uint2(got, pb) : make_uint2(pa, got);
+          }
+        }
+    }
   }
 }
+
+template <int MT, typename TO>
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
+                   int M, int K, int N, int apply_scale, cudaStream_t s) {
+  using C = Cfg<MT>;
+  CUtensorMap tx;
+  if (!make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, C::BM))
+    return cudaErrorInvalidValue;
+  auto kernel = w8a16_tc_kernel<MT, TO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const long long tiles =
+      (long long)((M + C::BM - 1) / C::BM) * ((N + BN - 1) / BN);
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  kernel<<<(int)std::min<long long>(tiles, sms), NT, C::SMEM, s>>>(
+      tx, static_cast<const int8_t*>(w), static_cast<const float*>(scale),
+      static_cast<TO*>(out), M, K, N, apply_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
 
 template <typename TX, typename TO>
 cudaError_t launch(const void* x, const void* w, const void* scale,
                    void* out, void* part, int M, int K, int N, int splits,
-                   int k_per_split, int apply_scale, cudaStream_t s) {
+                   int k_per_split, int apply_scale, int tile_rows,
+                   cudaStream_t s) {
   const int panels = N / PW;
-  if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-    if (M > 16) {
-      const dim3 grid((M + TM - 1) / TM, panels);
-      w8a16_wmma_kernel<TO><<<grid, 256, 0, s>>>(
-          static_cast<const __nv_bfloat16*>(x),
-          static_cast<const int8_t*>(w), static_cast<const float*>(scale),
-          static_cast<TO*>(out), M, K, N, apply_scale);
-      return cudaGetLastError();
+  if (tile_rows != 0) {
+    if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+      if (tile_rows == 256)
+        return tc::launch<2, TO>(x, w, scale, out, M, K, N, apply_scale, s);
+      if (tile_rows == 128)
+        return tc::launch<1, TO>(x, w, scale, out, M, K, N, apply_scale, s);
     }
+    return cudaErrorInvalidValue;
   }
   const dim3 grid(panels, (M + GV_MT - 1) / GV_MT, splits);
   w8a16_gemv_kernel<TX, TO><<<grid, GV_THREADS, 0, s>>>(
@@ -298,13 +488,13 @@ template <typename TX>
 cudaError_t launch_o(int out_dtype, const void* x, const void* w,
                      const void* scale, void* out, void* part, int M, int K,
                      int N, int splits, int k_per_split, int apply_scale,
-                     cudaStream_t s) {
+                     int tile_rows, cudaStream_t s) {
   if (out_dtype == kF32)
     return launch<TX, float>(x, w, scale, out, part, M, K, N, splits,
-                             k_per_split, apply_scale, s);
+                             k_per_split, apply_scale, tile_rows, s);
   if (out_dtype == kBF16)
     return launch<TX, __nv_bfloat16>(x, w, scale, out, part, M, K, N, splits,
-                                     k_per_split, apply_scale, s);
+                                     k_per_split, apply_scale, tile_rows, s);
   return cudaErrorInvalidValue;
 }
 
@@ -313,13 +503,16 @@ cudaError_t launch_o(int out_dtype, const void* x, const void* w,
 
 // C entry point (ctypes). x [M, K] in `x_dtype`, contiguous, 16-byte
 // aligned; w the packed int8 panels [N / 64, K, 64]; scale [N] float32;
-// out [M, N] in `out_dtype`; part a float32 workspace of splits * M * N
-// (unused when splits == 1 or on the WMMA path). K must be a multiple of
-// 32 and N of 64. Returns the cudaError_t of the launches.
+// out [M, N] in `out_dtype`. tile_rows picks the kernel: 0 the GEMV kernel
+// (part a float32 workspace of splits * M * N, unused when splits == 1),
+// 128 or 256 the tensor-core kernel with that many rows a tile (bf16 x
+// only; splits, k_per_split and part unused). K must be a multiple of 32
+// and N of 64. Returns the cudaError_t of the launches.
 extern "C" int w8a16_launch(int x_dtype, int out_dtype, const void* x,
                             const void* w, const void* scale, void* out,
                             void* part, int M, int K, int N, int splits,
-                            int k_per_split, int apply_scale, void* stream) {
+                            int k_per_split, int apply_scale, int tile_rows,
+                            void* stream) {
   using namespace symtorch;
   if (M <= 0 || K <= 0 || N <= 0 || K % 32 || N % PW || splits < 1 ||
       k_per_split <= 0 || (long long)splits * k_per_split < K ||
@@ -328,9 +521,10 @@ extern "C" int w8a16_launch(int x_dtype, int out_dtype, const void* x,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == kF32)
     return launch_o<float>(out_dtype, x, w, scale, out, part, M, K, N, splits,
-                           k_per_split, apply_scale, s);
+                           k_per_split, apply_scale, tile_rows, s);
   if (x_dtype == kBF16)
     return launch_o<__nv_bfloat16>(out_dtype, x, w, scale, out, part, M, K, N,
-                                   splits, k_per_split, apply_scale, s);
+                                   splits, k_per_split, apply_scale,
+                                   tile_rows, s);
   return cudaErrorInvalidValue;
 }

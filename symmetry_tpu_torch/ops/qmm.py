@@ -12,20 +12,29 @@ in bf16 or float32 against int8 weights in the panel layout of ops/quant.py
 PackedQuantizedTensor. Numerics are the mixed dot's: float32 products and
 sums, the per-output-channel scale applied after the K sum (off with
 apply_scale=False, which returns the raw sums), cast to out_dtype (default
-the activation's). Kernel regimes (csrc/w8a16.cu): up to GEMV_ROWS rows,
-and every float32 activation, take the bytes-bound GEMV kernel, split over
-K when the output has too few panels to fill the card; more bf16 rows take
-the WMMA tensor-core kernel.
+the activation's). Kernel regimes (csrc/w8a16.cu, chosen by
+`w8a16_regime`): up to GEMV_ROWS rows, and every float32 activation, take
+the bytes-bound GEMV kernel, split over K when the output has too few
+panels to fill the card; more bf16 rows take the tensor-core kernel (x by
+TMA, the int8 weight by bulk copies into a ring, converted to bf16 inside
+the pipeline, wgmma products, a persistent grid over the output tiles
+`tc_tile_rows` sizes and `tiles` orders). Launches are counted per regime
+(`w8a16_matmul.launches_gemv`, `.launches_tc`; `.launches` is their sum).
 
 W8A8 (`w8a8_matmul`, Pallas `_kernel`): the activation is quantized per row
 to int8 (`quantize_rows`, plain torch, as the JAX package computes it in
-XLA outside the kernel), the s8 x s8 product is summed exactly in int32,
-and the epilogue is (f32(acc) * row scale) * column scale, two rounded
+XLA outside the kernel), the s8 x s8 product is summed exactly in int32
+(int8 wgmma; the flat [K, N] weight is transposed inside the kernel), and
+the epilogue is (f32(acc) * row scale) * column scale, two rounded
 multiplies in that order, so the kernel equals `w8a8_reference` bit for
-bit given the same quantized rows.
+bit given the same quantized rows. Few output tiles with a long K are
+split over K (`w8a8_plan`); the int32 partials are summed, exactly, by a
+second kernel that applies the scales.
 """
 
 from __future__ import annotations
+
+from typing import Iterator
 
 import torch
 
@@ -33,11 +42,21 @@ from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.quant import mixed_dot
 
 PANEL = 64          # output columns per packed panel
-K_STEP = 32         # the WMMA kernel's K step
+K_GRAIN = 32        # K comes in whole 32-row steps (a GEMV block's rows per
+                    # step; the tensor-core kernel zero-fills a half step)
 GEMV_ROWS = 16      # bf16 rows up to which the GEMV kernel runs
 _GEMV_ROW_TILE = 8  # x rows per GEMV block
 _GEMV_K_CHUNK = 256  # K rows a GEMV block stages at a time
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100
+TILE_COLS = 128     # output columns of a tensor-core tile (a panel pair)
+TILE_ROWS = (256, 128)  # tile heights both tensor-core kernels are built for
+W8A8_K_STEP = 128   # K values the W8A8 kernel multiplies a step
+_SMS = 132          # streaming multiprocessors of an H100
+# What a tile costs beyond its rows, in rows: the weight step it converts
+# (or transposes) and its prologue and epilogue, which a taller tile
+# spreads over more rows. From the kernels' times on an H100: a 128-row
+# W8A16 tile takes about 0.73 of a 256-row tile's time.
+_TILE_OVERHEAD_ROWS = 192
 
 
 def kernel_supports(k: int, n: int) -> bool:
@@ -45,7 +64,14 @@ def kernel_supports(k: int, n: int) -> bool:
     output columns and a contraction in whole 32-row steps. Every preset's
     projection and LM head passes; leaves that do not stay flat on the
     mixed dot (pack_tree reports them)."""
-    return k > 0 and n > 0 and k % K_STEP == 0 and n % PANEL == 0
+    return k > 0 and n > 0 and k % K_GRAIN == 0 and n % PANEL == 0
+
+
+def w8a16_regime(m: int, dtype: torch.dtype) -> str:
+    """Which W8A16 kernel takes m rows of `dtype`: "gemv" (bytes bound: up
+    to GEMV_ROWS rows, and every float32 activation) or "tc" (operations
+    bound: more bf16 rows, on the tensor cores)."""
+    return "gemv" if dtype == torch.float32 or m <= GEMV_ROWS else "tc"
 
 
 def gemv_splits(m: int, k: int, n: int) -> tuple[int, int]:
@@ -57,6 +83,35 @@ def gemv_splits(m: int, k: int, n: int) -> tuple[int, int]:
     per = -(-k // want)
     per = -(-per // _GEMV_K_CHUNK) * _GEMV_K_CHUNK
     return -(-k // per), per
+
+
+def tc_tile_rows(m: int, n: int, work: int = 1) -> int:
+    """Rows of an output tile ([rows, TILE_COLS]) for an [m, n] output on a
+    persistent grid of one block per SM. A block's time is its tile count
+    (`work` units of K for each: the W8A8 kernel's K splits) times a
+    tile's cost, rows plus a fixed overhead; the height with the least is
+    taken, the taller on a tie. So a large output takes 256 rows (each
+    weight step feeds more rows), one whose 256-row tiles would leave SMs
+    idle or mostly masked takes 128."""
+    col_tiles = -(-n // TILE_COLS)
+
+    def cost(rows: int) -> int:
+        items = -(-m // rows) * col_tiles * work
+        return -(-items // _SMS) * (rows + _TILE_OVERHEAD_ROWS)
+
+    return min(TILE_ROWS, key=lambda rows: (cost(rows), -rows))
+
+
+def tiles(m: int, n: int, rows: int) -> Iterator[tuple[int, int, int, int]]:
+    """The output tiles of both tensor-core kernels in the order a
+    persistent grid walks them (block b of G takes tiles b, b + G, ...):
+    (first row, first column, valid rows, valid columns), M fastest, so
+    the blocks running together share few weight column tiles and read
+    each from device memory once."""
+    row_tiles = -(-m // rows)
+    for t in range(row_tiles * -(-n // TILE_COLS)):
+        m0, n0 = (t % row_tiles) * rows, (t // row_tiles) * TILE_COLS
+        yield m0, n0, min(rows, m - m0), min(TILE_COLS, n - n0)
 
 
 def _unpack(w_packed: torch.Tensor) -> torch.Tensor:
@@ -107,7 +162,7 @@ def w8a16_matmul(
                         "scales")
     if not kernel_supports(K, N):
         raise ValueError(f"w8a16_matmul: weight [{K}, {N}] is not in whole "
-                         f"{K_STEP}-row steps and {PANEL}-column panels")
+                         f"{K_GRAIN}-row steps and {PANEL}-column panels")
     for name, t in (("x", x), ("w_packed", w_packed), ("w_scale", w_scale)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"w8a16_matmul: {name} must be contiguous and "
@@ -115,25 +170,35 @@ def w8a16_matmul(
     x_code = kernels.dtype_code(x.dtype)
     out_code = kernels.dtype_code(out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    splits, per = 1, K
+    regime = w8a16_regime(M, x.dtype)
+    splits, per, tile_rows = 1, K, 0
     part = None
-    if x.dtype == torch.float32 or M <= GEMV_ROWS:
+    if regime == "gemv":
         splits, per = gemv_splits(M, K, N)
         if splits > 1:
             part = torch.empty((splits, M, N), dtype=torch.float32,
                                device=x.device)
+    else:
+        tile_rows = tc_tile_rows(M, N)
     lib = kernels.library("w8a16")
     rc = lib.w8a16_launch(
         x_code, out_code, x.data_ptr(), w_packed.data_ptr(),
         w_scale.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None, M, K, N, splits, per,
-        int(apply_scale), torch.cuda.current_stream(x.device).cuda_stream)
+        int(apply_scale), tile_rows,
+        torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "w8a16_matmul")
     w8a16_matmul.launches += 1
+    if regime == "gemv":
+        w8a16_matmul.launches_gemv += 1
+    else:
+        w8a16_matmul.launches_tc += 1
     return out
 
 
-w8a16_matmul.launches = 0
+w8a16_matmul.launches = 0       # launches_gemv + launches_tc
+w8a16_matmul.launches_gemv = 0
+w8a16_matmul.launches_tc = 0
 
 
 def w8a8_kernel_supports(m: int, k: int, n: int) -> bool:
@@ -144,6 +209,20 @@ def w8a8_kernel_supports(m: int, k: int, n: int) -> bool:
     tile only idles some of a block's rows here) and no block divisor
     (ragged tiles are masked in the kernel)."""
     return m > 0 and k > 0 and n > 0 and k % 16 == 0 and n % 8 == 0
+
+
+def w8a8_plan(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(tile rows, K splits, K values per split) for the W8A8 kernel. K is
+    cut only when even 128-row tiles leave most SMs without one (a long K
+    against few rows: `wd` at the 128 bucket), into at most one item per
+    SM and never below four 128-deep steps a split; each split's length
+    is a whole number of steps."""
+    steps = -(-k // W8A8_K_STEP)
+    short_tiles = -(-m // min(TILE_ROWS)) * -(-n // TILE_COLS)
+    splits = max(1, min(_SMS // short_tiles, steps // 4))
+    per = -(-steps // splits)
+    splits = -(-steps // per)
+    return tc_tile_rows(m, n, splits), splits, per * W8A8_K_STEP
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -217,11 +296,15 @@ def w8a8_matmul(
             raise ValueError(f"w8a8_matmul: {name} must be contiguous and "
                              f"16-byte aligned")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    tile_rows, splits, per = w8a8_plan(M, K, N)
+    part = (torch.empty((splits, M, N), dtype=torch.int32, device=x.device)
+            if splits > 1 else None)
     lib = kernels.library("w8a8")
     rc = lib.w8a8_launch(
         kernels.dtype_code(out_dtype), xq.data_ptr(), wq.data_ptr(),
-        xs.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        xs.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None, M, K, N, splits, per,
+        tile_rows, torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "w8a8_matmul")
     w8a8_matmul.launches += 1
     return out

@@ -31,9 +31,11 @@ from symmetry_tpu_torch.ops.flash import (
 from symmetry_tpu_torch.ops.kv_append import kv_append, kv_append_reference
 from symmetry_tpu_torch.ops.qmm import (
     w8a8_matmul,
+    w8a8_plan,
     w8a8_reference,
     w8a16_matmul,
     w8a16_reference,
+    w8a16_regime,
 )
 from symmetry_tpu_torch.ops.quant import pack_quantized, quantize, quantize_kv
 
@@ -325,6 +327,29 @@ class TestNoHostSync:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
 
+    def test_matmul_wrappers_never_synchronize(self):
+        """W8A16 (GEMV, split GEMV, tensor-core) and W8A8 (whole and split
+        over K, row quantization included) under the same mode."""
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(17)
+        qt = quantize(torch.randn((4096, 1024), generator=g) * 0.05)
+        pt = pack_quantized(qt)
+        pq, ps, fq = pt.q.to(dev), pt.scale.to(dev), qt.q.to(dev)
+        xs = [torch.randn((m, 4096), generator=g).to(dev, torch.bfloat16)
+              for m in (8, 32, 300)]
+        calls = ([lambda x=x: w8a16_matmul(x, pq, ps) for x in xs]
+                 + [lambda x=x: w8a8_matmul(x, fq, ps) for x in xs])
+        for fn in calls:
+            fn()  # first use: builds and loads the library
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for fn in calls:
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
 
 @pytest.mark.gpu
 class TestKvAppendKernel:
@@ -374,7 +399,10 @@ class TestKvAppendKernel:
 
 @pytest.mark.gpu
 class TestW8A16Kernel:
-    @pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 300])
+    # 1..16 rows take the GEMV kernel, more bf16 rows the tensor-core one:
+    # rows at and around its 64-row products and 128/256-row tiles
+    @pytest.mark.parametrize("M", [1, 8, 16, 17, 64, 127, 128, 129, 255, 256,
+                                   300, 2048])
     @pytest.mark.parametrize("K,N", [(64, 64), (128, 192), (4096, 1024),
                                      (1024, 512), (96, 128)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -388,10 +416,15 @@ class TestW8A16Kernel:
         pt = pack_quantized(quantize(torch.randn((K, N), generator=g)
                                      * 0.05))
         q, s = pt.q.to(dev), pt.scale.to(dev)
-        before = w8a16_matmul.launches
+        regime = w8a16_regime(M, dtype)
+        before = (w8a16_matmul.launches, w8a16_matmul.launches_gemv,
+                  w8a16_matmul.launches_tc)
         got = w8a16_matmul(x, q, s)
         torch.cuda.synchronize()
-        assert w8a16_matmul.launches == before + 1
+        assert (w8a16_matmul.launches, w8a16_matmul.launches_gemv,
+                w8a16_matmul.launches_tc) == (
+            before[0] + 1, before[1] + (regime == "gemv"),
+            before[2] + (regime == "tc"))
         assert got.dtype == dtype and got.shape == (M, N)
         want = w8a16_reference(x, q, s)
         mag = float(want.float().abs().max())
@@ -399,12 +432,15 @@ class TestW8A16Kernel:
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=0)
 
-    @pytest.mark.parametrize("M", [8, 100])
-    def test_raw_sums_without_scale(self, M):
+    @pytest.mark.parametrize("M", [8, 100, 129, 300, 2048])
+    @pytest.mark.parametrize("K,N", [(256, 128), (96, 192)])
+    def test_raw_sums_without_scale(self, M, K, N):
+        """bf16 rows, float32 raw sums (the LM head's output): products
+        exact, float32 sums in another order."""
         dev = cuda_or_skip()
         g = torch.Generator().manual_seed(3)
-        x = torch.randn((M, 256), generator=g).to(dev, torch.bfloat16)
-        pt = pack_quantized(quantize(torch.randn((256, 128), generator=g)))
+        x = torch.randn((M, K), generator=g).to(dev, torch.bfloat16)
+        pt = pack_quantized(quantize(torch.randn((K, N), generator=g)))
         q, s = pt.q.to(dev), pt.scale.to(dev)
         got = w8a16_matmul(x, q, s, out_dtype=torch.float32,
                            apply_scale=False)
@@ -413,16 +449,45 @@ class TestW8A16Kernel:
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-5)
 
+    @pytest.mark.parametrize("M", [17, 300])
+    def test_float32_out_scaled(self, M):
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(4)
+        x = torch.randn((M, 192), generator=g).to(dev, torch.bfloat16)
+        pt = pack_quantized(quantize(torch.randn((192, 320), generator=g)))
+        q, s = pt.q.to(dev), pt.scale.to(dev)
+        got = w8a16_matmul(x, q, s, out_dtype=torch.float32)
+        want = w8a16_reference(x, q, s, out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+    def test_same_rows_twice_bit_equal(self):
+        """The tensor-core kernel's sums do not depend on which block or
+        tile computed them: two calls agree bit for bit, and so do the
+        first 128 rows alone (a 128-row tile) with the same rows inside
+        300 (another tile plan)."""
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn((300, 1024), generator=g).to(dev, torch.bfloat16)
+        pt = pack_quantized(quantize(torch.randn((1024, 512), generator=g)))
+        q, s = pt.q.to(dev), pt.scale.to(dev)
+        a, b = w8a16_matmul(x, q, s), w8a16_matmul(x, q, s)
+        c = w8a16_matmul(x[:128].contiguous(), q, s)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and torch.equal(a[:128], c)
+
 
 @pytest.mark.gpu
 class TestW8A8Kernel:
-    @pytest.mark.parametrize("M", [1, 5, 31, 32, 128, 300])
+    # rows at and around the 64-row products and the 128/256-row tiles;
+    # (4096, 1024) and (14336, 256) at few rows are split over K
+    @pytest.mark.parametrize("M", [1, 5, 31, 32, 127, 128, 129, 300, 2048])
     @pytest.mark.parametrize("K,N", [(16, 8), (128, 256), (192, 320),
-                                     (4096, 1024), (80, 136)])
+                                     (4096, 1024), (80, 136), (14336, 256)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_bit_equal_to_plain(self, M, K, N, dtype):
         """Exact int32 sums and the same two rounded multiplies: the
-        kernel equals the plain version bit for bit, ragged tiles too."""
+        kernel equals the plain version bit for bit, ragged tiles and K
+        splits too."""
         dev = cuda_or_skip()
         g = torch.Generator().manual_seed(M * 7 + K + N)
         x = torch.randn((M, K), generator=g).to(dev, dtype)
@@ -433,6 +498,26 @@ class TestW8A8Kernel:
         torch.cuda.synchronize()
         assert w8a8_matmul.launches == before + 1
         assert got.dtype == dtype and got.shape == (M, N)
+        assert torch.equal(got, w8a8_reference(x, q, s))
+
+    def test_split_shapes_are_split(self):
+        """The cases above do cover the K-split path."""
+        assert w8a8_plan(32, 4096, 1024)[1] > 1
+        assert w8a8_plan(128, 14336, 256)[1] > 1
+        assert w8a8_plan(2048, 4096, 1024)[1] == 1
+
+    def test_extreme_values_exact(self):
+        """Every product at +-127 x +-127 over the longest preset K: the
+        int32 sums stay exact (14336 * 127**2 < 2**31)."""
+        dev = cuda_or_skip()
+        K, N, M = 14336, 128, 64
+        x = torch.full((M, K), 3.0, device=dev)
+        x[1::2] = -3.0
+        q = torch.full((K, N), 127, dtype=torch.int8, device=dev)
+        q[:, 1::2] = -127
+        s = torch.ones(N, device=dev)
+        got = w8a8_matmul(x, q, s)
+        torch.cuda.synchronize()
         assert torch.equal(got, w8a8_reference(x, q, s))
 
     def test_float32_out_from_bf16_rows(self):
