@@ -14,10 +14,13 @@ Phases (any failure raises and exits non-zero):
               path's widths (llama3-8b heads and weights, bf16): flash
               (the tensor-core variant) and decode attention (bf16 and
               int8 caches, and a qwen2-7b group of 7) within 2e-2 on valid
-              rows, the KV append bit for bit, W8A16 within one bf16 step
-              of its largest output (wq, wk, wg, wd, lm_head at 8 rows, the
-              GEMV kernel, and at 128, 512 and 2048 rows, the tensor-core
-              kernel), W8A8 bit for bit (wq, wg, wd, lm_head at 32, 128
+              rows, both also at head dims 96 and 192 (run at the next
+              built size; flash in float32 too, within 1e-4), the KV
+              append bit for bit, W8A16 within one bf16 step of its
+              largest output (wq, wk, wg, wd, lm_head at 1, 2, 8 and 16
+              bf16 rows, the swap-AB tensor-core GEMV, and at 128, 512 and
+              2048 rows, the tensor-core kernel; float32 rows at 8 and 32
+              on wq, the FMA GEMV), W8A8 bit for bit (wq, wg, wd, lm_head at 32, 128
               and 2048 rows, K splits included; no serving path routes
               it); kernel, plain and library (a yardstick only) device
               times (kernel durations summed by torch.profiler, decode's
@@ -31,8 +34,9 @@ Phases (any failure raises and exits non-zero):
               synchronize with the host;
   4. tiny     the `tiny` preset in float32 through the port's engine and
               Scheduler on the card (kernels) and on the CPU (plain
-              versions), dense and then with int8 weights and an int8
-              KV cache: greedy token ids must be identical;
+              versions): greedy dense, greedy with int8 weights and an
+              int8 KV cache, greedy at head dim 96, and seeded sampling
+              (threefry key chains): token ids must be identical;
   5. serve    llama3-8b in bf16 at full width and depth (random weights
               from torch.Generator seed 0) behind the port's Scheduler:
               8 greedy requests over the three prefill buckets, 64 new
@@ -44,7 +48,10 @@ Phases (any failure raises and exits non-zero):
               W8A16 kernel and an int8 KV cache: flash, KV append, int8
               decode attention and W8A16 on the path (launch counts
               checked, W8A16's per regime: the tensor-core kernel at
-              prefill, the GEMV kernel at decode; flash as in phase 5);
+              prefill, the GEMV kernel at decode; flash as in phase 5); the
+              decode block's GEMV device ms and launches a step, and no
+              split-epilogue kernel on it; both phases print a digest of
+              their greedy streams, the same on every run;
   7. host tiny  `python -m symmetry_tpu_torch.engine.host` on `tiny` in
               float32 with a small prefill_chunk and the prefix cache on,
               one host on the card and one with --device cpu, fed the same
@@ -70,6 +77,7 @@ Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import queue
@@ -164,13 +172,12 @@ def bound(nbytes: float, flops: float,
 # Phase 3: kernels against their plain versions
 
 
-def flash_case(B, S, seq_lens, window, seed):
+def flash_case(B, S, seq_lens, window, seed, D=128, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, K, D = 32, 8, 128
+    H, K = 32, 8
 
     def rnd(*shape):
-        return torch.randn(shape, generator=g, device="cuda",
-                           dtype=torch.bfloat16)
+        return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
 
     q, k, v = rnd(B, S, H, D), rnd(B, S, K, D), rnd(B, S, K, D)
     return q, k, v, torch.tensor(seq_lens, dtype=torch.int32, device="cuda")
@@ -196,7 +203,8 @@ def check_flash() -> dict:
     import torch.nn.functional as F
 
     from symmetry_tpu_torch.ops.flash import (flash_prefill,
-                                              flash_prefill_reference)
+                                              flash_prefill_reference,
+                                              flash_variant, padded_head_dim)
 
     worst = 0.0
     cases = [(1, 512, [512], None), (1, 2048, [2048], None),
@@ -217,6 +225,27 @@ def check_flash() -> dict:
         if err > TOL:
             raise AssertionError(f"flash error {err} > {TOL}")
         worst = max(worst, err)
+    # Head dims between the built sizes: 96 runs at 128, 192 at 256 (bf16
+    # on the tensor cores, float32 on FMAs; float32 held at 1e-4).
+    for D in (96, 192):
+        for dtype, tol in ((torch.bfloat16, TOL), (torch.float32, 1e-4)):
+            lens = [512, 300]
+            q, k, v, seq_lens = flash_case(2, 512, lens, None, seed=D,
+                                           D=D, dtype=dtype)
+            got = flash_prefill(q, k, v, seq_lens, window=256)
+            torch.cuda.synchronize()
+            want = flash_prefill_reference(q, k, v, seq_lens, window=256)
+            err = max(float((got[b, :n].float() - want[b, :n].float())
+                            .abs().max()) for b, n in enumerate(lens))
+            log(f"  flash head_dim {D} {str(dtype)[6:]} B=2 S=512 "
+                f"lens={lens} window=256 ({flash_variant(dtype, D)}, run "
+                f"at {padded_head_dim(D)}): max_abs_err={err:.3e} (tol "
+                f"{tol:.0e})")
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"flash head_dim {D} {dtype}: error "
+                                     f"{err} > {tol}")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
 
     # Timing at the largest bucket's prefill shape (batch 1 at 2048 by the
     # engine's token budget), full length, so SDPA's causal mode computes
@@ -297,7 +326,7 @@ def check_decode(int8: bool) -> dict:
     import torch.nn.functional as F
 
     from symmetry_tpu_torch.ops.decode_attention import (
-        decode_attention, decode_attention_reference, live_blocks)
+        HEAD_DIMS, decode_attention, decode_attention_reference, live_blocks)
 
     label = "int8" if int8 else "bf16"
     L, B, T, nq, K, D = 2, 8, 4096, 32, 8, 128
@@ -325,6 +354,22 @@ def check_decode(int8: bool) -> dict:
             f"{args[4].tolist()}: max_abs_err={err:.3e}")
         if err > TOL:
             raise AssertionError(f"decode {label} error {err} > {TOL}")
+        worst = max(worst, err)
+    # Head dims between the built sizes: 96 runs at 128, 192 at 256.
+    for D in (96, 192):
+        args = decode_case(2, 4, 1024, 32, 8, D, [1024, 300, 1, 700], 24 + D,
+                           int8)
+        args = args[:3] + (1, args[5]) + args[3:5]
+        got = decode_attention(*args, window=500)
+        torch.cuda.synchronize()
+        want = decode_attention_reference(*args, window=500)
+        err = float((got.float() - want.float()).abs().max())
+        log(f"  decode {label} head_dim {D} (run at "
+            f"{next(d for d in HEAD_DIMS if d >= D)}) q {tuple(got.shape)} "
+            f"window=500 lengths {args[4].tolist()}: max_abs_err={err:.3e}")
+        if not torch.isfinite(got).all() or err > TOL:
+            raise AssertionError(f"decode {label} head_dim {D}: error {err} "
+                                 f"> {TOL}")
         worst = max(worst, err)
 
     ms = device_ms(lambda: decode_attention(q, k_cache, v_cache, 1, lengths,
@@ -470,21 +515,28 @@ def check_kv_append() -> dict:
 
 
 def check_w8a16() -> list[dict]:
-    """llama3-8b projection shapes at the decode (8 slots) and prefill
-    (the 128 and 512 buckets, the 2048-row token budget) row counts: 8 rows
-    take the GEMV kernel, the others the tensor-core kernel; one row of the
-    `kernels` line for each regime, at the widest leaf (`wg`). Tolerance:
-    one bf16 step at the largest output, 2**-7 * max|y| (the kernel and
-    the plain version sum in float32 in different orders, then round to
-    bf16)."""
-    from symmetry_tpu_torch.ops.qmm import w8a16_matmul, w8a16_reference
+    """llama3-8b projection shapes at decode row counts (1, 2, 8 and 16
+    bf16 rows: the GEMV regime, swap-AB on the tensor cores) and prefill
+    row counts (the 128 and 512 buckets, the 2048-row token budget: the
+    tensor-core regime), and float32 rows on `wq` at 8 and 32 (the FMA
+    GEMV); one row of the `kernels` line for each bf16 regime, at the
+    widest leaf (`wg`, 8 and 2048 rows). Tolerance: one bf16 step at the
+    largest output, 2**-7 * max|y| (the kernel and the plain version sum
+    in float32 in different orders, then round). The library yardstick is
+    torch.matmul on bf16 rows and the dequantized bf16 weight (twice the
+    weight bytes)."""
+    from symmetry_tpu_torch.ops.qmm import (gemv_capacity, gemv_plan,
+                                            w8a16_matmul, w8a16_reference,
+                                            w8a16_regime)
     from symmetry_tpu_torch.ops.quant import pack_quantized, quantize
 
     shapes = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
               "wd": (14336, 4096), "lm_head": (4096, 128256)}
-    regimes = {8: "gemv", 2048: "tc"}  # the rows reported, both on `wg`
+    reported = {8: "gemv", 2048: "tc"}  # the rows reported, both on `wg`
+    cap = gemv_capacity(torch.device("cuda"))
+    log(f"  GEMV clusters the card holds at once, by cluster size: {cap}")
     g = torch.Generator(device="cuda").manual_seed(40)
-    worst = {"gemv": 0.0, "tc": 0.0}
+    worst = {"gemv": 0.0, "tc": 0.0, "gemv_f32": 0.0}
     rows = {}
     for name, (K, N) in shapes.items():
         w = torch.randn((K, N), generator=g, device="cuda",
@@ -493,38 +545,73 @@ def check_w8a16() -> list[dict]:
         pt = pack_quantized(qt)
         w_lib = (qt.q.float() * qt.scale).to(torch.bfloat16)
         del w, qt
-        for M in (8, 128, 512, 2048):
-            regime = "gemv" if M == 8 else "tc"
-            x = torch.randn((M, K), generator=g, device="cuda",
-                            dtype=torch.bfloat16)
+        cases = [(M, torch.bfloat16) for M in (1, 2, 8, 16, 128, 512, 2048)]
+        if name == "wq":
+            cases += [(8, torch.float32), (32, torch.float32)]
+        for M, dtype in cases:
+            regime = w8a16_regime(M, dtype)
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
             got = w8a16_matmul(x, pt.q, pt.scale)
             torch.cuda.synchronize()
             want = w8a16_reference(x, pt.q, pt.scale)
             err = float((got.float() - want.float()).abs().max())
             tol = 2.0 ** -7 * float(want.float().abs().max())
             if not torch.isfinite(got).all() or err > tol:
-                raise AssertionError(f"w8a16 {name} M={M}: error {err} > "
-                                     f"{tol}")
+                raise AssertionError(f"w8a16 {name} M={M} {dtype}: error "
+                                     f"{err} > {tol}")
             worst[regime] = max(worst[regime], err)
             ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
             call_ms = cuda_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
             plain_ms = device_ms(
                 lambda: w8a16_reference(x, pt.q, pt.scale), 3)
-            library_ms = device_ms(lambda: torch.matmul(x, w_lib), 20)
-            nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
+            xb = x.to(torch.bfloat16)
+            library_ms = device_ms(lambda: torch.matmul(xb, w_lib), 20)
+            nbytes = (M * K * x.element_size() + K * N + N * 4
+                      + M * N * x.element_size())
             bound_ms, bound_by = bound(nbytes, 2.0 * M * K * N)
-            log(f"  w8a16 {name} [{K}, {N}] M={M} ({regime}): "
-                f"max_abs_err={err:.3e} (tol {tol:.3e}); device ms: kernel "
-                f"{ms:.4f} ({call_ms:.4f} per eager call), plain "
-                f"{plain_ms:.4f}, torch.matmul bf16 {library_ms:.4f}, bound "
-                f"{bound_ms:.4f} ({bound_by})")
-            if name == "wg" and M in regimes:
+            plan = (f", {gemv_plan(M, K, N, cap)}" if regime == "gemv"
+                    else "")
+            log(f"  w8a16 {name} [{K}, {N}] M={M} {str(dtype)[6:]} "
+                f"({regime}{plan}): max_abs_err={err:.3e} (tol {tol:.3e}); "
+                f"device ms: kernel {ms:.4f} ({call_ms:.4f} per eager "
+                f"call), plain {plain_ms:.4f}, torch.matmul bf16 "
+                f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
+                f"{ms / bound_ms:.2f}x bound, {ms / library_ms:.2f}x "
+                f"torch.matmul")
+            if name == "wg" and reported.get(M) == regime:
                 rows[regime] = dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=library_ms)
-            del x, got, want
+            del x, xb, got, want
         del pt, w_lib
         torch.cuda.empty_cache()
+    # Down projections longer than any preset's (Qwen2/2.5-72B, Llama-3.1-
+    # 405B): x streams through the GEMV's ring, so any K takes the kernel.
+    for K, N in ((29568, 8192), (53248, 16384)):
+        pt = pack_quantized(quantize(torch.randn(
+            (K, N), generator=g, device="cuda",
+            dtype=torch.bfloat16).mul_(K ** -0.5)))
+        for M in (1, 16):
+            x = torch.randn((M, K), generator=g, device="cuda",
+                            dtype=torch.bfloat16)
+            got = w8a16_matmul(x, pt.q, pt.scale)
+            want = w8a16_reference(x, pt.q, pt.scale)
+            err = float((got.float() - want.float()).abs().max())
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+            if not torch.isfinite(got).all() or err > tol:
+                raise AssertionError(f"w8a16 [{K}, {N}] M={M}: error {err} "
+                                     f"> {tol}")
+            worst["gemv"] = max(worst["gemv"], err)
+            ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 10)
+            bound_ms, _ = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
+                                2.0 * M * K * N)
+            log(f"  w8a16 long K [{K}, {N}] M={M} (gemv, "
+                f"{gemv_plan(M, K, N, cap)}): max_abs_err={err:.3e} (tol "
+                f"{tol:.3e}); device ms: kernel {ms:.4f}, bound "
+                f"{bound_ms:.4f}; {ms / bound_ms:.2f}x bound")
+        del pt, x, got, want
+        torch.cuda.empty_cache()
+    log(f"  w8a16 worst error by regime: {worst}")
     return [dict(name=f"w8a16_matmul[{regime}]", route="cuda",
                  source="symmetry_tpu_torch/csrc/w8a16.cu",
                  replaces="symmetry_tpu/ops/qmm.py:251",
@@ -596,13 +683,16 @@ def check_w8a8() -> dict:
 def serve(preset_name: str, *, device: str, dtype: torch.dtype,
           prompt_lens: list[int], max_new: int, max_slots: int,
           max_seq_len: int, buckets: tuple[int, ...], decode_block: int,
-          params=None, seed: int = 0, on_ready=None, int8: bool = False) -> dict:
+          params=None, seed: int = 0, on_ready=None, int8: bool = False,
+          cfg=None, sampling: dict | None = None) -> dict:
     """Build the engine, warm it, and serve greedy requests through the
     Scheduler. Returns per-request token ids and finish reasons, timings,
     and the scheduler's metrics. `on_ready` runs after warmup, just before
     the requests are submitted. int8=True serves int8 weights (drawn with
     init_params(quantize=True) unless given) packed for the W8A16 kernel
-    (fused_dequant) and an int8 KV cache (kv_quant)."""
+    (fused_dequant) and an int8 KV cache (kv_quant). `cfg` replaces the
+    preset's config; `sampling` (SamplingParams fields) replaces greedy for
+    every request."""
     from symmetry_tpu_torch.engine.engine import InferenceEngine, SamplingParams
     from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
     from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -615,7 +705,7 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
             return "".join(chr(ID_BASE + i) for i in ids
                            if i not in (self.BOS, self.EOS))
 
-    cfg = preset(preset_name)
+    cfg = cfg or preset(preset_name)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(cfg, gen, dtype, quantize=int8)
@@ -643,7 +733,8 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
             events[i].append(ev)
             if ev.done:
                 done[i].set()
-        sched.submit(GenRequest(prompt_ids=ids, sampling=SamplingParams(),
+        sched.submit(GenRequest(prompt_ids=ids,
+                                sampling=SamplingParams(**(sampling or {})),
                                 max_new_tokens=max_new, emit=emit,
                                 id=f"r{i}"))
     sched.start()
@@ -669,11 +760,12 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
                 config=cfg, engine=engine)
 
 
-def profile_dispatch(label: str, fn) -> None:
+def profile_dispatch(label: str, fn) -> list[tuple[float, int, str]]:
     """Where one dispatch's time goes: its host wall (synchronized, taken
     without the profiler), the device busy time summed over the CUDA
     kernels torch.profiler records for a second run, the device idle share
-    that leaves, and the heaviest kernels."""
+    that leaves, and the heaviest kernels. Returns (device ms, launches,
+    kernel name) for every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -699,35 +791,47 @@ def profile_dispatch(label: str, fn) -> None:
     if busy_ms <= 0:
         log(f"  profile {label}: wall {wall_ms:.3f} ms; the profiler saw no "
             f"device kernels")
-        return
+        return rows
     log(f"  profile {label}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms over {sum(r[1] for r in rows)} kernels, idle "
         f"share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
     for ms, count, key in sorted(rows, reverse=True)[:6]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+    return rows
 
 
 def check_tiny() -> None:
+    """`tiny` in float32, card against CPU: greedy dense, greedy with int8
+    weights + int8 KV, greedy at head dim 96 (no built size: flash and
+    decode run it at 128), and seeded sampling (the threefry chains give
+    the same tokens on both)."""
+    import dataclasses
+
     from symmetry_tpu_torch.models.llama import init_params, preset
 
     kw = dict(dtype=torch.float32, prompt_lens=[5, 14, 27], max_new=12,
               max_slots=2, max_seq_len=64, buckets=(16, 32), decode_block=4)
-    for int8 in (False, True):
-        params = init_params(preset("tiny"),
-                             torch.Generator().manual_seed(0), torch.float32,
-                             quantize=int8)
+    tiny = preset("tiny")
+    seeded = dict(temperature=0.8, top_k=40, seed=11)
+    for label, cfg, int8, sampling in (
+            ("greedy", tiny, False, None),
+            ("greedy, int8 weights + int8 KV", tiny, True, None),
+            ("greedy, head_dim 96", dataclasses.replace(tiny, head_dim=96),
+             False, None),
+            (f"seeded {seeded}", tiny, False, seeded)):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, quantize=int8)
         card = serve("tiny", device="cuda", params=params, int8=int8,
-                     **kw)["requests"]
-        cpu = serve("tiny", device="cpu", params=params, int8=int8,
-                    **kw)["requests"]
+                     cfg=cfg, sampling=sampling, **kw)["requests"]
+        cpu = serve("tiny", device="cpu", params=params, int8=int8, cfg=cfg,
+                    sampling=sampling, **kw)["requests"]
         for r_card, r_cpu in zip(card, cpu):
             if (r_card["ids"], r_card["reason"]) != (r_cpu["ids"],
                                                      r_cpu["reason"]):
-                raise AssertionError(f"tiny int8={int8} card {r_card} != "
+                raise AssertionError(f"tiny {label}: card {r_card} != "
                                      f"cpu {r_cpu}")
-        log(f"  tiny f32{' int8 weights + int8 KV' if int8 else ''}: "
-            f"{len(card)} requests, greedy ids identical card vs CPU: "
-            f"{[r['ids'][:6] for r in card]}...")
+        log(f"  tiny f32 {label}: {len(card)} requests, token ids identical "
+            f"card vs CPU: {[r['ids'][:6] for r in card]}...")
 
 
 def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
@@ -789,9 +893,27 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     if variants != {"tensor_core": L * dispatches, "fma": 0}:
         raise AssertionError(f"flash variants {variants}: not every launch "
                              f"went to the tensor-core kernel")
+    digest = hashlib.sha256(json.dumps(
+        [r["ids"] for r in res["requests"]]).encode()).hexdigest()[:16]
+    log(f"  {label} greedy streams sha256 {digest} (the same on every run "
+        f"of this phase: fixed weights, prompts and reduction orders)")
     engine = res["engine"]
-    profile_dispatch(f"{label} decode block (8 steps x 8 slots)",
-                     engine.decode_steps)
+    block = profile_dispatch(f"{label} decode block (8 steps x 8 slots)",
+                             engine.decode_steps)
+    gemv = [r for r in block if "w8a16_gemv" in r[2]]
+    epilogue = [r for r in block if "w8a16_epilogue" in r[2]]
+    if int8:
+        log(f"  {label} decode block: the W8A16 GEMV kernel "
+            f"{sum(r[0] for r in gemv):.3f} device ms over "
+            f"{sum(r[1] for r in gemv)} launches "
+            f"({sum(r[1] for r in gemv) / engine.decode_block:.0f} a step), "
+            f"{sum(r[0] for r in gemv) / engine.decode_block:.4f} ms a step; "
+            f"split epilogues {sum(r[1] for r in epilogue)}")
+        if not gemv or epilogue:
+            raise AssertionError(f"decode block: GEMV kernels {gemv}, "
+                                 f"epilogue kernels {epilogue} (a bf16 "
+                                 f"decode step sums its K splits inside "
+                                 f"the GEMV kernel)")
     prompt = list(range(1000, 3000))
     profile_dispatch(f"{label} prefill 2000 tokens (bucket 2048, batch 1)",
                      lambda: engine.prefill_and_insert(0, prompt,

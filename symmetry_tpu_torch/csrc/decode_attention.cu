@@ -40,7 +40,12 @@
 //    the v scale its probability, so no dequantized row exists anywhere;
 //  - masked positions contribute exactly 0, a span with no live row is
 //    never merged, and the final sum is guarded at 1e-30, so an empty slot
-//    gets finite zeros (kNegInf is finite: no inf - inf anywhere).
+//    gets finite zeros (kNegInf is finite: no inf - inf anywhere);
+//  - a head dim that is a multiple of 8 but not a built size (16, 32, 64,
+//    128, 256) runs at the next one: shared rows are padded, the copies
+//    past the real head dim are zero-filled (cp.async's src-size), q is
+//    zero there, and only the real columns are stored. int8 rows whose
+//    length is not a multiple of 16 bytes are copied 8 bytes at a time.
 #include <stdint.h>
 
 #include <type_traits>
@@ -56,10 +61,10 @@ constexpr int STAGES = 4;         // cp.async ring depth of each warp
 constexpr int STAGE_BYTES = 1024; // K bytes (and V bytes) of one stage
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Per (cache type, head dim): a lane reads 8 elements of a row from shared
-// memory, LPR lanes cover a row, RPW rows a warp pass, WR rows a stage,
-// NP passes a stage.
-template <typename TKV, int D>
+// Per (cache type, built head dim D, copy width CB bytes): a lane reads 8
+// elements of a row from shared memory, LPR lanes cover a row, RPW rows a
+// warp pass, WR rows a stage, NP passes a stage.
+template <typename TKV, int D, int CB>
 struct Geo {
   static constexpr int ROW_BYTES = D * int(sizeof(TKV));
   static constexpr int LPR = D / 8;
@@ -67,7 +72,7 @@ struct Geo {
   static constexpr int WR = STAGE_BYTES / ROW_BYTES > RPW
                                 ? STAGE_BYTES / ROW_BYTES : RPW;
   static constexpr int NP = WR / RPW;
-  static constexpr int CPR = ROW_BYTES / 16;  // 16-byte copies a row
+  static constexpr int CPR = ROW_BYTES / CB;  // copies a padded row
   static constexpr int KV_BYTES = WR * ROW_BYTES;
   // K, V, then the k and v scales, rounded to keep stages 16-byte aligned.
   static constexpr int STAGE = 2 * KV_BYTES + (2 * WR * 4 + 15) / 16 * 16;
@@ -95,7 +100,25 @@ __device__ __forceinline__ void lds8(const int8_t* p, float (&o)[8]) {
   unpack8(*reinterpret_cast<const uint2*>(p), o);
 }
 
-template <typename TQ, typename TKV, int D, int GT>
+// 8 bytes global -> shared (.ca: the only cache mode for copies under 16
+// bytes), zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+template <int CB>
+__device__ __forceinline__ void cp_async_row(uint32_t dst, const void* src,
+                                             bool valid) {
+  if constexpr (CB == 16) cp_async16(dst, src, valid);
+  else cp_async8(dst, src, valid);
+}
+
+// D: the built head dim (shared rows, registers); hd: the real one, the
+// row length in device memory, at most D.
+template <typename TQ, typename TKV, int D, int GT, int CB>
 __global__ void __launch_bounds__(NW * 32)
 decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                     const TKV* __restrict__ vc, const float* __restrict__ ks,
@@ -103,11 +126,11 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
                     const int* __restrict__ kv_length,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int B, int Tcap, int K, int G, int n_chunks, int layer,
-                    int window, int span, float scale) {
-  using Gm = Geo<TKV, D>;
+                    int window, int span, int hd, float scale) {
+  using Gm = Geo<TKV, D, CB>;
   constexpr bool kQuant = std::is_same<TKV, int8_t>::value;
   constexpr int LPR = Gm::LPR, RPW = Gm::RPW, WR = Gm::WR, NP = Gm::NP;
-  constexpr int CPR = Gm::CPR, EPC = 16 / int(sizeof(TKV));  // elems a copy
+  constexpr int CPR = Gm::CPR, EPC = CB / int(sizeof(TKV));  // elems a copy
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ float sm_m[NW], sm_l[NW];
   __shared__ float sm_acc[NW][D];
@@ -129,14 +152,14 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   const int e0 = (lane % LPR) * 8;   // first element this lane reads
 
   // This chunk's query heads, the lane's 8 elements, pre-scaled into the
-  // log2 domain; heads past G stay zero.
+  // log2 domain; heads past G and elements past hd stay zero.
   const int nq = K * G;
   const long long head0 = (long long)b * nq + (long long)kvh * G + g0;
   float qr[GT][8];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    if (g < gcount) {
-      load_row<8>(q + (head0 + g) * D + e0, qr[g]);
+    if (g < gcount && e0 < hd) {
+      load_row<8>(q + (head0 + g) * hd + e0, qr[g]);
 #pragma unroll
       for (int x = 0; x < 8; ++x) qr[g][x] *= scale * kLog2e;
     } else {
@@ -145,9 +168,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     }
   }
 
-  const long long row = (long long)K * D;  // elements per position
+  const long long row = (long long)K * hd;  // elements per position
   const long long kvbase =
-      ((long long)layer * B + b) * Tcap * row + (long long)kvh * D;
+      ((long long)layer * B + b) * Tcap * row + (long long)kvh * hd;
   const TKV* kb = kc + kvbase;
   const TKV* vb = vc + kvbase;
   // Scale planes: [L, B, K, T], position minor.
@@ -164,11 +187,13 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
 #pragma unroll
     for (int x = lane; x < WR * CPR; x += 32) {
       const int r = x / CPR, c = x % CPR;
-      const bool ok = t0 + r < e;
-      const long long src = (ok ? t0 + r : a) * row + c * EPC;
-      cp_async16(smem_u32(st + r * Gm::ROW_BYTES + c * 16), kb + src, ok);
-      cp_async16(smem_u32(st + Gm::KV_BYTES + r * Gm::ROW_BYTES + c * 16),
-                 vb + src, ok);
+      const bool ok = t0 + r < e && c * EPC < hd;
+      const long long src = (ok ? t0 + r : a) * row + (ok ? c * EPC : 0);
+      cp_async_row<CB>(smem_u32(st + r * Gm::ROW_BYTES + c * CB), kb + src,
+                       ok);
+      cp_async_row<CB>(
+          smem_u32(st + Gm::KV_BYTES + r * Gm::ROW_BYTES + c * CB), vb + src,
+          ok);
     }
     if constexpr (kQuant) {
       float* sc = reinterpret_cast<float*>(st + 2 * Gm::KV_BYTES);
@@ -296,11 +321,11 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
 #pragma unroll
     for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w]);
     const long long slot = (head0 + g) * n_spans + sp;
-    for (int d = threadIdx.x; d < D; d += NW * 32) {
+    for (int d = threadIdx.x; d < hd; d += NW * 32) {
       float num = 0.f;
 #pragma unroll
       for (int w = 0; w < NW; ++w) num += sm_acc[w][d] * ex2(sm_m[w] - mx);
-      part_acc[slot * D + d] = num;
+      part_acc[slot * hd + d] = num;
     }
     if (threadIdx.x == 0) {
       float den = 0.f;
@@ -313,13 +338,15 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   }
 }
 
-// One block per (slot, query head): merge the spans that held live rows.
-template <typename TQ, int D>
+// One block per (slot, query head): merge the spans that held live rows;
+// D is the real head dim.
+template <typename TQ>
 __global__ void __launch_bounds__(128)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
                       const int* __restrict__ kv_length, TQ* __restrict__ out,
-                      int nq, int Tcap, int window, int span, int n_spans) {
+                      int nq, int Tcap, int window, int span, int n_spans,
+                      int D) {
   const long long bh = blockIdx.x;  // b * nq + head
   const int len = min(max(kv_length[bh / nq], 0), Tcap);
   const int lo = window > 0 ? max(len - window, 0) : 0;
@@ -350,14 +377,14 @@ struct Args {
   void* out;
   float* part_acc;
   float* part_ml;
-  int B, Tcap, K, G, layer, window, span, n_spans;
+  int B, Tcap, K, G, layer, window, span, n_spans, hd;
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int D, int GT>
+template <typename TQ, typename TKV, int D, int GT, int CB>
 cudaError_t launch(const Args& a) {
-  auto kernel = decode_split_kernel<TQ, TKV, D, GT>;
-  const int smem = NW * STAGES * Geo<TKV, D>::STAGE;
+  auto kernel = decode_split_kernel<TQ, TKV, D, GT, CB>;
+  const int smem = NW * STAGES * Geo<TKV, D, CB>::STAGE;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -368,41 +395,52 @@ cudaError_t launch(const Args& a) {
       static_cast<const TKV*>(a.vc), static_cast<const float*>(a.ks),
       static_cast<const float*>(a.vs), static_cast<const int*>(a.kv_length),
       a.part_acc, a.part_ml, a.B, a.Tcap, a.K, a.G, n_chunks, a.layer,
-      a.window, a.span, 1.0f / sqrtf((float)D));
+      a.window, a.span, a.hd, 1.0f / sqrtf((float)a.hd));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<TQ, D><<<a.B * a.K * a.G, 128, 0, a.stream>>>(
+  decode_combine_kernel<TQ><<<a.B * a.K * a.G, 128, 0, a.stream>>>(
       a.part_acc, a.part_ml, static_cast<const int*>(a.kv_length),
       static_cast<TQ*>(a.out), a.K * a.G, a.Tcap, a.window, a.span,
-      a.n_spans);
+      a.n_spans, a.hd);
   return cudaGetLastError();
 }
 
 // The smallest register tile that holds the group, at most 8 heads.
-template <typename TQ, typename TKV, int D>
+template <typename TQ, typename TKV, int D, int CB>
 cudaError_t launch_g(const Args& a) {
-  if (a.G <= 1) return launch<TQ, TKV, D, 1>(a);
-  if (a.G <= 2) return launch<TQ, TKV, D, 2>(a);
-  if (a.G <= 4) return launch<TQ, TKV, D, 4>(a);
-  return launch<TQ, TKV, D, 8>(a);
+  if (a.G <= 1) return launch<TQ, TKV, D, 1, CB>(a);
+  if (a.G <= 2) return launch<TQ, TKV, D, 2, CB>(a);
+  if (a.G <= 4) return launch<TQ, TKV, D, 4, CB>(a);
+  return launch<TQ, TKV, D, 8, CB>(a);
 }
 
+// Rows of 16-byte multiples take 16-byte copies; int8 rows of 8 (mod 16)
+// bytes take 8-byte ones (their rows are only 8-byte aligned).
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_c(const Args& a) {
+  if ((a.hd * int(sizeof(TKV))) % 16 == 0) return launch_g<TQ, TKV, D, 16>(a);
+  if constexpr (std::is_same<TKV, int8_t>::value)
+    return launch_g<TQ, TKV, D, 8>(a);
+  return cudaErrorInvalidValue;
+}
+
+// The next built head dim at or above the real one (a multiple of 8).
 template <typename TQ, typename TKV>
-cudaError_t launch_d(int D, const Args& a) {
-  switch (D) {
-    case 16: return launch_g<TQ, TKV, 16>(a);
-    case 32: return launch_g<TQ, TKV, 32>(a);
-    case 64: return launch_g<TQ, TKV, 64>(a);
-    case 128: return launch_g<TQ, TKV, 128>(a);
-    case 256: return launch_g<TQ, TKV, 256>(a);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_d(const Args& a) {
+  const int hd = a.hd;
+  if (hd < 16 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
+  if (hd <= 16) return launch_c<TQ, TKV, 16>(a);
+  if (hd <= 32) return launch_c<TQ, TKV, 32>(a);
+  if (hd <= 64) return launch_c<TQ, TKV, 64>(a);
+  if (hd <= 128) return launch_c<TQ, TKV, 128>(a);
+  return launch_c<TQ, TKV, 256>(a);
 }
 
 }  // namespace
 }  // namespace symtorch
 
-// C entry point (ctypes). q [B, n_q, D] and out [B, n_q, D] in `dtype`;
+// C entry point (ctypes). q [B, n_q, D] and out [B, n_q, D] in `dtype`,
+// D any multiple of 8 from 16 to 256;
 // caches [L, B, T, K, D] in `kv_dtype` (== dtype, or int8 with k_scale /
 // v_scale [L, B, K, T] float32), all contiguous; kv_length [B] int32 on the
 // device. window <= 0 means no window. The capacity T is split into n_spans
@@ -428,15 +466,15 @@ extern "C" int decode_attention_launch(int dtype, int kv_dtype, const void* q,
   float* part_ml = part_acc + (long long)B * n_q * n_spans * D;
   const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_length, out,
                part_acc, part_ml, B, T, K, n_q / K, layer, window, span,
-               n_spans, static_cast<cudaStream_t>(stream)};
+               n_spans, D, static_cast<cudaStream_t>(stream)};
   if (kv_dtype == kInt8) {
     if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
-    if (dtype == kF32) return launch_d<float, int8_t>(D, a);
-    if (dtype == kBF16) return launch_d<__nv_bfloat16, int8_t>(D, a);
+    if (dtype == kF32) return launch_d<float, int8_t>(a);
+    if (dtype == kBF16) return launch_d<__nv_bfloat16, int8_t>(a);
     return cudaErrorInvalidValue;
   }
   if (kv_dtype != dtype) return cudaErrorInvalidValue;
-  if (dtype == kF32) return launch_d<float, float>(D, a);
-  if (dtype == kBF16) return launch_d<__nv_bfloat16, __nv_bfloat16>(D, a);
+  if (dtype == kF32) return launch_d<float, float>(a);
+  if (dtype == kBF16) return launch_d<__nv_bfloat16, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }

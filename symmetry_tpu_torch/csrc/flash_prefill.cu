@@ -10,7 +10,9 @@
 // cores (989 TFLOP/s bf16) come near the bound. Two variants, chosen in
 // ops/flash.py `flash_variant` from (dtype, head_dim):
 //
-// Tensor-core variant (`flash_tc_kernel`; bf16, head_dim 64, 128, 256):
+// Tensor-core variant (`flash_tc_kernel`; bf16, head_dim 40 .. 256 run at
+// the next of 64, 128, 256 -- TMA zero-fills the columns past the real
+// head dim, and only those columns of O are stored):
 //  - persistent: one block per SM walks (128-row query tile, query head,
 //    batch row) tiles dealt longest-first in a snake, so the blocks finish
 //    together, and a tile's Q and first K/V load under the previous tile's
@@ -40,8 +42,9 @@
 //  depend on seq_lens, a device value) and storing O through shared
 //  memory.
 //
-// FMA variant (`flash_prefill_kernel`; float32, and bf16 at head_dim 16 or
-// 32): both products in float32 FMA from shared memory, exact enough that
+// FMA variant (`flash_prefill_kernel`; float32, and bf16 at head_dim up to
+// 32, each run at the next of 16, 32, 64, 128, 256 with the columns past
+// the real head dim loaded as zeros): both products in float32 FMA from shared memory, exact enough that
 // float32 serving on the card reproduces the CPU's greedy tokens.
 //  - one block per (64-row query tile, query head, batch row), 256 threads;
 //    the query tiles are launched longest-first (the tiles on the causal
@@ -82,23 +85,23 @@ constexpr size_t smem_bytes() {
           size_t(BQ) * PSTRIDE);
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(NT)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ seq_lens,
-                     T* __restrict__ out, int S, int group,
+                     T* __restrict__ out, int S, int D, int group,
                      long long qsb, long long qss, long long qsh,
                      long long ksb, long long kss, long long ksh,
                      long long vsb, long long vss, long long vsh,
                      long long osb, long long oss, long long osh,
                      int window, float scale) {
-  constexpr int QS = D + 4;   // padded row stride of Qs / Ks (16B aligned)
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int QS = DP + 4;  // padded row stride of Qs / Ks (16B aligned)
+  constexpr int DC = DP / 16; // output columns per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* Ks = Qs + BQ * QS;
   float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * D;
+  float* Ps = Vs + BK * DP;
 
   const int qi = gridDim.x - 1 - blockIdx.x;  // longest tiles first
   const int h = blockIdx.y;
@@ -120,11 +123,14 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
+  // Columns D .. DP - 1 of the padded tiles are zeros: they add nothing to
+  // a score, and the output columns they make are never stored.
   const T* qb = q + b * qsb + h * qsh;
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    const float x = (q0 + r < S) ? to_f(qb[(long long)(q0 + r) * qss + c])
-                                 : 0.f;
+  for (int idx = tid; idx < BQ * DP; idx += NT) {
+    const int r = idx / DP, c = idx % DP;
+    const float x = (q0 + r < S && c < D)
+                        ? to_f(qb[(long long)(q0 + r) * qss + c])
+                        : 0.f;
     Qs[r * QS + c] = x * scale;
   }
 
@@ -148,11 +154,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = lo; j <= hi; ++j) {
     const int k0 = j * BK;
     __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int r = idx / D, c = idx % D;
-      const bool in = k0 + r < S;
+    for (int idx = tid; idx < BK * DP; idx += NT) {
+      const int r = idx / DP, c = idx % DP;
+      const bool in = k0 + r < S && c < D;
       Ks[r * QS + c] = in ? to_f(kb[(long long)(k0 + r) * kss + c]) : 0.f;
-      Vs[r * D + c] = in ? to_f(vb[(long long)(k0 + r) * vss + c]) : 0.f;
+      Vs[r * DP + c] = in ? to_f(vb[(long long)(k0 + r) * vss + c]) : 0.f;
     }
     __syncthreads();
 
@@ -162,7 +168,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < CPT; ++jj) s[i][jj] = 0.f;
 #pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DP; d += 4) {
       float4 qv[RPT], kv[CPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -229,7 +235,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         float vv[DC];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + u) * D + tx + 16 * c];
+        for (int c = 0; c < DC; ++c) vv[c] = Vs[(kk + u) * DP + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const float p = u == 0 ? p4[i].x
@@ -249,17 +255,19 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      ob[(long long)r * oss + tx + 16 * c] = from_f<T>(acc[i][c] / denom);
+      if (tx + 16 * c < D)
+        ob[(long long)r * oss + tx + 16 * c] = from_f<T>(acc[i][c] / denom);
   }
 }
 
-template <typename T, int D>
+// DP: the built head dim the kernel runs at; D, the real one, at most DP.
+template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seq_lens, void* out, int B, int S, int H,
-                   int K, const long long* st, int window,
+                   int K, int D, const long long* st, int window,
                    cudaStream_t stream) {
-  auto kernel = flash_prefill_kernel<T, D>;
-  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_prefill_kernel<T, DP>;
+  constexpr size_t smem = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -267,36 +275,35 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kernel<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(seq_lens),
-      static_cast<T*>(out), S, H / K, st[0], st[1], st[2], st[3], st[4],
+      static_cast<T*>(out), S, D, H / K, st[0], st[1], st[2], st[3], st[4],
       st[5], st[6], st[7], st[8], st[9], st[10], st[11], window,
       1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-// bf16 takes this variant only at head_dim 16 and 32 (ops/flash.py
-// flash_variant); wider bf16 heads run on the tensor cores.
+// A head dim runs at the next built size (16, 32, 64, 128, 256) with the
+// columns past it zero (ops/flash.py padded_head_dim). bf16 takes this
+// variant only up to 32 (ops/flash.py flash_variant); wider bf16 heads run
+// on the tensor cores.
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const void* seq_lens, void* out, int B, int S, int H,
                      int K, const long long* st, int window,
                      cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, seq_lens, out, B, S, H, K, st, window, stream);
-    case 32: return launch<T, 32>(q, k, v, seq_lens, out, B, S, H, K, st, window, stream);
-  }
+  if (D < 16 || D % 8) return cudaErrorInvalidValue;
+  if (D <= 16) return launch<T, 16>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, stream);
+  if (D <= 32) return launch<T, 32>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, stream);
   if constexpr (std::is_same<T, float>::value) {
-    switch (D) {
-      case 64: return launch<T, 64>(q, k, v, seq_lens, out, B, S, H, K, st, window, stream);
-      case 128: return launch<T, 128>(q, k, v, seq_lens, out, B, S, H, K, st, window, stream);
-      case 256: return launch<T, 256>(q, k, v, seq_lens, out, B, S, H, K, st, window, stream);
-    }
+    if (D <= 64) return launch<T, 64>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, stream);
+    if (D <= 128) return launch<T, 128>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, stream);
+    if (D <= 256) return launch<T, 256>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant (bf16; head_dim 64, 128, 256).
+// Tensor-core variant (bf16; head_dim 40 .. 256, run at 64, 128 or 256).
 
 namespace tc {
 
@@ -372,8 +379,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 const int* __restrict__ seq_lens,
                 __nv_bfloat16* __restrict__ out, int B, int S, int H,
-                int group, long long osb, long long oss, long long osh,
-                int window, float sl2) {
+                int group, int hd, long long osb, long long oss,
+                long long osh, int window, float sl2) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(1024) uint8_t tc_smem[];
@@ -549,8 +556,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     __nv_bfloat16* ob = out + x.b * osb + x.h * osh;
     if (q0 >= seq_len) {
       // Every row of this tile is padding: finite zeros, no work.
-      for (int idx = tid; idx < BQ * D / 8; idx += 256) {
-        const int r = idx / (D / 8), cc = idx % (D / 8);
+      for (int idx = tid; idx < BQ * (hd / 8); idx += 256) {
+        const int r = idx / (hd / 8), cc = idx % (hd / 8);
         if (q0 + r < S)
           *reinterpret_cast<uint4*>(ob + (long long)(q0 + r) * oss + cc * 8) =
               make_uint4(0u, 0u, 0u, 0u);
@@ -639,8 +646,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
       __nv_bfloat16* orow = ob + (long long)r * oss + c0;
 #pragma unroll
       for (int cc = 0; cc < D / 8; ++cc)
-        *reinterpret_cast<uint32_t*>(orow + 8 * cc) =
-            pack_bf16(o[4 * cc + 2 * i] * inv, o[4 * cc + 2 * i + 1] * inv);
+        if (8 * cc < hd)  // columns past the real head dim are zeros
+          *reinterpret_cast<uint32_t*>(orow + 8 * cc) =
+              pack_bf16(o[4 * cc + 2 * i] * inv, o[4 * cc + 2 * i + 1] * inv);
     }
   }
   if (wg == 0) named_sync(1, 256);
@@ -648,7 +656,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 // The [B, S, heads, D] bf16 tensor at `base` with element strides (batch,
 // seq, head) as a 4-D TMA map {D, heads, S, B}, boxes of 64 columns x
-// `rows` rows, 128-byte swizzle, zero fill past the edges.
+// `rows` rows, 128-byte swizzle, zero fill past the edges: with the real
+// head dim as D, the columns up to the built size (whole boxes past it
+// too) land as zeros.
 bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
               int D, long long sb, long long ss, long long sh, int rows) {
   EncodeTiled fn = encode_tiled();
@@ -665,15 +675,16 @@ bool make_map(CUtensorMap* map, const void* base, int B, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// D: the built head dim the kernel runs at; hd, the real one, at most D.
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* seq_lens, void* out, int B, int S, int H,
-                   int K, const long long* st, int window,
+                   int K, int hd, const long long* st, int window,
                    cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, D, st[0], st[1], st[2], BQ) ||
-      !make_map(&tk, k, B, S, K, D, st[3], st[4], st[5], Cfg<D>::BK) ||
-      !make_map(&tv, v, B, S, K, D, st[6], st[7], st[8], Cfg<D>::BK))
+  if (!make_map(&tq, q, B, S, H, hd, st[0], st[1], st[2], BQ) ||
+      !make_map(&tk, k, B, S, K, hd, st[3], st[4], st[5], Cfg<D>::BK) ||
+      !make_map(&tv, v, B, S, K, hd, st[6], st[7], st[8], Cfg<D>::BK))
     return cudaErrorInvalidValue;
   auto kernel = flash_tc_kernel<D>;
   constexpr size_t smem = Cfg<D>::SMEM;
@@ -690,8 +701,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long long n_tiles = (long long)((S + BQ - 1) / BQ) * H * B;
   kernel<<<(int)std::min<long long>(n_tiles, sms), NT, smem, stream>>>(
       tq, tk, tv, static_cast<const int*>(seq_lens),
-      static_cast<__nv_bfloat16*>(out), B, S, H, H / K, st[9], st[10],
-      st[11], window, 1.4426950408889634f / sqrtf((float)D));
+      static_cast<__nv_bfloat16*>(out), B, S, H, H / K, hd, st[9], st[10],
+      st[11], window, 1.4426950408889634f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
@@ -700,8 +711,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace symtorch
 
-// C entry point of the FMA variant (ctypes): float32 at head_dim 16 .. 256,
-// bf16 at 16 or 32. Strides are in elements: (batch, seq, head) for q, k,
+// C entry point of the FMA variant (ctypes): float32 at any head_dim that
+// is a multiple of 8 from 16 to 256, bf16 up to 32. Strides are in elements: (batch, seq, head) for q, k,
 // v, out; the head_dim stride is 1. window <= 0 means no window. Returns
 // the cudaError_t of the launch.
 extern "C" int flash_prefill_launch(
@@ -724,7 +735,8 @@ extern "C" int flash_prefill_launch(
 }
 
 // C entry point of the tensor-core variant (ctypes): bf16 q, k, v, out,
-// head_dim 64, 128 or 256; the same arguments as flash_prefill_launch
+// any head_dim that is a multiple of 8 from 40 to 256, run at the next of
+// 64, 128 or 256; the same arguments as flash_prefill_launch
 // without the dtype. Every row start must be 16-byte aligned (the strides
 // multiples of 8 elements, the pointers 16-byte aligned).
 extern "C" int flash_prefill_tc_launch(
@@ -742,10 +754,8 @@ extern "C" int flash_prefill_tc_launch(
   for (const void* p : {q, k, v, static_cast<const void*>(out)})
     if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return tc::launch<64>(q, k, v, seq_lens, out, B, S, H, K, st, window, s);
-    case 128: return tc::launch<128>(q, k, v, seq_lens, out, B, S, H, K, st, window, s);
-    case 256: return tc::launch<256>(q, k, v, seq_lens, out, B, S, H, K, st, window, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (D <= 32 || D > 256 || D % 8) return cudaErrorInvalidValue;
+  if (D <= 64) return tc::launch<64>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, s);
+  if (D <= 128) return tc::launch<128>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, s);
+  return tc::launch<256>(q, k, v, seq_lens, out, B, S, H, K, D, st, window, s);
 }

@@ -15,17 +15,22 @@
 // bf16 and in f32, a bf16 x int8 product is exact in f32, and only the
 // summation order differs from the plain version.
 //
-// Two regimes, two kernels:
-//  - M <= 16 rows (decode: one row per slot), and every f32 activation:
-//    bytes bound -- each int8 weight byte must be read once and is used
-//    2 * M times. `w8a16_gemv_kernel`: one block per (panel, 8 rows, K
-//    split); a thread reads 8 columns of a weight row with one 8-byte load
-//    and keeps 8 x 8 float32 sums in registers; the block's x rows sit in
-//    shared memory, staged 256 K-rows at a time; 32 rows of the panel are
-//    read per step by the 256 threads. Small panels counts (wk: 16 panels)
-//    split K so that about 264 blocks are in flight; the splits' float32
-//    partials are summed, scaled and cast by `w8a16_epilogue_kernel`.
-//  - M > 16 bf16 rows (prefill: up to the 2048-row token budget):
+// Three regimes (ops/qmm.py w8a16_regime):
+//  - "gemv", M <= 16 bf16 rows (decode: one row per slot): bytes bound --
+//    each int8 weight byte must be read once and is used 2 * M times.
+//    `gv::w8a16_gemv_tc_kernel` (below): swap-AB products on the tensor
+//    cores, the weight bulk-copied through a ring, K splits summed inside
+//    a thread-block cluster.
+//  - "gemv_f32", every f32 activation: `w8a16_gemv_kernel`, float32 FMAs
+//    (exact enough that float32 serving on the card reproduces the CPU's
+//    greedy tokens): one block per (panel, 8 rows, K split); a thread
+//    reads 8 columns of a weight row with one 8-byte load and keeps 8 x 8
+//    float32 sums in registers; the block's x rows sit in shared memory,
+//    staged 256 K-rows at a time; 32 rows of the panel are read per step
+//    by the 256 threads. Small panels counts (wk: 16 panels) split K so
+//    that about 264 blocks are in flight; the splits' float32 partials are
+//    summed, scaled and cast by `w8a16_epilogue_kernel`.
+//  - "tc", M > 16 bf16 rows (prefill: up to the 2048-row token budget):
 //    operations bound (2 * M * K * N bf16 operations against the card's
 //    dense bf16 peak). `tc::w8a16_tc_kernel`: a persistent grid, one block
 //    per SM, over 256 x 128 output tiles (128 x 128 where the taller tile
@@ -453,49 +458,349 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
 
 }  // namespace tc
 
-template <typename TX, typename TO>
-cudaError_t launch(const void* x, const void* w, const void* scale,
-                   void* out, void* part, int M, int K, int N, int splits,
-                   int k_per_split, int apply_scale, int tile_rows,
-                   cudaStream_t s) {
+// ---- GEMV regime on the tensor cores (bf16 x, M <= 16) ----------------------
+// Swap-AB: a panel's 64 output columns are the 64-row A operand of wgmma
+// m64nNk16 (the converted weight, MN-major through the transpose
+// immediate), x's rows, zero-padded to N = NP (8 or 16), the narrow B
+// (K-major, as x lies in memory), so one read of the weight serves every
+// row. Work items are (panel, K split) (ops/qmm.py gemv_plan): the splits
+// of a panel run on the blocks of one thread-block cluster, block rank r
+// always split r; cluster c of G takes panels c, c + G, ... Per block:
+//  - a producer warp whose one thread brings each 64-deep step into a ring
+//    of 20 stages with an mbarrier each: the panel's 4,096 contiguous
+//    weight bytes by a bulk copy, and beside them the step's x tile (NP
+//    rows x 64 columns, 1 or 2 KB, rows past M and columns past K
+//    zero-filled) by TMA, from L2 after the first panel. With a stage in
+//    each warpgroup's hands, 64 KB of weight stay in flight, past the
+//    ~25 KB an SM needs to cover device-memory latency at the card's rate
+//    (a deeper ring measured no faster). Nothing is sized by K, so any K
+//    takes the kernel;
+//  - four warpgroups take every fourth step: each converts its int8 stage
+//    to a bf16 staging tile (the tensor-core kernel's converter: prmt into
+//    2^23's mantissa, one subtract, cvt.rn.bf16x2, 128-byte swizzled rows,
+//    fence.proxy.async), issues four wgmma k16 products into its own
+//    accumulator, waits for them and hands the stage (weight and x) back;
+//    four in turn keep the conversion ahead of the copies;
+//  - at a panel's end each warpgroup parks its [NP x 64] float32 sums in
+//    shared memory and goes on with the next panel, and an epilogue warp
+//    adds the four in a fixed order; the cluster's other blocks store their
+//    sums into rank 0's shared memory (distributed shared memory, an
+//    mbarrier arrival a lane), and rank 0's epilogue warp adds them in
+//    rank order, scales, casts and stores. No second kernel, no partials
+//    in device memory, no float atomics: the result does not change from
+//    run to run.
+namespace gv {
+
+constexpr int NWG = 4;                  // converter-consumer warpgroups
+constexpr int PRODUCER_WARP = NWG * 4;  // then the producer warp
+constexpr int EPILOGUE_WARP = NWG * 4 + 1;  // and the epilogue warp
+constexpr int NT = NWG * 128 + 64;
+constexpr int STEP = 64;                // K rows a step
+constexpr int W8_BYTES = STEP * PW;     // an int8 stage: 4,096 bytes
+constexpr int WB_BYTES = STEP * 128;    // the step as bf16 rows: 8,192
+constexpr int RING = 20;                // stages
+
+struct Bars {
+  uint64_t full[RING], empty[RING], red_full, red_empty, in_full, in_free;
+};
+
+// Dynamic shared memory of a launch: 1 KB alignment slack, the ring's x
+// tiles (NP rows x 128 bytes) and int8 weight stages, each warpgroup's
+// bf16 staging tile and parked sums, rank 0's inbox of the other ranks'
+// sums.
+constexpr size_t smem_bytes(int np, int cluster) {
+  return 1024 + size_t(RING) * (np * 128 + W8_BYTES) +
+         size_t(NWG) * WB_BYTES + size_t(NWG + cluster - 1) * np * PW * 4;
+}
+static_assert(smem_bytes(16, 8) + sizeof(Bars) <= 232448, "ring does not fit");
+
+template <int NP>
+__device__ __forceinline__ void mma(float (&d)[NP / 2], uint64_t a,
+                                    uint64_t b) {
+  if constexpr (NP == 8) wgmma_ss_n8_at(d, a, b, 1);
+  else wgmma_ss_n16_at(d, a, b, 1);
+}
+
+template <int NP, typename TO>
+__global__ void __launch_bounds__(NT, 1)
+w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
+                     const int8_t* __restrict__ w,
+                     const float* __restrict__ scale, TO* __restrict__ out,
+                     int M, int K, int N, int k_per_split, int apply_scale) {
+  extern __shared__ __align__(1024) uint8_t gv_smem[];
+  __shared__ Bars bars;
+  constexpr int XT = NP * 128;          // an x tile: one step
+  constexpr int SUMS = NP * PW;         // floats of a [NP x 64] sum
+  constexpr int PER = SUMS / 32;        // of them an epilogue lane owns
+  const int rank = (int)cluster_ctarank();
+  int csize;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(csize));
+  const int G = gridDim.x / csize;                // clusters
+  const int cid = blockIdx.x / csize;             // this block's cluster
+  const int k_lo = rank * k_per_split;
+  const int k_hi = min(K, k_lo + k_per_split);
+  const int nsteps = (k_hi - k_lo + STEP - 1) / STEP;
   const int panels = N / PW;
-  if (tile_rows != 0) {
-    if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
-      if (tile_rows == 256)
-        return tc::launch<2, TO>(x, w, scale, out, M, K, N, apply_scale, s);
-      if (tile_rows == 128)
-        return tc::launch<1, TO>(x, w, scale, out, M, K, N, apply_scale, s);
+  const int items = panels > cid ? (panels - cid + G - 1) / G : 0;
+
+  // One layout for every rank, so rank 0's inbox sits at the same offset
+  // in each block's view.
+  const uint32_t base = smem_u32(gv_smem);
+  const uint32_t sX = (base + 1023) & ~1023u;
+  const uint32_t sW8 = sX + RING * XT;
+  const uint32_t sWB = sW8 + RING * W8_BYTES;
+  const uint32_t sRed = sWB + NWG * WB_BYTES;
+  const uint32_t sIn = sRed + NWG * SUMS * 4;
+  float* red = reinterpret_cast<float*>(gv_smem + (sRed - base));
+  const float* in = reinterpret_cast<const float*>(gv_smem + (sIn - base));
+  const uint32_t full = smem_u32(&bars.full[0]);  // + 8 s
+  const uint32_t empty = smem_u32(&bars.empty[0]);
+  const uint32_t red_full = smem_u32(&bars.red_full);
+  const uint32_t red_empty = smem_u32(&bars.red_empty);
+  const uint32_t in_full = smem_u32(&bars.in_full);
+  const uint32_t in_free = smem_u32(&bars.in_free);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // one arrival per consuming warp
     }
-    return cudaErrorInvalidValue;
+    mbar_init(red_full, NWG * 128);  // every consuming thread
+    mbar_init(red_empty, 1);         // the epilogue warp
+    mbar_init(in_full, csize > 1 ? (csize - 1) * 32 : 1);  // remote lanes
+    mbar_init(in_free, 32);          // rank 0's epilogue lanes
+    mbar_init_fence();
   }
-  const dim3 grid(panels, (M + GV_MT - 1) / GV_MT, splits);
-  w8a16_gemv_kernel<TX, TO><<<grid, GV_THREADS, 0, s>>>(
-      static_cast<const TX*>(x), static_cast<const int8_t*>(w),
+  // Every block's barriers exist before any block reaches into another.
+  cluster_sync();
+
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp_id = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  if (warp_id == PRODUCER_WARP) {
+    // Each step of this block's items through the ring: its x tile and
+    // the panel's weight rows, on one barrier.
+    if (lane == 0) {
+      int it = 0;
+      for (int p = cid; p < panels; p += G) {
+        for (int j = 0; j < nsteps; ++j, ++it) {
+          const int s = it % RING;
+          if (it >= RING) mbar_wait(empty + 8 * s, ((it / RING) & 1) ^ 1);
+          const int k0 = k_lo + j * STEP;
+          const uint32_t bytes = min(STEP, k_hi - k0) * PW;
+          mbar_expect_tx(full + 8 * s, XT + bytes);
+          tma_load_2d(sX + s * XT, &tx, full + 8 * s, k0, 0);
+          bulk_load(sW8 + s * W8_BYTES, w + ((long long)p * K + k0) * PW,
+                    bytes, full + 8 * s);
+        }
+      }
+    }
+    __syncwarp();
+  } else if (warp_id == EPILOGUE_WARP) {
+    // Per item: the warpgroups' sums added in warpgroup order; then the
+    // cluster's, in rank order, on rank 0, which scales, casts and
+    // stores. Lane l owns entries l, l + 32, ... of the [NP][64] sums.
+    for (int i = 0; i < items; ++i) {
+      mbar_wait(red_full, i & 1);
+      float v[PER];
+#pragma unroll
+      for (int x = 0; x < PER; ++x) {
+        const int e = lane + 32 * x;
+        v[x] = red[e];
+#pragma unroll
+        for (int g = 1; g < NWG; ++g) v[x] += red[g * SUMS + e];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(red_empty);
+      if (csize > 1 && rank > 0) {
+        // Hand the sums to rank 0 once it has read the previous ones.
+        if (i > 0) mbar_wait_cluster(in_free, (i - 1) & 1);
+        const uint32_t slot = map_rank(sIn, 0) + (rank - 1) * SUMS * 4;
+#pragma unroll
+        for (int x = 0; x < PER; ++x)
+          st_cluster(slot + (lane + 32 * x) * 4, v[x]);
+        mbar_arrive_cluster(map_rank(in_full, 0));
+        continue;
+      }
+      if (csize > 1) {
+        mbar_wait_cluster(in_full, i & 1);
+        for (int r = 1; r < csize; ++r)
+#pragma unroll
+          for (int x = 0; x < PER; ++x)
+            v[x] += in[(r - 1) * SUMS + lane + 32 * x];
+        if (i + 1 < items)
+          for (int r = 1; r < csize; ++r)
+            mbar_arrive_cluster(map_rank(in_free, r));
+      }
+      const int p = cid + i * G;
+#pragma unroll
+      for (int x = 0; x < PER; ++x) {
+        const int e = lane + 32 * x;
+        const int m = e / PW, n = p * PW + e % PW;
+        if (m < M)
+          out[(long long)m * N + n] =
+              from_f<TO>(apply_scale ? v[x] * scale[n] : v[x]);
+      }
+    }
+    __syncwarp();
+  } else if (wg < NWG) {
+    const int ct = tid - wg * 128;
+    const int warp = ct >> 5;
+    const uint32_t stage = sWB + wg * WB_BYTES;
+    float* my_red = red + wg * SUMS;
+    float acc[NP / 2];
+    int it = 0;  // ring steps walked
+    for (int i = 0; i < items; ++i) {
+#pragma unroll
+      for (int e = 0; e < NP / 2; ++e) acc[e] = 0.f;
+      for (int j = 0; j < nsteps; ++j, ++it) {
+        if (j % NWG != wg) continue;
+        const int s = it % RING;
+        mbar_wait(full + 8 * s, (it / RING) & 1);
+        const uint32_t src = sW8 + s * W8_BYTES;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int jj = ct + 128 * h2;        // 16-byte piece of the stage
+          const int row = jj >> 2, q = jj & 3;  // row = k, q: 16 columns
+          uint32_t v[4];
+          asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                       : "r"(src + jj * 16));
+          uint32_t o[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            tc::cvt4(v[e] ^ 0x80808080u, o[2 * e], o[2 * e + 1]);
+          const uint32_t rb = stage + row * 128;
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                             rb + (((2 * q + h) ^ (row & 7)) << 4)),
+                         "r"(o[4 * h]), "r"(o[4 * h + 1]), "r"(o[4 * h + 2]),
+                         "r"(o[4 * h + 3])
+                         : "memory");
+        }
+        fence_proxy_async();
+        named_sync(1 + wg, 128);  // the whole tile is stored
+        fence_regs(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < STEP / 16; ++kk)
+          mma<NP>(acc, smem_desc(stage + kk * 2048, WB_BYTES, 1024),
+                  smem_desc(sX + s * XT + kk * 32, 16, 1024));
+        wgmma_commit();
+        // The products have read the x tile and the staging tile: the
+        // stage goes back to the producer, the staging tile to the next
+        // conversion.
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      // Park the sums once the epilogue has read the previous item's.
+      // Entry 4c + 2i + e of the accumulator is D[16 warp + lane / 4 + 8i]
+      // [8c + 2 (lane % 4) + e]: output column n, x row m.
+      if (i > 0) mbar_wait(red_empty, (i - 1) & 1);
+#pragma unroll
+      for (int e = 0; e < NP / 2; ++e) {
+        const int n = 16 * warp + (lane >> 2) + 8 * ((e >> 1) & 1);
+        const int m = 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        my_red[m * PW + n] = acc[e];
+      }
+      mbar_arrive(red_full);
+    }
+  }
+  // No block leaves while another may still reach into its shared memory.
+  cluster_sync();
+}
+
+// A launch of `clusters` clusters of `cluster` blocks (not copyable: the
+// configuration points at its own attribute).
+struct Config {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  Config(int cluster, int clusters, size_t smem, cudaStream_t s) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(clusters * cluster);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  Config(const Config&) = delete;
+};
+
+template <int NP, typename TO>
+cudaError_t allow_smem(int cluster) {
+  return cudaFuncSetAttribute(w8a16_gemv_tc_kernel<NP, TO>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes(NP, cluster));
+}
+
+// Clusters of `cluster` blocks the card holds at once (ops/qmm.py
+// gemv_capacity reads it to deal the work). Both row variants hold one
+// block an SM, so the 16-row one answers for both.
+cudaError_t capacity(int cluster, int* fit) {
+  cudaError_t err = allow_smem<16, __nv_bfloat16>(cluster);
+  if (err != cudaSuccess) return err;
+  Config c(cluster, 1, smem_bytes(16, cluster), nullptr);
+  return cudaOccupancyMaxActiveClusters(
+      fit, w8a16_gemv_tc_kernel<16, __nv_bfloat16>, &c.cfg);
+}
+
+// Exactly the deal of ops/qmm.py gemv_plan: `clusters` clusters, each
+// resident at once, so every block streams about the same bytes.
+template <int NP, typename TO>
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
+                   int M, int K, int N, int cluster, int k_per_split,
+                   int clusters, int apply_scale, cudaStream_t s) {
+  CUtensorMap tx;
+  if (!make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, NP))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem<NP, TO>(cluster);
+  if (err != cudaSuccess) return err;
+  Config c(cluster, clusters, smem_bytes(NP, cluster), s);
+  return cudaLaunchKernelEx(&c.cfg, w8a16_gemv_tc_kernel<NP, TO>, tx,
+                            static_cast<const int8_t*>(w),
+                            static_cast<const float*>(scale),
+                            static_cast<TO*>(out), M, K, N, k_per_split,
+                            apply_scale);
+}
+
+}  // namespace gv
+
+// Regime codes (ops/qmm.py _REGIME_CODE).
+enum Regime { kGemv = 0, kGemvF32 = 1, kTc = 2 };
+
+// Calls f with a value of the output type.
+template <typename F>
+cudaError_t by_out(int out_dtype, F f) {
+  if (out_dtype == kF32) return f(float{});
+  if (out_dtype == kBF16) return f(__nv_bfloat16{});
+  return cudaErrorInvalidValue;
+}
+
+template <typename TO>
+cudaError_t launch_gemv_f32(const void* x, const void* w, const void* scale,
+                            void* out, void* part, int M, int K, int N,
+                            int splits, int k_per_split, int apply_scale,
+                            cudaStream_t s) {
+  const dim3 grid(N / PW, (M + GV_MT - 1) / GV_MT, splits);
+  w8a16_gemv_kernel<float, TO><<<grid, GV_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<TO*>(out),
       static_cast<float*>(part), M, K, N, k_per_split, apply_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const long long total = (long long)M * N;
-  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
-                                                       : 4096);
+  const int blocks = (int)std::min<long long>((total + 255) / 256, 4096);
   w8a16_epilogue_kernel<TO><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<const float*>(scale),
       static_cast<TO*>(out), M, N, splits, apply_scale);
   return cudaGetLastError();
-}
-
-template <typename TX>
-cudaError_t launch_o(int out_dtype, const void* x, const void* w,
-                     const void* scale, void* out, void* part, int M, int K,
-                     int N, int splits, int k_per_split, int apply_scale,
-                     int tile_rows, cudaStream_t s) {
-  if (out_dtype == kF32)
-    return launch<TX, float>(x, w, scale, out, part, M, K, N, splits,
-                             k_per_split, apply_scale, tile_rows, s);
-  if (out_dtype == kBF16)
-    return launch<TX, __nv_bfloat16>(x, w, scale, out, part, M, K, N, splits,
-                                     k_per_split, apply_scale, tile_rows, s);
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -503,28 +808,74 @@ cudaError_t launch_o(int out_dtype, const void* x, const void* w,
 
 // C entry point (ctypes). x [M, K] in `x_dtype`, contiguous, 16-byte
 // aligned; w the packed int8 panels [N / 64, K, 64]; scale [N] float32;
-// out [M, N] in `out_dtype`. tile_rows picks the kernel: 0 the GEMV kernel
-// (part a float32 workspace of splits * M * N, unused when splits == 1),
-// 128 or 256 the tensor-core kernel with that many rows a tile (bf16 x
-// only; splits, k_per_split and part unused). K must be a multiple of 32
-// and N of 64. Returns the cudaError_t of the launches.
-extern "C" int w8a16_launch(int x_dtype, int out_dtype, const void* x,
-                            const void* w, const void* scale, void* out,
-                            void* part, int M, int K, int N, int splits,
-                            int k_per_split, int apply_scale, int tile_rows,
-                            void* stream) {
+// out [M, N] in `out_dtype`; K a multiple of 32, N of 64. `regime` names
+// the kernel, and each takes only its own arguments (the others must be
+// as stated):
+//  - kGemv, the tensor-core GEMV: bf16 x, M <= 16; `splits` K splits (the
+//    cluster size, at most 8) of `k_per_split` rows, a multiple of 64 when
+//    split; `clusters` clusters; part null, tile_rows 0;
+//  - kGemvF32, the float32 FMA GEMV: float32 x; `splits` K splits of
+//    `k_per_split` rows, a multiple of 256 when split; part a float32
+//    workspace of splits * M * N when split, else null; clusters and
+//    tile_rows 0;
+//  - kTc, the tensor-core kernel: bf16 x; `tile_rows` 128 or 256; splits
+//    1, k_per_split K, clusters 0, part null.
+// Returns the cudaError_t of the launches.
+extern "C" int w8a16_launch(int regime, int x_dtype, int out_dtype,
+                            const void* x, const void* w, const void* scale,
+                            void* out, void* part, int M, int K, int N,
+                            int splits, int k_per_split, int clusters,
+                            int apply_scale, int tile_rows, void* stream) {
   using namespace symtorch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // every K row in exactly one non-empty split
   if (M <= 0 || K <= 0 || N <= 0 || K % 32 || N % PW || splits < 1 ||
       k_per_split <= 0 || (long long)splits * k_per_split < K ||
-      (splits > 1 && part == nullptr))
+      (long long)(splits - 1) * k_per_split >= K)
     return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == kF32)
-    return launch_o<float>(out_dtype, x, w, scale, out, part, M, K, N, splits,
-                           k_per_split, apply_scale, tile_rows, s);
-  if (x_dtype == kBF16)
-    return launch_o<__nv_bfloat16>(out_dtype, x, w, scale, out, part, M, K, N,
-                                   splits, k_per_split, apply_scale,
-                                   tile_rows, s);
-  return cudaErrorInvalidValue;
+  switch (regime) {
+    case kGemv:
+      if (x_dtype != kBF16 || M > 16 || splits > 8 || clusters < 1 ||
+          clusters > N / PW || (splits > 1 && k_per_split % gv::STEP) ||
+          part != nullptr || tile_rows != 0)
+        return cudaErrorInvalidValue;
+      return by_out(out_dtype, [&](auto o) {
+        using TO = decltype(o);
+        return M <= 8 ? gv::launch<8, TO>(x, w, scale, out, M, K, N, splits,
+                                          k_per_split, clusters, apply_scale, s)
+                      : gv::launch<16, TO>(x, w, scale, out, M, K, N, splits,
+                                           k_per_split, clusters, apply_scale,
+                                           s);
+      });
+    case kGemvF32:
+      if (x_dtype != kF32 || clusters != 0 || tile_rows != 0 ||
+          (splits > 1 && k_per_split % GV_KC) ||
+          (part != nullptr) != (splits > 1))
+        return cudaErrorInvalidValue;
+      return by_out(out_dtype, [&](auto o) {
+        return launch_gemv_f32<decltype(o)>(x, w, scale, out, part, M, K, N,
+                                            splits, k_per_split, apply_scale,
+                                            s);
+      });
+    case kTc:
+      if (x_dtype != kBF16 || splits != 1 || clusters != 0 ||
+          part != nullptr || (tile_rows != 128 && tile_rows != 256))
+        return cudaErrorInvalidValue;
+      return by_out(out_dtype, [&](auto o) {
+        using TO = decltype(o);
+        if (tile_rows == 256)
+          return tc::launch<2, TO>(x, w, scale, out, M, K, N, apply_scale, s);
+        return tc::launch<1, TO>(x, w, scale, out, M, K, N, apply_scale, s);
+      });
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The clusters of `cluster` (1-8) tensor-core GEMV blocks the current
+// device holds at once, into *fit. Returns the cudaError_t of the query.
+extern "C" int w8a16_gemv_capacity(int cluster, int* fit) {
+  if (cluster < 1 || cluster > 8 || fit == nullptr)
+    return cudaErrorInvalidValue;
+  return symtorch::gv::capacity(cluster, fit);
 }

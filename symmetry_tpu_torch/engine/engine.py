@@ -67,14 +67,11 @@ from symmetry_tpu_torch.models.llama import (
     pack_params,
     preset,
 )
-from symmetry_tpu_torch.ops import kernels
+from symmetry_tpu_torch.ops import kernels, prng
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
 from symmetry_tpu_torch.ops.sampling import sample_tokens
 from symmetry_tpu_torch.utils.logging import logger
 from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
-
-_SEED_MASK = 2**63 - 1
-
 
 class EngineError(RuntimeError):
     pass
@@ -83,17 +80,16 @@ class EngineError(RuntimeError):
 class DecodeState(NamedTuple):
     """Everything the decode step needs, all static-shape device tensors.
 
-    The JAX engine's per-slot PRNG keys become (seed, step): the sampler
-    hashes them into noise on the device (ops/sampling.py), and every
-    decode step advances `step`."""
+    Per-slot PRNG keys are threefry key data, as the JAX engine's
+    (ops/prng.py): every decode step splits a slot's key into its next key
+    and the key of that step's draw."""
 
     cache: KVCache             # [L, B, T, K, D] x2 + lengths [B]
     last_token: torch.Tensor   # [B] int64 — token to feed next step
     temperature: torch.Tensor  # [B] float32
     top_p: torch.Tensor        # [B] float32
     top_k: torch.Tensor        # [B] int64
-    seed: torch.Tensor         # [B] int64 — one noise stream PER SLOT
-    step: torch.Tensor         # [B] int64 — draws made on that stream
+    rng: torch.Tensor          # [B, 2] int64 — one key chain PER SLOT
 
 
 @dataclass(frozen=True)
@@ -103,9 +99,10 @@ class SamplingParams:
     top_k: int = 0
     seed: int | None = None
     # Stream resumption: how many tokens of this request's completion were
-    # already sampled before this admission. A SEEDED request starts its
-    # draw counter there, so the resumed continuation samples exactly the
-    # tokens the uninterrupted run would have. Ignored without a seed.
+    # already sampled before this admission. A SEEDED request's key chain
+    # is walked past that many draws, so the resumed continuation samples
+    # exactly the tokens the uninterrupted run would have. Ignored without
+    # a seed.
     rng_skip: int = 0
 
     @classmethod
@@ -126,9 +123,8 @@ class ChunkedPrefill:
 
     With `start_pos` > 0 the cache was SEEDED from a prefix-cache hit (its
     first start_pos positions already hold that prefix's KV) and `ids`
-    carries only the uncached suffix. The JAX package's (prefill key,
-    decode key) pair becomes the request's (seed, step): the first token
-    is drawn at `step`, decode continues at step + 1."""
+    carries only the uncached suffix. The prefill key draws the first
+    token; the decode key goes into the slot."""
 
     slot: int
     ids: np.ndarray           # [1, n_chunks * C] padded suffix tokens
@@ -138,8 +134,8 @@ class ChunkedPrefill:
     temp: torch.Tensor        # [1]
     top_p: torch.Tensor       # [1]
     top_k: torch.Tensor       # [1]
-    seed: torch.Tensor        # [1] the request's noise stream
-    step: torch.Tensor        # [1] draw index of the first-token sample
+    prefill_key: torch.Tensor  # [1, 2] draws the first token
+    decode_key: torch.Tensor   # [1, 2] the slot's key chain from there
     done_chunks: int = 0
     start_pos: int = 0        # tokens already in the cache at start
     full_ids: tuple[int, ...] = ()  # the whole prompt (prefix-store key)
@@ -272,10 +268,11 @@ class InferenceEngine:
                                     device=dev),
             top_p=torch.ones(max_slots, dtype=torch.float32, device=dev),
             top_k=torch.zeros(max_slots, dtype=torch.int64, device=dev),
-            seed=torch.zeros(max_slots, dtype=torch.int64, device=dev),
-            step=torch.zeros(max_slots, dtype=torch.int64, device=dev),
+            rng=prng.split(torch.tensor(prng.key_data(0), device=dev),
+                           max_slots),
         )
-        self._base_seed = int.from_bytes(os.urandom(8), "little") & _SEED_MASK
+        self._base_key = prng.key_data(
+            int.from_bytes(os.urandom(4), "little"))
         self._requests_served = 0
         # (batch, bucket) -> persistent prefill buffer; see
         # _prefill_scratch_for.
@@ -343,7 +340,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # Device primitives
 
-    def _prefill(self, tokens, true_len, temp, top_p, top_k, seed, step,
+    def _prefill(self, tokens, true_len, temp, top_p, top_k, keys,
                  scratch: KVCache):
         """tokens [N, Sb] padded; returns (first tokens [N], prefix KV).
 
@@ -357,16 +354,16 @@ class InferenceEngine:
         cache = scratch._replace(lengths=torch.zeros_like(scratch.lengths))
         h, cache = forward_hidden(self.params, self.config, tokens, cache,
                                   seq_lens=true_len, prefill_flash=True)
-        return self._sample_at(h, true_len - 1, temp, top_p, top_k, seed,
-                               step), cache
+        return self._sample_at(h, true_len - 1, temp, top_p, top_k,
+                               keys), cache
 
-    def _sample_at(self, h, last_idx, temp, top_p, top_k, seed, step):
+    def _sample_at(self, h, last_idx, temp, top_p, top_k, keys):
         """Project ONLY position last_idx[n] of each row through the LM head
         and sample the first tokens [N]."""
         rows = torch.arange(h.shape[0], device=self.device)
         h_last = h[rows, last_idx.long()][:, None]               # [N, 1, E]
         last = logits_from_hidden(self.params, self.config, h_last)[:, 0]
-        return sample_tokens(last, seed, step, temp, top_p, top_k)
+        return sample_tokens(last, keys, temp, top_p, top_k)
 
     def _chunk_step(self, tokens, cache: KVCache, seq_len) -> KVCache:
         """Extend a prefix cache by one prompt chunk through the
@@ -378,16 +375,16 @@ class InferenceEngine:
         return cache
 
     def _chunk_final(self, tokens, cache: KVCache, seq_len, last_idx, temp,
-                     top_p, top_k, seed, step):
+                     top_p, top_k, keys):
         """Last chunk (or a cached hit's suffix): also sample the first
         token at last_idx, as `_prefill` does."""
         h, cache = forward_hidden(self.params, self.config, tokens, cache,
                                   seq_lens=seq_len)
-        return self._sample_at(h, last_idx, temp, top_p, top_k, seed,
-                               step), cache
+        return self._sample_at(h, last_idx, temp, top_p, top_k,
+                               keys), cache
 
     def _insert_all(self, prefix: KVCache, slots, true_len, first_token,
-                    temp, top_p, top_k, seed, step) -> None:
+                    temp, top_p, top_k, decode_keys) -> None:
         """Install EVERY row of a coalesced prefill in place. Pad rows carry
         the last real request's slot and identical data: re-writing it is
         idempotent."""
@@ -405,8 +402,7 @@ class InferenceEngine:
         st.temperature[slots] = temp
         st.top_p[slots] = top_p
         st.top_k[slots] = top_k
-        st.seed[slots] = seed
-        st.step[slots] = step
+        st.rng[slots] = decode_keys
 
     # Block pool moves (the radix prefix cache's device side).
 
@@ -478,10 +474,12 @@ class InferenceEngine:
         h, cache = forward_hidden(self.params, self.config,
                                   st.last_token[:, None], st.cache)
         logits = logits_from_hidden(self.params, self.config, h)[:, 0]
-        toks = sample_tokens(logits, st.seed, st.step, st.temperature,
+        # Each slot's key splits into its next key and this step's draw.
+        keys = prng.split(st.rng)
+        toks = sample_tokens(logits, keys[:, 1], st.temperature,
                              st.top_p, st.top_k)
         self.state = st._replace(cache=cache, last_token=toks,
-                                 step=st.step + 1)
+                                 rng=keys[:, 0])
         return toks
 
     # ------------------------------------------------------------------
@@ -509,18 +507,24 @@ class InferenceEngine:
                      if b * bucket <= budget
                      and (b == 1 or b <= self.max_slots))
 
-    def _request_seed(self, sampling: SamplingParams) -> tuple[int, int]:
-        """(seed, first step) for one request: seeded requests reproduce
-        their whole completion, and `rng_skip` starts a seeded resume at
-        the draw its interrupted run had reached; unseeded ones get
-        per-request entropy."""
+    def _request_keys(self, sampling: SamplingParams) -> tuple:
+        """(prefill key, decode key) for one request, as the JAX engine
+        derives them: a seeded request splits `key(seed)`, an unseeded one
+        `fold_in(base key, requests served)`. `rng_skip` walks a seeded
+        request's chain past the draws its interrupted run already made:
+        the uninterrupted run samples token 1 with the prefill key and
+        token i + 1 with the i-th decode split, so a resume after N tokens
+        takes the N-th step key and the N-th carry (the JAX engine's
+        `rng_resume`)."""
+        skip = max(0, int(sampling.rng_skip or 0))
         if sampling.seed is not None:
-            return (int(sampling.seed) & _SEED_MASK,
-                    max(0, int(sampling.rng_skip or 0)))
+            pk, dk = prng.split_key(prng.key_data(sampling.seed))
+            for _ in range(skip):
+                dk, pk = prng.split_key(dk)
+            return pk, dk
         self._requests_served += 1
-        return ((self._base_seed
-                 + self._requests_served * 0x9E3779B97F4A7C15) & _SEED_MASK,
-                0)
+        return tuple(prng.split_key(
+            prng.fold_in_key(self._base_key, self._requests_served)))
 
     def prefill_and_insert(self, slot: int, prompt_ids: list[int],
                            sampling: SamplingParams) -> int:
@@ -555,7 +559,7 @@ class InferenceEngine:
         slots = np.zeros((batch,), np.int64)
         for i in range(batch):
             # Pad rows replay the last request BIT-IDENTICALLY (same prompt,
-            # slot, seed and step; _sampling_rows): every row is inserted,
+            # slot and keys; _sampling_rows): every row is inserted,
             # and anything short of an identical overwrite would corrupt
             # the last real slot's state.
             slot, ids, _ = assignments[min(i, n_req - 1)]
@@ -564,12 +568,13 @@ class InferenceEngine:
             lens[i] = len(ids)
 
         lens_t = self._dev(lens)
-        toks, prefix = self._prefill(self._dev(padded), lens_t, *rows,
+        toks, prefix = self._prefill(self._dev(padded), lens_t, *rows[:4],
                                      self._prefill_scratch_for(batch,
                                                                bucket))
-        # The prefill drew with `step`; decode continues at step + 1.
-        self._insert_all(prefix, self._dev(slots), lens_t, toks, *rows[:4],
-                         rows[4] + 1)
+        # The prefill drew with the prefill keys; the slots carry on with
+        # the decode keys.
+        self._insert_all(prefix, self._dev(slots), lens_t, toks, *rows[:3],
+                         rows[4])
         # Populate the prefix cache from this batch before the buffer goes
         # back to the pool (the next same-shape prefill overwrites it).
         if self.prefix_index is not None:
@@ -583,27 +588,28 @@ class InferenceEngine:
         return torch.from_numpy(a).to(self.device)
 
     def _sampling_rows(self, assignments, batch: int) -> tuple:
-        """(temperature, top_p, top_k, seed, step) device tensors [batch]
-        for a dispatch: one seed derivation per real request (shared by
-        every admission path, so a seeded request samples identically
-        however it was admitted), pad rows copying the last request."""
+        """(temperature, top_p, top_k, prefill keys, decode keys) device
+        tensors ([batch], keys [batch, 2]) for a dispatch: one key
+        derivation per real request (shared by every admission path, so a
+        seeded request samples identically however it was admitted), pad
+        rows copying the last request."""
         n_req = len(assignments)
         temps = np.zeros((batch,), np.float32)
         top_ps = np.ones((batch,), np.float32)
         top_ks = np.zeros((batch,), np.int64)
-        seeds = np.zeros((batch,), np.int64)
-        steps = np.zeros((batch,), np.int64)
+        pkeys = np.zeros((batch, 2), np.int64)
+        dkeys = np.zeros((batch, 2), np.int64)
         for i in range(batch):
             sampling = assignments[min(i, n_req - 1)][2]
             temps[i] = sampling.temperature
             top_ps[i] = sampling.top_p
             top_ks[i] = sampling.top_k
             if i >= n_req:
-                seeds[i], steps[i] = seeds[n_req - 1], steps[n_req - 1]
+                pkeys[i], dkeys[i] = pkeys[n_req - 1], dkeys[n_req - 1]
             else:
-                seeds[i], steps[i] = self._request_seed(sampling)
-        return tuple(self._dev(a) for a in (temps, top_ps, top_ks, seeds,
-                                            steps))
+                pkeys[i], dkeys[i] = self._request_keys(sampling)
+        return tuple(self._dev(a) for a in (temps, top_ps, top_ks, pkeys,
+                                            dkeys))
 
     # ------------------------------------------------------------------
     # Shared-prefix KV cache (engine side; bookkeeping in prefix_cache.py)
@@ -687,9 +693,9 @@ class InferenceEngine:
             hit.release()
             sfx_t = self._dev(sfx_lens)
             toks, prefix = self._chunk_final(self._dev(suffix), scratch,
-                                             sfx_t, sfx_t - 1, *rows)
+                                             sfx_t, sfx_t - 1, *rows[:4])
             self._insert_all(prefix, self._dev(slots), self._dev(full_lens),
-                             toks, *rows[:4], rows[4] + 1)
+                             toks, *rows[:3], rows[4])
             # The rows hold prefix + suffix KV: extend the tree with the new
             # tail blocks before the buffer goes back to the scratch pool,
             # so the next turn of a session hits at its full history.
@@ -791,7 +797,7 @@ class InferenceEngine:
             n_chunks = -(-sfx_len // C)
             padded = np.zeros((1, n_chunks * C), np.int64)
             padded[0, :sfx_len] = prompt_ids[start:]
-            temp, top_p, top_k, seed, step = self._sampling_rows(
+            temp, top_p, top_k, pkey, dkey = self._sampling_rows(
                 [(slot, prompt_ids, sampling)], 1)
 
             cache = self._new_prefix_cache(bucket)
@@ -805,7 +811,7 @@ class InferenceEngine:
             return ChunkedPrefill(
                 slot=slot, ids=padded, true_len=true_len, n_chunks=n_chunks,
                 cache=cache, temp=temp, top_p=top_p, top_k=top_k,
-                seed=seed, step=step, start_pos=start,
+                prefill_key=pkey, decode_key=dkey, start_pos=start,
                 full_ids=tuple(prompt_ids))
         finally:
             if hit is not None:
@@ -829,15 +835,15 @@ class InferenceEngine:
                                 device=self.device)
         toks, cache = self._chunk_final(chunk, job.cache, valid, last_idx,
                                         job.temp, job.top_p, job.top_k,
-                                        job.seed, job.step)
+                                        job.prefill_key)
         job.done_chunks += 1
         job.cache = None
         self._insert_all(cache,
                          torch.tensor([job.slot], device=self.device),
                          torch.tensor([job.true_len], dtype=torch.int32,
                                       device=self.device),
-                         toks, job.temp, job.top_p, job.top_k, job.seed,
-                         job.step + 1)
+                         toks, job.temp, job.top_p, job.top_k,
+                         job.decode_key)
         # The finished buffer holds the FULL prompt's KV: scatter its
         # unresident whole blocks into the pool before it is dropped
         # (blocks the tree already holds, e.g. a seeded job's prefix, stay
@@ -914,10 +920,11 @@ class InferenceEngine:
         def full(n, value, dtype):
             return torch.full((n,), value, dtype=dtype, device=self.device)
 
-        def rows(n):  # temperature, top_p, top_k, seed, step
+        def rows(n):  # temperature, top_p, top_k, keys
             return (full(n, 0.0, torch.float32), full(n, 1.0, torch.float32),
-                    full(n, 0, torch.int64), full(n, 0, torch.int64),
-                    full(n, 0, torch.int64))
+                    full(n, 0, torch.int64),
+                    torch.zeros((n, 2), dtype=torch.int64,
+                                device=self.device))
 
         def zeros(n, width):
             return torch.zeros((n, width), dtype=torch.int64,

@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from symmetry_tpu_torch.ops.attention import gqa_attention
+from symmetry_tpu_torch.ops import decode_attention as decode_ops
+from symmetry_tpu_torch.ops import flash as flash_ops
 from symmetry_tpu_torch.ops.decode_attention import decode_attention
 from symmetry_tpu_torch.ops.flash import flash_prefill
 from symmetry_tpu_torch.ops.kv_append import kv_append
@@ -487,6 +489,9 @@ def forward_hidden(
         raise ValueError(f"params carry {n_stacked} stacked layers but "
                          f"config.num_layers = {config.num_layers}")
     h = params["embed"][tokens.long()]
+    if h.device.type == "cuda":
+        check_attention_kernels(config, h.dtype, flash=use_flash,
+                                decode=S == 1)
     if config.scale_embed:
         # gemma: embeddings scaled by sqrt(hidden) at lookup, normalizer
         # cast to the activation dtype (HF modeling_gemma semantics)
@@ -496,6 +501,24 @@ def forward_hidden(
     h = rms_norm(h, norm_weight(params["final_norm"], config.norm_plus_one),
                  config.rms_eps)
     return h, cache._replace(lengths=kv_valid)
+
+
+def check_attention_kernels(config: ModelConfig, dtype: torch.dtype,
+                            *, flash: bool, decode: bool) -> None:
+    """On the card, every prefill from empty runs the flash kernel and
+    every single-position step the decode kernel, with no plain path:
+    refuse, before any layer runs, a head dim or group the kernels' gates
+    (`flash.kernel_supports`, `decode_attention.kernel_supports`) refuse."""
+    D = config.dim_per_head
+    if flash and not flash_ops.kernel_supports(dtype, D):
+        raise ValueError(f"flash.kernel_supports({dtype}, {D}) is false: "
+                         f"the flash kernels take float32 or bf16 at a "
+                         f"head_dim that is a multiple of 8 from 16 to 256")
+    group = config.num_heads // config.num_kv_heads
+    if decode and not decode_ops.kernel_supports(D, group):
+        raise ValueError(f"decode_attention.kernel_supports({D}, {group}) is "
+                         f"false: the decode kernels take a head_dim that "
+                         f"is a multiple of 8 from 16 to 256")
 
 
 def logits_from_hidden(params: dict, config: ModelConfig,

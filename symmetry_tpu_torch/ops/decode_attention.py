@@ -8,6 +8,10 @@ csrc/decode_attention.cu; on a CPU tensor it runs
 `decode_attention_reference`, which is `gqa_attention` at S = 1 on the layer
 slice. There is no fallback from a CUDA tensor to the plain version.
 
+Any head dim that is a multiple of 8 from 16 to 256 runs (`kernel_supports`):
+one between the built sizes (`HEAD_DIMS`) runs at the next, with the
+copies past it zero-filled and only its columns stored.
+
 The full cache is the kernel's operand and `layer` selects its slice by
 pointer offset, never by a copied slice. Each call launches two kernels:
 the split kernel runs one thread block per (KV head x chunk of up to 8 of
@@ -39,8 +43,11 @@ SPAN = 256
 
 def kernel_supports(head_dim: int, group: int) -> bool:
     """True when the CUDA kernels take this head dim and query-heads-per-KV-
-    head group: any group of at least one head (`group_tile`)."""
-    return head_dim in HEAD_DIMS and group >= 1
+    head group: a head dim that is a multiple of 8 from 16 to 256 (run at
+    the next of HEAD_DIMS), and any group of at least one head
+    (`group_tile`)."""
+    return (16 <= head_dim <= HEAD_DIMS[-1] and head_dim % 8 == 0
+            and group >= 1)
 
 
 def split_plan(capacity: int) -> list[tuple[int, int]]:
@@ -130,8 +137,10 @@ def decode_attention(
     if kv_length.dtype != torch.int32:
         raise TypeError("decode_attention: kv_length must be int32")
     if not kernel_supports(D, nq // K):
-        raise ValueError(f"decode_attention: head_dim {D} not in "
-                         f"{HEAD_DIMS}")
+        raise ValueError(f"decode_attention: decode_attention."
+                         f"kernel_supports({D}, {nq // K}) is false: the "
+                         f"kernels take a head_dim that is a multiple of 8 "
+                         f"from 16 to {HEAD_DIMS[-1]}")
     code = kernels.dtype_code(q.dtype)
     out = torch.empty((B, nq, D), dtype=q.dtype, device=q.device)
     n_spans = len(split_plan(T))

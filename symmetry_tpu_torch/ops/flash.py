@@ -3,10 +3,14 @@
 Port of symmetry_tpu/ops/flash.py (`flash_prefill`, Pallas `_flash_kernel`).
 On a CUDA tensor, `flash_prefill` launches one of two hand-written Hopper
 kernels in csrc/flash_prefill.cu, chosen by `flash_variant` from (dtype,
-head_dim): bf16 at head_dim 64, 128 or 256 takes the tensor-core kernel
-(wgmma, P rounded to bf16 before the P V product as the JAX kernel rounds
-it), everything else the float32 FMA kernel (float32 inputs must not pass
-through the tensor cores' reduced precision). On a CPU tensor it runs
+head_dim): bf16 wider than 32 takes the tensor-core kernel (wgmma, P
+rounded to bf16 before the P V product as the JAX kernel rounds it),
+everything else the float32 FMA kernel (float32 inputs must not pass
+through the tensor cores' reduced precision). Both serve every head dim
+the JAX kernel serves on the card's terms (`kernel_supports`: a multiple
+of 8 from 16 to 256): a head dim between the built sizes runs at the next
+one (`padded_head_dim`) with the columns past it zero, the softmax scale
+from the real head dim, and only its columns stored. On a CPU tensor it runs
 `flash_prefill_reference`, a masked float32 softmax over materialized
 scores. Nothing else is accepted: there is no fallback from a CUDA tensor to
 the plain version or from one variant to the other.
@@ -30,14 +34,30 @@ from symmetry_tpu_torch.ops.attention import NEG_INF
 # min(BLOCK, S). The CUDA kernels tile 64 (FMA) or 128 (tensor-core) query
 # rows and mask the ragged edge.
 BLOCK = 128
+# Head dims the kernels are built for; any multiple of 8 between runs at
+# the next of them.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)
 
 
+def kernel_supports(dtype: torch.dtype, head_dim: int) -> bool:
+    """True when a CUDA kernel takes (dtype, head_dim): float32 or bf16,
+    and a head dim that is a multiple of 8 from 16 to 256. The one gate of
+    the wrapper and of models/llama.py."""
+    return (dtype in (torch.float32, torch.bfloat16)
+            and 16 <= head_dim <= HEAD_DIMS[-1] and head_dim % 8 == 0)
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The built head dim a kernel runs `head_dim` at: the next of
+    HEAD_DIMS."""
+    return next(d for d in HEAD_DIMS if d >= head_dim)
+
+
 def flash_variant(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that serves (dtype, head_dim): "tensor_core" for
-    bf16 at head_dim 64, 128 or 256, else "fma"."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
+    bf16 whose padded head dim is 64, 128 or 256, else "fma"."""
+    if dtype == torch.bfloat16 and padded_head_dim(head_dim) in TC_HEAD_DIMS:
         return "tensor_core"
     return "fma"
 
@@ -87,8 +107,11 @@ def flash_prefill(
         raise TypeError("flash_prefill: q, k and v must share one dtype")
     if seq_lens.dtype != torch.int32 or not seq_lens.is_contiguous():
         raise TypeError("flash_prefill: seq_lens must be contiguous int32")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_prefill: head_dim {D} not in {HEAD_DIMS}")
+    if not kernel_supports(q.dtype, D):
+        raise ValueError(f"flash_prefill: flash.kernel_supports({q.dtype}, "
+                         f"{D}) is false: the kernels take float32 or bf16 "
+                         f"at a head_dim that is a multiple of 8 from 16 "
+                         f"to {HEAD_DIMS[-1]}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_prefill: {name}'s head_dim must be "

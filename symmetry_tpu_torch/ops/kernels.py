@@ -56,10 +56,12 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
                              _I, _I, _P],
     }),
     "w8a16": ("w8a16.cu", {
-        # x_dtype, out_dtype, x, w, scale, out, part, M, K, N, splits,
-        # k_per_split, apply_scale, tile_rows, stream
-        "w8a16_launch": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _I, _P],
+        # regime, x_dtype, out_dtype, x, w, scale, out, part, M, K, N,
+        # splits, k_per_split, clusters, apply_scale, tile_rows, stream
+        "w8a16_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
+        # cluster, int* fit
+        "w8a16_gemv_capacity": [_I, _P],
     }),
     "w8a8": ("w8a8.cu", {
         # out_dtype, xq, w, xs, ws, out, part, M, K, N, splits,

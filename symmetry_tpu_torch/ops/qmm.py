@@ -13,13 +13,25 @@ PackedQuantizedTensor. Numerics are the mixed dot's: float32 products and
 sums, the per-output-channel scale applied after the K sum (off with
 apply_scale=False, which returns the raw sums), cast to out_dtype (default
 the activation's). Kernel regimes (csrc/w8a16.cu, chosen by
-`w8a16_regime`): up to GEMV_ROWS rows, and every float32 activation, take
-the bytes-bound GEMV kernel, split over K when the output has too few
-panels to fill the card; more bf16 rows take the tensor-core kernel (x by
-TMA, the int8 weight by bulk copies into a ring, converted to bf16 inside
-the pipeline, wgmma products, a persistent grid over the output tiles
-`tc_tile_rows` sizes and `tiles` orders). Launches are counted per regime
-(`w8a16_matmul.launches_gemv`, `.launches_tc`; `.launches` is their sum).
+`w8a16_regime`):
+  - "gemv": up to GEMV_ROWS bf16 rows (decode), bytes bound. The panels'
+    columns are the 64-row side of swap-AB wgmma products, x's rows the
+    narrow side, so one read of the weight serves every row; each 64-deep
+    step's weight and x tile stream through a bulk-copied ring, the weight
+    is converted to bf16 in the pipeline, and a panel's K splits run on one
+    thread-block cluster whose blocks sum their partials through
+    distributed shared memory in a fixed order (`gemv_plan` deals the
+    (panel, K split) items);
+  - "gemv_f32": float32 activations at any row count, on CUDA-core FMAs
+    (exact enough that float32 serving reproduces the CPU's greedy
+    tokens), split over K by `gemv_splits` with a second kernel summing
+    the splits;
+  - "tc": more bf16 rows (prefill), operations bound: x by TMA, the int8
+    weight by bulk copies into a ring, converted to bf16 inside the
+    pipeline, wgmma products, a persistent grid over the output tiles
+    `tc_tile_rows` sizes and `tiles` orders.
+Launches are counted per kernel family (`w8a16_matmul.launches_gemv` for
+both GEMV regimes, `.launches_tc`; `.launches` is their sum).
 
 W8A8 (`w8a8_matmul`, Pallas `_kernel`): the activation is quantized per row
 to int8 (`quantize_rows`, plain torch, as the JAX package computes it in
@@ -34,7 +46,8 @@ second kernel that applies the scales.
 
 from __future__ import annotations
 
-from typing import Iterator
+import ctypes
+from typing import Iterator, NamedTuple
 
 import torch
 
@@ -45,8 +58,13 @@ PANEL = 64          # output columns per packed panel
 K_GRAIN = 32        # K comes in whole 32-row steps (a GEMV block's rows per
                     # step; the tensor-core kernel zero-fills a half step)
 GEMV_ROWS = 16      # bf16 rows up to which the GEMV kernel runs
-_GEMV_ROW_TILE = 8  # x rows per GEMV block
-_GEMV_K_CHUNK = 256  # K rows a GEMV block stages at a time
+GEMV_STEP = 64      # K rows a tensor-core GEMV step: 4,096 bytes of a panel
+GEMV_CLUSTERS = (1, 2, 4, 8)  # K splits of a panel: its cluster's blocks
+# What an item costs beyond its steps, in steps: the hand-off of its sums
+# and the pipeline's turn between panels.
+_GEMV_ITEM_OVERHEAD = 3
+_GEMV_ROW_TILE = 8  # x rows per float32 GEMV block
+_GEMV_K_CHUNK = 256  # K rows a float32 GEMV block stages at a time
 _TARGET_BLOCKS = 264  # two blocks per SM of an H100
 TILE_COLS = 128     # output columns of a tensor-core tile (a panel pair)
 TILE_ROWS = (256, 128)  # tile heights both tensor-core kernels are built for
@@ -60,22 +78,105 @@ _TILE_OVERHEAD_ROWS = 192
 
 
 def kernel_supports(k: int, n: int) -> bool:
-    """True when the kernel takes a [k, n] weight: whole panels of 64
-    output columns and a contraction in whole 32-row steps. Every preset's
-    projection and LM head passes; leaves that do not stay flat on the
-    mixed dot (pack_tree reports them)."""
+    """True when the kernels take a [k, n] weight: whole panels of 64
+    output columns and a contraction in whole 32-row steps, of any length.
+    Every preset's projection and LM head passes; leaves that do not stay
+    flat on the mixed dot (pack_tree reports them)."""
     return k > 0 and n > 0 and k % K_GRAIN == 0 and n % PANEL == 0
 
 
+_REGIME_CODE = {"gemv": 0, "gemv_f32": 1, "tc": 2}  # csrc/w8a16.cu Regime
+
+
 def w8a16_regime(m: int, dtype: torch.dtype) -> str:
-    """Which W8A16 kernel takes m rows of `dtype`: "gemv" (bytes bound: up
-    to GEMV_ROWS rows, and every float32 activation) or "tc" (operations
-    bound: more bf16 rows, on the tensor cores)."""
-    return "gemv" if dtype == torch.float32 or m <= GEMV_ROWS else "tc"
+    """Which W8A16 kernel takes m rows of `dtype`: "gemv" (bf16 up to
+    GEMV_ROWS rows: bytes bound, swap-AB on the tensor cores), "gemv_f32"
+    (every float32 activation, on CUDA-core FMAs) or "tc" (more bf16 rows:
+    operations bound, on the tensor cores)."""
+    if dtype == torch.float32:
+        return "gemv_f32"
+    return "gemv" if m <= GEMV_ROWS else "tc"
+
+
+_gemv_capacity: dict[int, dict[int, int]] = {}
+
+
+def gemv_capacity(device: torch.device) -> dict[int, int]:
+    """{cluster size: clusters of it the card holds at once} for the
+    tensor-core GEMV, from the kernel's occupancy on `device` (how a card's
+    SMs fall into GPCs varies from card to card). Asked once a device;
+    a host query, no device synchronization."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _gemv_capacity:
+        lib = kernels.library("w8a16")
+        table = {}
+        with torch.cuda.device(index):
+            for c in GEMV_CLUSTERS:
+                fit = ctypes.c_int(0)
+                kernels.check(lib.w8a16_gemv_capacity(c, ctypes.byref(fit)),
+                              "w8a16_gemv_capacity")
+                table[c] = fit.value
+        _gemv_capacity[index] = table
+    return _gemv_capacity[index]
+
+
+class GemvPlan(NamedTuple):
+    """A tensor-core GEMV launch: x rows padded to `rows` (wgmma's N, 8 or
+    16); K cut into `cluster` splits of `k_per_split` rows, the blocks of
+    one cluster; `clusters` clusters, cluster c taking panels c, c +
+    clusters, ..."""
+    rows: int
+    cluster: int
+    k_per_split: int
+    clusters: int
+
+
+def gemv_plan(m: int, k: int, n: int,
+              capacity: dict[int, int]) -> GemvPlan:
+    """The tensor-core GEMV's work deal for [m <= 16, k] x [k, n], on a card
+    that holds `capacity[c]` clusters of c blocks at once (`gemv_capacity`).
+    Plain Python on the shapes (no tensor value), and the launch's only
+    deal: the kernel runs `clusters` clusters of `cluster` blocks as given,
+    never more than are resident at once. Items are (panel, K split), all
+    of one size; for each cluster size (= splits) that cuts K into that
+    many non-empty splits, a block's time is its item count (the panels of
+    its cluster) times an item's steps plus a fixed hand-off; the least
+    wins, the smaller cluster on a tie. So on a card that holds 16
+    eight-block clusters `wk` (16 panels) splits 8 ways, and `lm_head`
+    (2,004 panels) is not split."""
+    rows = 8 if m <= 8 else 16
+    panels = n // PANEL
+    steps = -(-k // GEMV_STEP)
+    best = None
+    for c in GEMV_CLUSTERS:  # c = 1 qualifies on any card
+        per = -(-steps // c)
+        if -(-steps // per) != c or capacity.get(c, 0) < 1:
+            continue  # fewer splits than blocks, or no such cluster fits
+        clusters = min(panels, capacity[c])
+        cost = -(-panels // clusters) * (per + _GEMV_ITEM_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, GemvPlan(rows, c, per * GEMV_STEP, clusters))
+    return best[1]
+
+
+def gemv_items(plan: GemvPlan, k: int, n: int
+               ) -> Iterator[tuple[int, int, int, int]]:
+    """The items of a GEMV launch in the kernel's deal: (block, panel,
+    first K row, end K row). Block b is rank b % cluster (split b %
+    cluster) of cluster b // cluster, which takes panels cluster_id,
+    cluster_id + clusters, ..."""
+    for cl in range(plan.clusters):
+        for r in range(plan.cluster):
+            k0 = r * plan.k_per_split
+            k1 = min(k, k0 + plan.k_per_split)
+            for p in range(cl, n // PANEL, plan.clusters):
+                yield cl * plan.cluster + r, p, k0, k1
 
 
 def gemv_splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, rows per split) of the K dimension for the GEMV kernel:
+    """(splits, rows per split) of the K dimension for the float32 GEMV
+    kernel:
     enough splits that about _TARGET_BLOCKS blocks run, each split a whole
     number of staged chunks."""
     blocks = (n // PANEL) * -(-m // _GEMV_ROW_TILE)
@@ -171,9 +272,13 @@ def w8a16_matmul(
     out_code = kernels.dtype_code(out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     regime = w8a16_regime(M, x.dtype)
-    splits, per, tile_rows = 1, K, 0
+    # each kernel's own arguments; csrc/w8a16.cu refuses any other
+    splits, per, clusters, tile_rows = 1, K, 0, 0
     part = None
     if regime == "gemv":
+        plan = gemv_plan(M, K, N, gemv_capacity(x.device))
+        splits, per, clusters = plan.cluster, plan.k_per_split, plan.clusters
+    elif regime == "gemv_f32":
         splits, per = gemv_splits(M, K, N)
         if splits > 1:
             part = torch.empty((splits, M, N), dtype=torch.float32,
@@ -182,14 +287,14 @@ def w8a16_matmul(
         tile_rows = tc_tile_rows(M, N)
     lib = kernels.library("w8a16")
     rc = lib.w8a16_launch(
-        x_code, out_code, x.data_ptr(), w_packed.data_ptr(),
-        w_scale.data_ptr(), out.data_ptr(),
+        _REGIME_CODE[regime], x_code, out_code, x.data_ptr(),
+        w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
         part.data_ptr() if part is not None else None, M, K, N, splits, per,
-        int(apply_scale), tile_rows,
+        clusters, int(apply_scale), tile_rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "w8a16_matmul")
     w8a16_matmul.launches += 1
-    if regime == "gemv":
+    if regime != "tc":
         w8a16_matmul.launches_gemv += 1
     else:
         w8a16_matmul.launches_tc += 1

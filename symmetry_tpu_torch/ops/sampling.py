@@ -7,46 +7,21 @@ SAMPLING_TOP_CAP logits, with the same keep masks as the JAX package:
 greedy and any top_k <= cap are exact; top-p loses only the mass beyond the
 cap.
 
-Noise: each slot carries a 64-bit seed and a step counter. A counter-based
-hash of (seed, step, lane) on the device gives the Gumbel noise of a
-categorical draw, so a seeded request reproduces its completion and one
-slot's draws never depend on another's traffic, with no generator object
-per slot. The bits differ from jax.random's threefry: seeded sampling is
-reproducible within this package, not bit-equal to the JAX engine's.
+Noise: each row draws with its own threefry key (ops/prng.py), as the JAX
+package's per-slot `jax.random.categorical`: the [B, cap] Gumbel noise of a
+whole batch comes from one vectorized pass on the device, a seeded request
+samples the JAX engine's tokens, and one slot's draws never depend on
+another's traffic.
 """
 
 from __future__ import annotations
 
 import torch
 
+from symmetry_tpu_torch.ops import prng
 from symmetry_tpu_torch.ops.attention import NEG_INF
 
 SAMPLING_TOP_CAP = 64
-
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (xorshift-multiply) on int64 lanes holding
-    values below 2**32. Products wrap in int64; the mask keeps the low 32
-    bits, which the wrap leaves exact, so CPU and CUDA agree bit for bit."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _M32
-    return x ^ (x >> 16)
-
-
-def uniform_noise(seed: torch.Tensor, step: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """[B, n] float32 uniforms in (0, 1) from per-row (seed, step) int64."""
-    lo, hi = seed & _M32, (seed >> 32) & _M32
-    h = _mix32(lo ^ 0x9E3779B9)
-    h = _mix32(h ^ hi)
-    h = _mix32(h ^ (step & _M32))
-    lane = torch.arange(n, dtype=torch.int64, device=seed.device)
-    h = _mix32(h[:, None] ^ lane[None, :])
-    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / 2**24)
 
 
 def masked_top_logits(
@@ -81,8 +56,7 @@ def masked_top_logits(
 
 def sample_tokens(
     logits: torch.Tensor,       # [B, V] float
-    seed: torch.Tensor,         # [B] int64 per-slot seeds
-    step: torch.Tensor,         # [B] int64 per-slot draw counters
+    keys: torch.Tensor,         # [B, 2] int64 per-row threefry key data
     temperature: torch.Tensor,  # [B] float; 0 => greedy
     top_p: torch.Tensor,        # [B] float in (0, 1]; 1 => disabled
     top_k: torch.Tensor,        # [B] int; 0 => disabled
@@ -90,13 +64,12 @@ def sample_tokens(
 ) -> torch.Tensor:
     """Returns sampled token ids [B] int64.
 
-    A categorical draw is the argmax of masked logits plus Gumbel noise.
-    Greedy rows keep only rank 0 unmasked, and bounded noise cannot lift a
-    NEG_INF lane over it, so greedy is the exact argmax."""
+    A categorical draw over the top-cap window (prng.categorical: the
+    argmax of masked logits plus Gumbel noise). Greedy rows keep only rank
+    0 unmasked, and bounded noise cannot lift a NEG_INF lane over it, so
+    greedy is the exact argmax."""
     cap = min(cap, logits.shape[-1])
     masked, top_idx = masked_top_logits(logits.to(torch.float32),
                                         temperature, top_p, top_k, cap)
-    u = uniform_noise(seed, step, cap)
-    gumbel = -torch.log(-torch.log(u))
-    choice = torch.argmax(masked + gumbel, dim=-1)
+    choice = prng.categorical(keys, masked)
     return torch.gather(top_idx, 1, choice[:, None])[:, 0]

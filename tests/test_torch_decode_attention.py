@@ -230,9 +230,15 @@ class TestKernelGate:
     def test_any_group_size(self, group):
         assert kernel_supports(128, group)
 
-    def test_head_dims(self):
-        assert not kernel_supports(96, 4) and not kernel_supports(512, 1)
-        assert not kernel_supports(128, 0)
+    @pytest.mark.parametrize("head_dim", [16, 24, 40, 80, 96, 112, 136,
+                                          192, 256])
+    def test_head_dims(self, head_dim):
+        """Every multiple of 8 from 16 to 256 runs (at the next built size
+        on the card), as the JAX engine serves any head dim; wider, ragged
+        or empty groups do not."""
+        assert kernel_supports(head_dim, 4)
+        assert not kernel_supports(512, 1) and not kernel_supports(100, 1)
+        assert not kernel_supports(8, 1) and not kernel_supports(128, 0)
 
 
 class TestSplitPlan:

@@ -11,6 +11,7 @@ it leaves flat, seeded sampling reproduces, and the package (the int8
 modules included) imports nothing of JAX.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -117,6 +118,29 @@ class TestSchedulerParity:
         for ids, reason in got:
             assert reason in ("length", "stop")
             assert len(ids) >= 1
+
+    def test_head_dim_96_greedy_identical_to_jax(self):
+        """A head dim between the kernels' built sizes (96: HF configs
+        carry 80, 96, 112 and 192) serves, and its greedy tokens equal the
+        JAX engine's: the gates pass it (`flash.kernel_supports`,
+        `decode_attention.kernel_supports`), so the card runs it too."""
+        jcfg = dataclasses.replace(jax_preset("tiny"), head_dim=96)
+        cfg = dataclasses.replace(preset("tiny"), head_dim=96)
+        tree = jax.tree.map(np.asarray, jax_init_params(
+            jcfg, jax.random.key(3), jnp.float32))
+        jengine = JaxEngine(jcfg, jax.tree.map(jnp.asarray, tree),
+                            JaxIdTokenizer(512), max_slots=2, max_seq_len=64,
+                            prefill_buckets=(16, 32), cache_dtype=jnp.float32,
+                            decode_block=1, prefill_chunk=None)
+        want = serve(JaxScheduler(jengine, debug_invariants=True), JaxRequest,
+                     JaxSampling, PROMPTS, MAX_NEW)
+        engine = InferenceEngine(cfg, params_from_numpy(tree, device="cpu"),
+                                 IdTokenizer(512), max_slots=2,
+                                 max_seq_len=64, prefill_buckets=(16, 32),
+                                 cache_dtype=torch.float32, device="cpu")
+        got = serve(Scheduler(engine, debug_invariants=True), GenRequest,
+                    SamplingParams, PROMPTS, MAX_NEW)
+        assert got == want
 
     def test_engine_matches_own_forward_loop(self, weights):
         """Slot batching is invisible: engine greedy == a plain loop."""

@@ -31,7 +31,13 @@ from symmetry_tpu_torch.models.llama import (
     init_cache,
     preset,
 )
-from symmetry_tpu_torch.ops.flash import HEAD_DIMS, flash_prefill, flash_variant
+from symmetry_tpu_torch.ops.flash import (
+    HEAD_DIMS,
+    flash_prefill,
+    flash_variant,
+    kernel_supports,
+    padded_head_dim,
+)
 
 ATOL = 2e-5
 
@@ -140,6 +146,31 @@ class TestFlashVariant:
         """llama3.2-1b (64), the 8b-class models (128) and gemma (256)."""
         dims = {PRESETS[n].dim_per_head for n in self.PRODUCTION}
         assert dims == {64, 128, 256}
+
+    @pytest.mark.parametrize("name", sorted(PRESETS))
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_every_preset_passes_the_gate(self, name, dtype):
+        assert kernel_supports(dtype, PRESETS[name].dim_per_head)
+
+    @pytest.mark.parametrize("head_dim,padded,bf16_variant", [
+        (24, 32, "fma"), (40, 64, "tensor_core"), (80, 128, "tensor_core"),
+        (96, 128, "tensor_core"), (112, 128, "tensor_core"),
+        (192, 256, "tensor_core")])
+    def test_head_dims_between_built_sizes(self, head_dim, padded,
+                                           bf16_variant):
+        """80, 96, 112 and 192 (HF configs the JAX package serves) run at
+        the next built size: bf16 on the tensor cores, float32 on FMAs."""
+        assert kernel_supports(torch.bfloat16, head_dim)
+        assert kernel_supports(torch.float32, head_dim)
+        assert padded_head_dim(head_dim) == padded
+        assert flash_variant(torch.bfloat16, head_dim) == bf16_variant
+        assert flash_variant(torch.float32, head_dim) == "fma"
+
+    def test_gate_refuses(self):
+        assert not kernel_supports(torch.bfloat16, 100)
+        assert not kernel_supports(torch.bfloat16, 8)
+        assert not kernel_supports(torch.bfloat16, 512)
+        assert not kernel_supports(torch.float16, 128)
 
     def test_cpu_counts_no_launch(self):
         before = (flash_prefill.launches, dict(flash_prefill.variant_launches))

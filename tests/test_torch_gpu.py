@@ -90,6 +90,32 @@ class TestFlashKernel:
             torch.testing.assert_close(got[b, :n].float(),
                                        want[b, :n].float(), atol=tol, rtol=0)
 
+    @pytest.mark.parametrize("D", [24, 80, 96, 112, 192])
+    @pytest.mark.parametrize("S,window", [(96, None), (256, 40)])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_head_dims_between_built_sizes(self, D, S, window, dtype):
+        """A head dim that is no built size runs at the next one (bf16 above
+        32 on the tensor cores, the rest on FMAs), its columns past D zero,
+        its scale from D, only D columns stored."""
+        dev = cuda_or_skip()
+        q, k, v = (torch.from_numpy(a).to(dev, dtype)
+                   for a in case(8, 3, S, 8, 2, D))
+        seq_lens = torch.tensor([S, S // 3 + 1, 1], dtype=torch.int32,
+                                device=dev)
+        variant = flash_variant(dtype, D)
+        assert variant == ("tensor_core" if dtype == torch.bfloat16
+                           and D > 32 else "fma")
+        before = flash_prefill.variant_launches[variant]
+        got = flash_prefill(q, k, v, seq_lens, window=window)
+        torch.cuda.synchronize()
+        assert flash_prefill.variant_launches[variant] == before + 1
+        assert got.shape == q.shape and torch.isfinite(got).all()
+        want = flash_prefill_reference(q, k, v, seq_lens, window=window)
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        for b, n in enumerate(seq_lens.tolist()):
+            torch.testing.assert_close(got[b, :n].float(),
+                                       want[b, :n].float(), atol=tol, rtol=0)
+
     def test_strided_inputs(self):
         """q/k/v as views of one fused projection, read through strides."""
         dev = cuda_or_skip()
@@ -225,6 +251,35 @@ class TestDecodeAttentionKernel:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         torch.testing.assert_close(got[1:].float(), want[1:].float(),
                                    atol=tol, rtol=0)
+
+    @pytest.mark.parametrize("D", [24, 40, 80, 88, 96, 112, 192])
+    @pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+    def test_head_dims_between_built_sizes(self, D, kind):
+        """A head dim that is no built size runs at the next one: copies
+        past D zero-filled (8-byte copies for int8 rows of 8 mod 16 bytes:
+        24, 40, 88), q zero there, D columns stored."""
+        dev = cuda_or_skip()
+        T = 300
+        q, k, v, lengths = make_case(B=4, T=T, K=2, G=4, D=D, L=2, seed=19,
+                                     lengths=[0, 1, 130, T])
+        q = torch.from_numpy(q).to(dev, torch.bfloat16)
+        if kind == "int8":
+            (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(x))
+                                  for x in (k, v))
+            ks, vs = (s.transpose(-1, -2).contiguous().to(dev)
+                      for s in (ks, vs))
+            kc, vc = kq.to(dev), vq.to(dev)
+        else:
+            kc, vc = (torch.from_numpy(x).to(dev, torch.bfloat16)
+                      for x in (k, v))
+            ks = vs = None
+        lengths = torch.from_numpy(lengths).to(dev)
+        got = decode_attention(q, kc, vc, 1, lengths, ks, vs, window=None)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and torch.isfinite(got).all()
+        want = decode_attention_reference(q, kc, vc, 1, lengths, ks, vs)
+        torch.testing.assert_close(got[1:].float(), want[1:].float(),
+                                   atol=2e-2, rtol=0)
 
     @pytest.mark.parametrize("int8", [False, True])
     def test_qwen2_group_of_seven(self, int8):
@@ -423,7 +478,7 @@ class TestW8A16Kernel:
         torch.cuda.synchronize()
         assert (w8a16_matmul.launches, w8a16_matmul.launches_gemv,
                 w8a16_matmul.launches_tc) == (
-            before[0] + 1, before[1] + (regime == "gemv"),
+            before[0] + 1, before[1] + (regime != "tc"),
             before[2] + (regime == "tc"))
         assert got.dtype == dtype and got.shape == (M, N)
         want = w8a16_reference(x, q, s)
@@ -474,6 +529,81 @@ class TestW8A16Kernel:
         c = w8a16_matmul(x[:128].contiguous(), q, s)
         torch.cuda.synchronize()
         assert torch.equal(a, b) and torch.equal(a[:128], c)
+
+
+@pytest.mark.gpu
+class TestW8A16Gemv:
+    """The GEMV regime at every decode row count: bf16 on the swap-AB
+    tensor-core kernel (K split over a cluster: `wk`; not split: the LM
+    head), float32 on the FMA kernel."""
+
+    @pytest.fixture(scope="class")
+    def leaves(self):
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(23)
+        out = {}
+        for name, (k, n) in {"wk": (4096, 1024),
+                             "lm_head": (4096, 128256)}.items():
+            pt = pack_quantized(quantize(torch.randn((k, n), generator=g)
+                                         * 0.05))
+            out[name] = (pt.q.to(dev), pt.scale.to(dev))
+        return out
+
+    @pytest.mark.parametrize("M", range(1, 17))
+    @pytest.mark.parametrize("leaf", ["wk", "lm_head"])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_every_decode_row_count(self, leaves, M, leaf, dtype):
+        """Within 2**-7 max|y| in bf16 (one output rounding), 1e-4 max|y|
+        in float32 (summation order only)."""
+        dev = cuda_or_skip()
+        q, s = leaves[leaf]
+        g = torch.Generator().manual_seed(M)
+        x = torch.randn((M, q.shape[1]), generator=g).to(dev, dtype)
+        before = w8a16_matmul.launches_gemv
+        got = w8a16_matmul(x, q, s)
+        torch.cuda.synchronize()
+        assert w8a16_matmul.launches_gemv == before + 1
+        want = w8a16_reference(x, q, s)
+        mag = float(want.float().abs().max())
+        tol = 2.0 ** -7 * mag if dtype == torch.bfloat16 else 1e-4 * mag
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+
+    @pytest.mark.parametrize("M", [1, 8, 16])
+    @pytest.mark.parametrize("leaf", ["wk", "lm_head"])
+    def test_same_call_twice_bit_equal(self, leaves, M, leaf):
+        """The cluster sums its splits in rank order: two calls agree bit
+        for bit, raw float32 sums included."""
+        dev = cuda_or_skip()
+        q, s = leaves[leaf]
+        g = torch.Generator().manual_seed(40 + M)
+        x = torch.randn((M, q.shape[1]), generator=g).to(dev, torch.bfloat16)
+        for kw in ({}, {"out_dtype": torch.float32, "apply_scale": False}):
+            a, b = w8a16_matmul(x, q, s, **kw), w8a16_matmul(x, q, s, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+
+    # Down projections longer than any preset's: Qwen2/2.5-72B and
+    # Llama-3.1-405B, at their own widths
+    @pytest.mark.parametrize("M", [1, 16])
+    @pytest.mark.parametrize("K,N", [(29568, 8192), (53248, 16384)])
+    def test_long_k(self, M, K, N):
+        """x streams through the ring a step at a time: any K runs on the
+        kernel, within 2**-7 max|y|."""
+        dev = cuda_or_skip()
+        g = torch.Generator(device=dev).manual_seed(K + M)
+        pt = pack_quantized(quantize(
+            torch.randn((K, N), generator=g, device=dev, dtype=torch.bfloat16)
+            .mul_(K ** -0.5)))
+        x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+        before = w8a16_matmul.launches_gemv
+        got = w8a16_matmul(x, pt.q, pt.scale)
+        torch.cuda.synchronize()
+        assert w8a16_matmul.launches_gemv == before + 1
+        want = w8a16_reference(x, pt.q, pt.scale)
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
 
 
 @pytest.mark.gpu
@@ -541,9 +671,15 @@ class TestW8A8Kernel:
 
 @pytest.mark.gpu
 class TestEngineOnCard:
-    def test_tiny_greedy_card_equals_cpu(self):
+    @pytest.mark.parametrize("case", ["greedy", "seeded", "head_dim_96"])
+    def test_tiny_greedy_card_equals_cpu(self, case):
         """The tiny preset served on the card (kernels) and on the CPU
-        (plain versions) from the same float32 weights: greedy ids match."""
+        (plain versions) from the same float32 weights: greedy ids match,
+        seeded sampled ids match (the threefry chains draw the same noise
+        on both), and so do greedy ids at head dim 96 (flash and decode run
+        it at 128)."""
+        import dataclasses
+
         from symmetry_tpu_torch.engine.engine import (InferenceEngine,
                                                       SamplingParams)
         from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -551,9 +687,14 @@ class TestEngineOnCard:
 
         dev = cuda_or_skip()
         cfg = preset("tiny")
+        if case == "head_dim_96":
+            cfg = dataclasses.replace(cfg, head_dim=96)
         params = init_params(cfg, torch.Generator().manual_seed(0),
                              torch.float32)
         prompts = [[5, 6, 7], list(range(20, 40)), [300] * 9]
+        sampling = [SamplingParams(temperature=0.9, top_k=30, seed=s)
+                    if case == "seeded" else SamplingParams()
+                    for s in range(len(prompts))]
 
         def run(device):
             engine = InferenceEngine(cfg, params, ByteTokenizer(512),
@@ -562,7 +703,8 @@ class TestEngineOnCard:
                                      cache_dtype=torch.float32,
                                      decode_block=4, device=device)
             firsts = engine.prefill_and_insert_many(
-                [(i, p, SamplingParams()) for i, p in enumerate(prompts)])
+                [(i, p, sp) for i, (p, sp) in enumerate(zip(prompts,
+                                                             sampling))])
             blocks = [np.asarray(engine.decode_steps_dispatch())
                       for _ in range(4)]
             return firsts, np.concatenate(blocks)[:, :len(prompts)]

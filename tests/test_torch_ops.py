@@ -26,11 +26,8 @@ from symmetry_tpu_torch.ops.attention import gqa_attention
 from symmetry_tpu_torch.ops.norm import norm_weight, rms_norm
 from symmetry_tpu_torch.ops.quant import qmatmul
 from symmetry_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from symmetry_tpu_torch.ops.sampling import (
-    masked_top_logits,
-    sample_tokens,
-    uniform_noise,
-)
+from symmetry_tpu_torch.ops import prng
+from symmetry_tpu_torch.ops.sampling import masked_top_logits, sample_tokens
 
 ATOL = 1e-5
 
@@ -149,7 +146,7 @@ class TestSampling:
         want = jax_sample_tokens(
             jnp.asarray(logits), jax.random.split(jax.random.key(0), B),
             jnp.asarray(zeros), jnp.ones(B), jnp.zeros(B, jnp.int32))
-        got = sample_tokens(t(logits), torch.arange(B), torch.zeros(B).long(),
+        got = sample_tokens(t(logits), prng.split(torch.zeros(2).long(), B),
                             t(zeros), torch.ones(B), torch.zeros(B).long())
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         np.testing.assert_array_equal(got.numpy(), logits.argmax(-1))
@@ -159,22 +156,38 @@ class TestSampling:
         logits = t(rng.normal(size=(4, 512)).astype(np.float32))
         temp = torch.ones(4)
         top_k = torch.full((4,), 3).long()
-        seed = torch.tensor([1, 1, 2, 2**62 + 5])
-        draws = [sample_tokens(logits, seed, torch.full((4,), s).long(), temp,
-                               torch.ones(4), top_k) for s in range(40)]
-        again = [sample_tokens(logits, seed, torch.full((4,), s).long(), temp,
-                               torch.ones(4), top_k) for s in range(40)]
+        # rows 0 and 1 share a key; each step draws with the chain's next
+        keys = torch.tensor([prng.key_data(1), prng.key_data(1),
+                             prng.key_data(2), prng.key_data(2**62 + 5)])
+        draws, again = [], []
+        for out in (draws, again):
+            k = keys
+            for _ in range(40):
+                k, step_key = prng.split(k).unbind(1)
+                out.append(sample_tokens(logits, step_key, temp,
+                                         torch.ones(4), top_k))
         draws, again = torch.stack(draws), torch.stack(again)
         assert torch.equal(draws, again)
         top3 = torch.topk(logits, 3, dim=-1).indices
         for b in range(4):
             assert set(draws[:, b].tolist()) <= set(top3[b].tolist())
             assert len(set(draws[:, b].tolist())) > 1  # not stuck on one
-        # rows 0 and 1 share (seed, step): identical noise
-        u = uniform_noise(seed, torch.full((4,), 7).long(), 64)
-        assert torch.equal(u[0], u[1]) and not torch.equal(u[0], u[2])
+        assert torch.equal(prng.uniform(keys, 64)[0],
+                           prng.uniform(keys, 64)[1])
 
-    def test_noise_is_uniform_in_open_interval(self):
-        u = uniform_noise(torch.arange(64), torch.zeros(64).long(), 256)
-        assert float(u.min()) > 0.0 and float(u.max()) < 1.0
-        assert abs(float(u.mean()) - 0.5) < 0.01
+    @pytest.mark.parametrize("seed", [0, 5, 77])
+    def test_seeded_draws_match_jax(self, seed):
+        """Per-row keys, temperature / top-p / top-k rows: the port's
+        sample_tokens gives jax's sample_tokens' tokens."""
+        rng = np.random.default_rng(seed)
+        logits = (2 * rng.normal(size=(6, 512))).astype(np.float32)
+        temp, top_p, top_k = self.controls(6)
+        jkeys = jax.random.split(jax.random.key(seed), 6)
+        want = jax_sample_tokens(jnp.asarray(logits), jkeys,
+                                 jnp.asarray(temp), jnp.asarray(top_p),
+                                 jnp.asarray(top_k))
+        keys = torch.from_numpy(
+            np.asarray(jax.random.key_data(jkeys)).astype(np.int64))
+        got = sample_tokens(t(logits), keys, t(temp), t(top_p),
+                            t(top_k).long())
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -43,6 +43,13 @@ def leaves(cfg) -> dict[str, tuple[int, int]]:
 
 LEAF_SHAPES = sorted({kn for cfg in PRESETS.values()
                       for kn in leaves(cfg).values()})
+# Down projections longer than any preset's: Qwen2/2.5-72B and
+# Llama-3.1-405B
+LONG_K_SHAPES = [(29568, 8192), (53248, 16384)]
+# `gemv_capacity` tables: clusters of 1, 2, 4 and 8 blocks a card holds at
+# once, for GPCs of 16 or 18 SMs, and for a card with two GPCs of 14
+CAPACITIES = {"gpc16": {1: 132, 2: 66, 4: 32, 8: 16},
+              "gpc14": {1: 132, 2: 66, 4: 30, 8: 14}}
 
 
 def assert_partition(spans: set[tuple[int, int]], total: int) -> None:
@@ -115,16 +122,104 @@ class TestTilePlan:
 
     @pytest.mark.parametrize("m", [1, 8, 16, 17, 2048])
     def test_regime(self, m):
-        assert qmm.w8a16_regime(m, torch.float32) == "gemv"
+        """bf16 rows up to 16 take the tensor-core GEMV, more the tiled
+        tensor-core kernel; float32 at any row count the FMA GEMV."""
+        assert qmm.w8a16_regime(m, torch.float32) == "gemv_f32"
         assert qmm.w8a16_regime(m, torch.bfloat16) == (
             "gemv" if m <= qmm.GEMV_ROWS else "tc")
 
     def test_gate_unchanged(self):
         """K in whole 32s still passes: the tensor-core kernel zero-fills a
-        half last step instead of refusing it."""
+        half last step instead of refusing it; and K has no upper bound
+        (the GEMV streams x a step at a time), so pack_tree packs the long
+        down projections too."""
         assert qmm.kernel_supports(96, 128) and qmm.kernel_supports(32, 64)
         assert not qmm.kernel_supports(48, 64)
+        assert all(qmm.kernel_supports(k, n) for k, n in LONG_K_SHAPES)
         assert qmm.K_GRAIN == 32
+
+
+class TestGemvPlan:
+    """The tensor-core GEMV's deal of (panel, K split) items over clusters
+    (`gemv_plan`, `gemv_items`), for every preset leaf at decode rows."""
+
+    @pytest.mark.parametrize("k,n", LEAF_SHAPES + LONG_K_SHAPES)
+    @pytest.mark.parametrize("m", range(1, 17))
+    @pytest.mark.parametrize("cap", sorted(CAPACITIES))
+    def test_items_cover_output_and_k_once(self, m, k, n, cap):
+        if not qmm.kernel_supports(k, n):
+            pytest.skip("stays on the mixed dot")
+        plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
+        assert plan.rows == (8 if m <= 8 else 16)
+        cover = {}
+        for block, panel, k0, k1 in qmm.gemv_items(plan, k, n):
+            assert 0 <= k0 < k1 <= k
+            assert block // plan.cluster < plan.clusters
+            cover.setdefault(panel, set()).add((k0, k1 - k0))
+        assert sorted(cover) == list(range(n // qmm.PANEL))
+        for spans in cover.values():  # every K row of every panel once
+            assert_partition(spans, k)
+
+    @pytest.mark.parametrize("k,n", LEAF_SHAPES)
+    @pytest.mark.parametrize("m", [1, 8, 9, 16])
+    @pytest.mark.parametrize("cap", sorted(CAPACITIES))
+    def test_per_sm_bytes_within_one_item(self, m, k, n, cap):
+        """Every block streams the same number of items, give or take
+        one, and the items of a launch are one size (the last split may
+        be shorter), so the SMs stream about the same bytes."""
+        if not qmm.kernel_supports(k, n):
+            pytest.skip("stays on the mixed dot")
+        plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
+        per_block = [0] * (plan.clusters * plan.cluster)
+        items = [0] * len(per_block)
+        for block, _, k0, k1 in qmm.gemv_items(plan, k, n):
+            per_block[block] += (k1 - k0) * qmm.PANEL
+            items[block] += 1
+        assert max(items) - min(items) <= 1
+        item_bytes = plan.k_per_split * qmm.PANEL
+        assert max(per_block) - min(per_block) <= item_bytes
+        assert plan.clusters * plan.cluster <= 132
+
+    @pytest.mark.parametrize("k,n", LEAF_SHAPES)
+    @pytest.mark.parametrize("m", [1, 16])
+    @pytest.mark.parametrize("cap", sorted(CAPACITIES))
+    def test_cluster_legal_and_fits(self, m, k, n, cap):
+        """At most 8 blocks a cluster, one per split; a split a whole
+        number of 64-deep steps unless it is the only one; no more
+        clusters than the card holds at once, nor than there are panels.
+        (Shared memory does not depend on the shape: the kernel asserts
+        its largest layout fits when it is compiled.)"""
+        if not qmm.kernel_supports(k, n):
+            pytest.skip("stays on the mixed dot")
+        plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
+        assert plan.cluster in qmm.GEMV_CLUSTERS and plan.cluster <= 8
+        splits = -(-k // plan.k_per_split)
+        assert splits == plan.cluster and splits % plan.cluster == 0
+        assert plan.cluster == 1 or plan.k_per_split % qmm.GEMV_STEP == 0
+        assert plan.clusters <= CAPACITIES[cap][plan.cluster]
+        assert plan.clusters <= n // qmm.PANEL
+
+    def test_decode_shapes(self):
+        """llama3-8b on a card that holds 16 eight-block clusters: the
+        narrow `wk` (16 panels) splits 8 ways on 128 SMs; `wq` two ways;
+        `wg` four; `lm_head` (2,004 panels) not at all, one block an SM.
+        On one that holds 14, `wk` splits 4 ways instead of running two
+        waves, and `wg` (224 panels) is not split."""
+        cap, fewer = CAPACITIES["gpc16"], CAPACITIES["gpc14"]
+        plan = qmm.gemv_plan
+        assert plan(8, 4096, 1024, cap) == qmm.GemvPlan(8, 8, 512, 16)
+        assert plan(8, 4096, 4096, cap) == qmm.GemvPlan(8, 2, 2048, 64)
+        assert plan(16, 4096, 14336, cap) == qmm.GemvPlan(16, 4, 1024, 32)
+        assert plan(8, 4096, 128256, cap) == qmm.GemvPlan(8, 1, 4096, 132)
+        assert plan(8, 4096, 1024, fewer) == qmm.GemvPlan(8, 4, 1024, 16)
+        assert plan(8, 4096, 14336, fewer) == qmm.GemvPlan(8, 1, 4096, 132)
+        # `wd` splits two ways at 16 rows as at 8; the longest K a preset
+        # has (llama3-70b `wd`, 128 panels) is not split: 128 whole
+        # panels keep 128 SMs streaming
+        assert plan(16, 14336, 4096, cap) == qmm.GemvPlan(16, 2, 7168, 64)
+        assert plan(16, 28672, 8192, cap) == qmm.GemvPlan(16, 1, 28672, 128)
+        # a cluster size the card cannot hold is never dealt
+        assert plan(8, 4096, 1024, {1: 132, 2: 66, 4: 30, 8: 0}).cluster < 8
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +368,91 @@ class TestStagingMaps:
                         for lane in range(lane0, lane0 + 8)} == set(range(8))
 
 
+def gemv_stage_model(stage: np.ndarray) -> np.ndarray:
+    """The GEMV converter's writes for one step of one panel: the int8
+    stage [64 k][64 n] as 256 sixteen-byte pieces; piece j (row k = j // 4,
+    quarter q = j % 4) becomes bf16 chunks 2q and 2q + 1 of row k at chunk
+    ^ (k % 8). Returns [64 rows][8 chunks][8 values]."""
+    flat = stage.reshape(256, 16)
+    out = np.full((64, 8, 8), np.nan, np.float32)
+    for j in range(256):
+        row, q = j >> 2, j & 3
+        for h in range(2):
+            chunk = (2 * q + h) ^ (row & 7)
+            assert np.isnan(out[row, chunk]).all()  # written once
+            out[row, chunk] = flat[j, 8 * h:8 * h + 8]
+    return out
+
+
+def gemv_a_operand_model(tile: np.ndarray) -> np.ndarray:
+    """What wgmma reads as A [64 n][64 k] through the MN-major descriptor
+    with the transpose immediate (one 64-wide M block, 8-deep K groups 1024
+    bytes apart, 2048 bytes a 16-deep slice, 128-byte swizzle): A[n][k] in
+    row k at chunk (n // 8) ^ (k % 8)."""
+    out = np.empty((64, 64), np.float32)
+    for n in range(64):
+        for k in range(64):
+            out[n, k] = tile[k, (n // 8) ^ (k % 8), n % 8]
+    return out
+
+
+def gemv_x_tile_model(x_step: np.ndarray) -> np.ndarray:
+    """TMA's write of x's step [rows m][64 k] under the 128-byte swizzle,
+    and the K-major B descriptor's read back (B[k][m] in row m at chunk
+    (k // 8) ^ (m % 8))."""
+    rows = x_step.shape[0]
+    tile = np.empty((rows, 8, 8), np.float32)
+    for m in range(rows):
+        for k in range(64):
+            tile[m, (k // 8) ^ (m % 8), k % 8] = x_step[m, k]
+    b = np.empty((64, rows), np.float32)
+    for k in range(64):
+        for m in range(rows):
+            b[k, m] = tile[m, (k // 8) ^ (m % 8), k % 8]
+    return b
+
+
+def gemv_accumulator_map(rows: int) -> dict[tuple[int, int, int], tuple]:
+    """(warp, lane, entry) of an m64nN accumulator -> (n, m) as the
+    kernel reads it into its [m][64] sums."""
+    return {(w, lane, e): (16 * w + (lane >> 2) + 8 * ((e >> 1) & 1),
+                           8 * (e >> 2) + 2 * (lane & 3) + (e & 1))
+            for w in range(4) for lane in range(32) for e in range(rows // 2)}
+
+
+class TestGemvSwapAB:
+    def test_staging_read_as_transposed_a_gives_back_q(self):
+        rng = np.random.default_rng(3)
+        q = rng.integers(-128, 128, (64, 64)).astype(np.int8)  # [k][n]
+        tile = gemv_stage_model(q.astype(np.float32))
+        assert not np.isnan(tile).any()
+        np.testing.assert_array_equal(gemv_a_operand_model(tile),
+                                      q.T.astype(np.float32))
+
+    @pytest.mark.parametrize("m", [1, 5, 8, 9, 16])
+    def test_step_composes_to_x_times_q(self, m):
+        """One step through the whole swap-AB path -- stage conversion,
+        A read transposed, x by TMA with rows past m zero, D = A B, the
+        accumulator entries into [m][64] sums -- is x @ q."""
+        rows = 8 if m <= 8 else 16
+        rng = np.random.default_rng(m)
+        q = rng.integers(-128, 128, (64, 64)).astype(np.int8)
+        x = torch.randn(m, 64, generator=torch.Generator().manual_seed(m))
+        x = x.to(torch.bfloat16).float().numpy()
+        xp = np.zeros((rows, 64), np.float32)
+        xp[:m] = x
+        a = gemv_a_operand_model(gemv_stage_model(q.astype(np.float32)))
+        d = a.astype(np.float64) @ gemv_x_tile_model(xp).astype(np.float64)
+        sums = np.full((rows, 64), np.nan)
+        acc_map = gemv_accumulator_map(rows)
+        assert len(set(acc_map.values())) == 64 * rows  # a bijection
+        for (w, lane, e), (n, mm) in acc_map.items():
+            sums[mm, n] = d[n, mm]
+        np.testing.assert_array_equal(
+            sums[:m], x.astype(np.float64) @ q.astype(np.float64))
+        assert (sums[m:] == 0).all()
+
+
 class TestSplitK:
     @pytest.mark.parametrize("m,k,n", [(32, 4096, 1024), (128, 14336, 256),
                                        (5, 1024, 64), (129, 2048, 128)])
@@ -316,7 +496,7 @@ class TestEdgeRowsAgainstJax:
         assert isinstance(leaf, PackedQuantizedTensor)
         tx = torch.from_numpy(x).to(getattr(torch, dtype))
         assert qmm.w8a16_regime(m, tx.dtype) == (
-            "gemv" if dtype == "float32" else "tc")
+            "gemv_f32" if dtype == "float32" else "tc")
         got = qmatmul(tx, leaf).float().numpy()
         if dtype == "float32":
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
