@@ -15,43 +15,57 @@ Phases (any failure raises and exits non-zero):
               (the tensor-core variant) and decode attention (bf16 and
               int8 caches, and a qwen2-7b group of 7) within 2e-2 on valid
               rows, both also at head dims 96 and 192 (run at the next
-              built size; flash in float32 too, within 1e-4), the KV
-              append bit for bit, W8A16 within one bf16 step of its
+              built size; flash in float32 too, within 1e-4); decode
+              attention writing the step's K/V row itself (append mode,
+              int8 and bf16, groups of 4, 7 and 16, head dim 96, positions
+              at span edges, T - 1, past T and past the slot's length)
+              bit-equal in caches and output to the unfused pair (the
+              standalone KV append or index assignment, then decode) and
+              within one bf16 step of the plain version; the standalone
+              KV append bit for bit; W8A16 within one bf16 step of its
               largest output (wq, wk, wg, wd, lm_head at 1, 2, 8 and 16
               bf16 rows, the swap-AB tensor-core GEMV, and at 128, 512 and
-              2048 rows, the tensor-core kernel; float32 rows at 8 and 32
-              on wq, the FMA GEMV), W8A8 bit for bit (wq, wg, wd, lm_head at 32, 128
-              and 2048 rows, K splits included; no serving path routes
+              2048 rows, the tensor-core kernel) and within 1e-5 of it in
+              float32 (every leaf at 1, 8, 16, 32, 128 and 2048 rows, the
+              float32 GEMV); W8A8 bit for bit (wq, wg, wd, lm_head at 32,
+              128 and 2048 rows, K splits included; no serving path routes
               it); kernel, plain and library (a yardstick only) device
               times (kernel durations summed by torch.profiler, decode's
               split and combine kernels together; the eager call's
-              CUDA-event time is logged beside), and each kernel's bound;
-              flash also at the coalesced-prefill shape (B=4 S=512,
-              ragged) and decode also at phase 5's lengths; then flash
-              (both variants), decode (bf16, int8), W8A16 (both regimes)
-              and W8A8 (whole and split over K) once more under
+              CUDA-event time is logged beside; GEMV times cold, the L2
+              flushed before each call), and each kernel's bound; flash
+              also at the coalesced-prefill shape (B=4 S=512, ragged) and
+              decode also at phase 5's lengths, fused and unfused; then
+              flash (both variants), decode (bf16, int8, with and without
+              the row write), W8A16 (all three kernels) and W8A8 (whole
+              and split over K) once more under
               torch.cuda.set_sync_debug_mode("error"): no wrapper may
               synchronize with the host;
   4. tiny     the `tiny` preset in float32 through the port's engine and
               Scheduler on the card (kernels) and on the CPU (plain
-              versions): greedy dense, greedy with int8 weights and an
-              int8 KV cache, greedy at head dim 96, and seeded sampling
-              (threefry key chains): token ids must be identical;
+              versions): greedy dense, greedy with int8 weights (the
+              float32 GEMV) and an int8 KV cache, greedy at head dim 96,
+              and seeded sampling (threefry key chains): token ids must be
+              identical;
   5. serve    llama3-8b in bf16 at full width and depth (random weights
               from torch.Generator seed 0) behind the port's Scheduler:
               8 greedy requests over the three prefill buckets, 64 new
-              tokens each, through flash and decode attention (launch
-              counts checked, and every flash launch on the tensor-core
-              variant);
+              tokens each, through flash and decode attention, every
+              decode launch writing its row (launch counts checked: no
+              standalone KV append; every flash launch on the tensor-core
+              variant); the decode block profiled with the row write
+              fused, unfused (the pair it replaced) and fused again:
+              kernels and device busy time of each;
   6. int8     the same traffic on llama3-8b at full depth with int8
               weights (init_params(quantize=True), seed 0) packed for the
-              W8A16 kernel and an int8 KV cache: flash, KV append, int8
-              decode attention and W8A16 on the path (launch counts
-              checked, W8A16's per regime: the tensor-core kernel at
-              prefill, the GEMV kernel at decode; flash as in phase 5); the
-              decode block's GEMV device ms and launches a step, and no
-              split-epilogue kernel on it; both phases print a digest of
-              their greedy streams, the same on every run;
+              W8A16 kernel and an int8 KV cache: flash, int8 decode
+              attention writing the quantized row, and W8A16 on the path
+              (launch counts checked, W8A16's per regime: the tensor-core
+              kernel at prefill, the GEMV kernel at decode; flash as in
+              phase 5); the decode block as in phase 5, whose kernels must
+              drop by at least one a layer and step when fused, and its
+              GEMV device ms and launches a step; both phases print a
+              digest of their greedy streams, the same on every run;
   7. host tiny  `python -m symmetry_tpu_torch.engine.host` on `tiny` in
               float32 with a small prefill_chunk and the prefix cache on,
               one host on the card and one with --device cpu, fed the same
@@ -67,8 +81,9 @@ Phases (any failure raises and exits non-zero):
               (exit 0), TTFT by path, tok/s, memory; then, in-process on the
               same config, a profile of one chunk step and one cached
               admission and the chunk attention's device time;
-  9. report   one JSON line listing the seven kernel rows (W8A16 one per
-              regime), the nvidia-smi
+  9. report   one JSON line listing the nine kernel rows (W8A16 one per
+              regime; the KV append fused into decode attention on the
+              path, and standalone from phase 3), the nvidia-smi
               line, and last the {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
@@ -92,10 +107,18 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores,
-# HBM3.
+# float32 on the CUDA cores (67 TFLOP/s: 132 SMs x 128 FMA lanes x 2
+# operations at the 1.98 GHz boost clock), HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# The card's L2 holds 50 MB; a GEMV leaf that fits would be timed warm
+# back to back, where a decode step that streams 7.5 GB finds it cold.
+# `cold` writes this many bytes before each call (the write's kernel is
+# left out of the time by name).
+FLUSH_BYTES = 256 * 2**20
+FLUSH_KERNEL = "FillFunctor"
 TOL = 2e-2
 ID_BASE = 0x4E00
 # Phases 5-6's prompt lengths (tokens), over the buckets 128, 512, 2048.
@@ -114,13 +137,16 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int, name: str = "") -> float:
+def device_ms(fn, iters: int, name: str = "",
+              exclude: str | None = None, per_call: int = 0) -> float:
     """Device time of one call of fn: the CUDA kernels' durations summed by
     torch.profiler over `iters` calls, after a warm-up. Idle gaps between
     launches (the host's share) are not counted, so a small kernel is not
     measured by its wrapper's Python overhead. With `name`, only the
     kernels whose name contains it (one kernel of a wrapper that launches
-    several)."""
+    several); with `exclude`, not those whose name contains that (the L2
+    flush of `cold`); with `per_call`, a session that did not record that
+    many matching kernels a call is taken again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -134,14 +160,40 @@ def device_ms(fn, iters: int, name: str = "") -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if getattr(ev, "device_type", None) == DeviceType.CUDA
+                  and name in ev.key
+                  and not (exclude and exclude in ev.key)]
         busy_us = sum(getattr(ev, "self_device_time_total",
                               getattr(ev, "self_cuda_time_total", 0.0))
-                      for ev in prof.key_averages()
-                      if getattr(ev, "device_type", None) == DeviceType.CUDA
-                      and name in ev.key)
-        if busy_us > 0:
+                      for ev in events)
+        if busy_us > 0 and (not per_call or sum(
+                ev.count for ev in events) == per_call * iters):
             return busy_us / 1e3 / iters
-    raise AssertionError(f"the profiler recorded no device time {name}")
+    raise AssertionError(f"the profiler recorded no device time {name} "
+                         f"(or not {per_call} kernels a call)")
+
+
+_flush: list[torch.Tensor] = []
+
+
+def cold(fn):
+    """fn after a FLUSH_BYTES write, so it finds its operands in device
+    memory and not in L2; time it with device_ms(..., exclude=
+    FLUSH_KERNEL)."""
+    if not _flush:
+        _flush.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                                  device="cuda"))
+
+    def call():
+        _flush[0].zero_()
+        return fn()
+    return call
+
+
+def cold_ms(fn, iters: int, name: str = "", per_call: int = 0) -> float:
+    return device_ms(cold(fn), iters, name=name, exclude=FLUSH_KERNEL,
+                     per_call=per_call)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -415,9 +467,125 @@ def check_decode(int8: bool) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def check_fused_append() -> dict:
+    """The decode launch's own write of the step's K/V row (append mode)
+    against the unfused pair -- the standalone kv_append kernel (int8) or
+    index assignment (bf16), then decode attention -- bit for bit in
+    caches and outputs, and against the plain version (append, then the
+    reference) within one bf16 step of the largest output on live slots:
+    int8 and bf16 caches at llama3-8b widths (8 slots, capacity 4096, 8 KV
+    heads of 128, groups of 4), and at capacity 1024 with groups of 7
+    (qwen2-7b) and 16, and head dim 96 (run at 128); the step's positions
+    at a span's first and last rows, at T - 1, past T (a stale slot: row
+    T - 1), past the slot's length (written, not read), and in an empty
+    slot. Timed at phase 5's lengths: the fused launch, decode alone, the
+    pair, the plain version. Returns the `kernels` row of the int8 fused
+    route (kv_append.py:151 on the serving path)."""
+    from symmetry_tpu_torch.ops.decode_attention import (
+        SPAN, decode_attention, decode_attention_reference)
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+
+    def pair(q, caches, layer, lengths, rows, pos):
+        k_cache, v_cache, ks, vs = caches
+        if ks is not None:
+            kv_append(k_cache, v_cache, ks, vs, *rows, layer, pos)
+        else:
+            T = k_cache.shape[2]
+            b = torch.arange(k_cache.shape[1], device="cuda")
+            p = pos.long().clamp(0, T - 1)
+            k_cache[layer, b, p], v_cache[layer, b, p] = rows
+        return decode_attention(q, k_cache, v_cache, layer, lengths, ks, vs)
+
+    worst, row = 0.0, None
+    for int8 in (True, False):
+        label = "int8" if int8 else "bf16"
+        for nq, K, D, T in ((32, 8, 128, 4096), (28, 4, 128, 1024),
+                            (64, 4, 128, 1024), (32, 8, 96, 1024)):
+            *state, lengths = decode_case(2, 8, T, nq, K, D,
+                                          [SPAN + 1, SPAN, T, T, 300, 1,
+                                           2 * SPAN + 6, 0], 70 + nq + D,
+                                          int8)
+            q, caches = state[0], state[1:3] + state[3:5]
+            g = torch.Generator(device="cuda").manual_seed(nq * D)
+            rows = tuple(torch.randn((8, K, D), generator=g, device="cuda",
+                                     dtype=torch.bfloat16) for _ in range(2))
+            pos = torch.tensor([SPAN, SPAN - 1, T - 1, T + 9, 700, 0,
+                                2 * SPAN + 5, 100], dtype=torch.int32,
+                               device="cuda")
+            fused, unfused, plain = ([c.clone() if c is not None else None
+                                      for c in caches] for _ in range(3))
+            got = decode_attention(q, fused[0], fused[1], 1, lengths,
+                                   fused[2], fused[3], append=(*rows, pos))
+            want = pair(q, unfused, 1, lengths, rows, pos)
+            ref = decode_attention_reference(q, plain[0], plain[1], 1,
+                                             lengths, plain[2], plain[3],
+                                             append=(*rows, pos))
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b) for a, b in zip(fused, unfused)
+                    if a is not None]
+            same_plain = [torch.equal(a, b) for a, b in zip(fused, plain)
+                          if a is not None]
+            live = lengths > 0
+            err = float((got[live].float() - ref[live].float()).abs().max())
+            tol = 2.0 ** -7 * float(ref[live].float().abs().max())
+            log(f"  fused append {label} q {tuple(q.shape)} cache "
+                f"{tuple(caches[0].shape)} positions {pos.tolist()} lengths "
+                f"{lengths.tolist()}: caches bit-equal to the pair {same} "
+                f"and to the plain write {same_plain}, output bit-equal to "
+                f"the pair {torch.equal(got, want)}; max_abs_err vs plain "
+                f"{err:.3e} (tol {tol:.3e})")
+            if not (all(same) and all(same_plain) and torch.equal(got, want)
+                    and torch.isfinite(got).all() and err <= tol):
+                raise AssertionError(f"fused append {label} nq={nq} K={K} "
+                                     f"D={D}: differs from the unfused pair "
+                                     f"or the plain version")
+            if int8:
+                worst = max(worst, err)
+            del state, caches, fused, unfused, plain
+        # Timing at llama3-8b widths and phase 5's lengths, the step
+        # writing each slot's row at length - 1.
+        q, *caches, _ = decode_case(2, 8, 4096, 32, 8, 128, [1] * 8, 80,
+                                    int8)
+        p5 = torch.tensor([n + 32 for n in PHASE5_PROMPTS],
+                          dtype=torch.int32, device="cuda")
+        rows = tuple(torch.randn((8, 8, 128), device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(2))
+        append = (*rows, p5 - 1)
+        ms = device_ms(lambda: decode_attention(
+            q, caches[0], caches[1], 1, p5, caches[2], caches[3],
+            append=append), 50)
+        alone_ms = device_ms(lambda: decode_attention(
+            q, caches[0], caches[1], 1, p5, caches[2], caches[3]), 50)
+        pair_ms = device_ms(lambda: pair(q, caches, 1, p5, rows, append[2]),
+                            50)
+        plain_ms = device_ms(lambda: decode_attention_reference(
+            q, caches[0], caches[1], 1, p5, caches[2], caches[3],
+            append=append), 10)
+        nbytes, flops = decode_work(q, caches[0], p5, None)
+        # the rows read in q's dtype, written in the cache's, and a scale
+        # each for an int8 cache
+        nbytes += 2 * 8 * 8 * 128 * (2 + caches[0].element_size()) + (
+            2 * 8 * 8 * 4 if int8 else 0) + 4 * 8
+        bound_ms, bound_by = bound(nbytes, flops)
+        log(f"  fused append timing {label} B=8 T=4096 nq=32 K=8 D=128 at "
+            f"phase 5's lengths (device ms): fused launch {ms:.4f}, decode "
+            f"alone {alone_ms:.4f} (the write adds {ms - alone_ms:+.4f}), "
+            f"unfused pair {pair_ms:.4f}, plain {plain_ms:.4f}, bound "
+            f"{bound_ms:.4f} ({bound_by})")
+        if int8:
+            row = dict(name="kv_append_fused", route="cuda",
+                       source="symmetry_tpu_torch/csrc/decode_attention.cu",
+                       replaces="symmetry_tpu/ops/kv_append.py:151",
+                       max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        del q, caches
+    return row
+
+
 def check_no_host_sync() -> None:
     """No wrapper synchronizes with the host: flash (both variants), decode
-    (bf16 and int8), W8A16 (GEMV, GEMV split over K, tensor-core) and W8A8
+    (bf16 and int8, with and without the fused row write), W8A16 (GEMV,
+    GEMV split over K, float32 GEMV, tensor-core) and W8A8
     (whole and split over K, its row quantization included) run under
     torch.cuda.set_sync_debug_mode("error"), which raises on any
     synchronizing call."""
@@ -436,6 +604,10 @@ def check_no_host_sync() -> None:
     pt = pack_quantized(qt)
     xs = [torch.randn((m, 4096), generator=g, device="cuda",
                       dtype=torch.bfloat16) for m in (8, 128, 2048)]
+    xf = torch.randn((8, 4096), generator=g, device="cuda")
+    rows = torch.randn((2, 4, 8, 128), generator=g, device="cuda",
+                       dtype=torch.bfloat16)
+    append = (rows[0], rows[1], bf16[5] - 1)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -443,15 +615,19 @@ def check_no_host_sync() -> None:
         flash_prefill(qf, kf, vf, seq_lens)
         for c in (bf16, int8):
             decode_attention(c[0], c[1], c[2], 1, c[5], c[3], c[4], window=200)
-        for x in xs:
+            decode_attention(c[0], c[1], c[2], 1, c[5], c[3], c[4],
+                             append=append)
+        for x in xs + [xf]:
             w8a16_matmul(x, pt.q, pt.scale)
+        for x in xs:
             w8a8_matmul(x, qt.q, qt.scale)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     log("  sync debug mode \"error\": flash (tensor-core and FMA), decode "
-        "(bf16, int8), W8A16 (GEMV, tensor-core) and W8A8 (split over K and "
-        "whole) launched without a host synchronization")
+        "(bf16, int8; with and without the fused row write), W8A16 (GEMV, "
+        "float32 GEMV, tensor-core) and W8A8 (split over K and whole) "
+        "launched without a host synchronization")
 
 
 def check_kv_append() -> dict:
@@ -511,20 +687,34 @@ def check_kv_append() -> dict:
                 source="symmetry_tpu_torch/csrc/kv_append.cu",
                 replaces="symmetry_tpu/ops/kv_append.py:151",
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                path="none: the serving path writes the decode row in the "
+                     "decode-attention launch (kv_append_fused); launches "
+                     "are phase 3's")
+
+
+def w8a16_work(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float]:
+    """(bytes, operations) of y = x @ dequant(q): the int8 weight, x, its
+    scales and y once each, and 2 m k n operations."""
+    return m * k * x_bytes + k * n + n * 4 + m * n * x_bytes, 2.0 * m * k * n
 
 
 def check_w8a16() -> list[dict]:
     """llama3-8b projection shapes at decode row counts (1, 2, 8 and 16
     bf16 rows: the GEMV regime, swap-AB on the tensor cores) and prefill
     row counts (the 128 and 512 buckets, the 2048-row token budget: the
-    tensor-core regime), and float32 rows on `wq` at 8 and 32 (the FMA
-    GEMV); one row of the `kernels` line for each bf16 regime, at the
-    widest leaf (`wg`, 8 and 2048 rows). Tolerance: one bf16 step at the
-    largest output, 2**-7 * max|y| (the kernel and the plain version sum
-    in float32 in different orders, then round). The library yardstick is
-    torch.matmul on bf16 rows and the dequantized bf16 weight (twice the
-    weight bytes)."""
+    tensor-core regime), and float32 rows at every leaf at 1, 8, 16, 32,
+    128 and 2048 (the float32 GEMV, FMAs, 16-row tiles past 16); one row
+    of the `kernels` line for each regime, at the widest leaf (`wg`, 8
+    rows for both GEMVs, 2048 for the tensor-core kernel). Tolerance: one
+    bf16 step at the largest output, 2**-7 * max|y|, for bf16 rows (the
+    kernel and the plain version sum in float32 in different orders, then
+    round); 1e-5 * max|y| for float32 rows (float32 products, sums in
+    another order). The library yardstick computes the same function:
+    torch.matmul on bf16 rows and the dequantized bf16 weight, or on
+    float32 rows and the dequantized float32 weight (TF32 off). GEMV
+    times (bf16 up to 16 rows, every float32 row count) are cold, kernel
+    and library alike: L2 flushed before each call (`cold`)."""
     from symmetry_tpu_torch.ops.qmm import (gemv_capacity, gemv_plan,
                                             w8a16_matmul, w8a16_reference,
                                             w8a16_regime)
@@ -532,9 +722,13 @@ def check_w8a16() -> list[dict]:
 
     shapes = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
               "wd": (14336, 4096), "lm_head": (4096, 128256)}
-    reported = {8: "gemv", 2048: "tc"}  # the rows reported, both on `wg`
-    cap = gemv_capacity(torch.device("cuda"))
-    log(f"  GEMV clusters the card holds at once, by cluster size: {cap}")
+    # the rows reported, all on `wg`
+    reported = {(8, torch.bfloat16): "gemv", (2048, torch.bfloat16): "tc",
+                (8, torch.float32): "gemv_f32"}
+    caps = {dt: gemv_capacity(torch.device("cuda"), dt)
+            for dt in (torch.bfloat16, torch.float32)}
+    log(f"  GEMV clusters the card holds at once, by cluster size: bf16 "
+        f"{caps[torch.bfloat16]}, float32 {caps[torch.float32]}")
     g = torch.Generator(device="cuda").manual_seed(40)
     worst = {"gemv": 0.0, "tc": 0.0, "gemv_f32": 0.0}
     rows = {}
@@ -543,11 +737,11 @@ def check_w8a16() -> list[dict]:
                         dtype=torch.bfloat16).mul_(K ** -0.5)
         qt = quantize(w)
         pt = pack_quantized(qt)
-        w_lib = (qt.q.float() * qt.scale).to(torch.bfloat16)
+        w_lib = {torch.bfloat16: (qt.q.float() * qt.scale).to(torch.bfloat16),
+                 torch.float32: qt.q.float() * qt.scale}
         del w, qt
         cases = [(M, torch.bfloat16) for M in (1, 2, 8, 16, 128, 512, 2048)]
-        if name == "wq":
-            cases += [(8, torch.float32), (32, torch.float32)]
+        cases += [(M, torch.float32) for M in (1, 8, 16, 32, 128, 2048)]
         for M, dtype in cases:
             regime = w8a16_regime(M, dtype)
             x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
@@ -555,34 +749,44 @@ def check_w8a16() -> list[dict]:
             torch.cuda.synchronize()
             want = w8a16_reference(x, pt.q, pt.scale)
             err = float((got.float() - want.float()).abs().max())
-            tol = 2.0 ** -7 * float(want.float().abs().max())
+            tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) * float(
+                want.float().abs().max())
             if not torch.isfinite(got).all() or err > tol:
                 raise AssertionError(f"w8a16 {name} M={M} {dtype}: error "
                                      f"{err} > {tol}")
             worst[regime] = max(worst[regime], err)
-            ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
-            call_ms = cuda_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 20)
+            # few calls where one takes milliseconds (float32 prefill rows)
+            iters = 20 if M * N <= 2048 * 14336 // 8 else 3
+            if regime == "tc":
+                timer, how = device_ms, "warm"
+            else:
+                timer, how = cold_ms, "cold"
+            ms = timer(lambda: w8a16_matmul(x, pt.q, pt.scale), iters,
+                       name="w8a16_", per_call=1)
+            call_ms = cuda_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), iters)
             plain_ms = device_ms(
-                lambda: w8a16_reference(x, pt.q, pt.scale), 3)
-            xb = x.to(torch.bfloat16)
-            library_ms = device_ms(lambda: torch.matmul(xb, w_lib), 20)
-            nbytes = (M * K * x.element_size() + K * N + N * 4
-                      + M * N * x.element_size())
-            bound_ms, bound_by = bound(nbytes, 2.0 * M * K * N)
-            plan = (f", {gemv_plan(M, K, N, cap)}" if regime == "gemv"
+                lambda: w8a16_reference(x, pt.q, pt.scale), 3 if M < 2048
+                else 1)
+            wl = w_lib[dtype]
+            library_ms = timer(lambda: torch.matmul(x, wl), iters)
+            nbytes, flops = w8a16_work(M, K, N, x.element_size())
+            bound_ms, bound_by = bound(nbytes, flops, PEAK_BF16_FLOPS
+                                       if dtype == torch.bfloat16
+                                       else PEAK_F32_FLOPS)
+            plan = (f", {gemv_plan(M, K, N, caps[dtype])}" if regime != "tc"
                     else "")
             log(f"  w8a16 {name} [{K}, {N}] M={M} {str(dtype)[6:]} "
                 f"({regime}{plan}): max_abs_err={err:.3e} (tol {tol:.3e}); "
-                f"device ms: kernel {ms:.4f} ({call_ms:.4f} per eager "
-                f"call), plain {plain_ms:.4f}, torch.matmul bf16 "
-                f"{library_ms:.4f}, bound {bound_ms:.4f} ({bound_by}); "
-                f"{ms / bound_ms:.2f}x bound, {ms / library_ms:.2f}x "
-                f"torch.matmul")
-            if name == "wg" and reported.get(M) == regime:
+                f"device ms ({how}): kernel {ms:.4f} ({call_ms:.4f} per "
+                f"eager call), plain {plain_ms:.4f}, torch.matmul "
+                f"{str(dtype)[6:]} {library_ms:.4f}, bound {bound_ms:.4f} "
+                f"({bound_by}); {ms / bound_ms:.2f}x bound, "
+                f"{ms / library_ms:.2f}x torch.matmul")
+            if name == "wg" and reported.get((M, dtype)) == regime:
                 rows[regime] = dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=library_ms)
-            del x, xb, got, want
+            del x, got, want
         del pt, w_lib
         torch.cuda.empty_cache()
     # Down projections longer than any preset's (Qwen2/2.5-72B, Llama-3.1-
@@ -602,13 +806,13 @@ def check_w8a16() -> list[dict]:
                 raise AssertionError(f"w8a16 [{K}, {N}] M={M}: error {err} "
                                      f"> {tol}")
             worst["gemv"] = max(worst["gemv"], err)
-            ms = device_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 10)
-            bound_ms, _ = bound(M * K * 2 + K * N + N * 4 + M * N * 2,
-                                2.0 * M * K * N)
+            ms = cold_ms(lambda: w8a16_matmul(x, pt.q, pt.scale), 10,
+                         name="w8a16_", per_call=1)
+            bound_ms, _ = bound(*w8a16_work(M, K, N, 2))
             log(f"  w8a16 long K [{K}, {N}] M={M} (gemv, "
-                f"{gemv_plan(M, K, N, cap)}): max_abs_err={err:.3e} (tol "
-                f"{tol:.3e}); device ms: kernel {ms:.4f}, bound "
-                f"{bound_ms:.4f}; {ms / bound_ms:.2f}x bound")
+                f"{gemv_plan(M, K, N, caps[torch.bfloat16])}): max_abs_err="
+                f"{err:.3e} (tol {tol:.3e}); device ms (cold): kernel "
+                f"{ms:.4f}, bound {bound_ms:.4f}; {ms / bound_ms:.2f}x bound")
         del pt, x, got, want
         torch.cuda.empty_cache()
     log(f"  w8a16 worst error by regime: {worst}")
@@ -616,7 +820,7 @@ def check_w8a16() -> list[dict]:
                  source="symmetry_tpu_torch/csrc/w8a16.cu",
                  replaces="symmetry_tpu/ops/qmm.py:251",
                  max_abs_err=worst[regime], **rows[regime])
-            for regime in ("gemv", "tc")]
+            for regime in ("gemv", "gemv_f32", "tc")]
 
 
 def check_w8a8() -> dict:
@@ -800,14 +1004,18 @@ def profile_dispatch(label: str, fn) -> list[tuple[float, int, str]]:
     return rows
 
 
-def check_tiny() -> None:
+def check_tiny() -> int:
     """`tiny` in float32, card against CPU: greedy dense, greedy with int8
     weights + int8 KV, greedy at head dim 96 (no built size: flash and
     decode run it at 128), and seeded sampling (the threefry chains give
-    the same tokens on both)."""
+    the same tokens on both). Returns the float32 GEMV's launches in these
+    runs (the int8 run's packed leaves: float32 serving's W8A16 path)."""
     import dataclasses
 
     from symmetry_tpu_torch.models.llama import init_params, preset
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    w8a16_matmul.launches_gemv_f32 = 0
 
     kw = dict(dtype=torch.float32, prompt_lens=[5, 14, 27], max_new=12,
               max_slots=2, max_seq_len=64, buckets=(16, 32), decode_block=4)
@@ -832,6 +1040,12 @@ def check_tiny() -> None:
                                      f"cpu {r_cpu}")
         log(f"  tiny f32 {label}: {len(card)} requests, token ids identical "
             f"card vs CPU: {[r['ids'][:6] for r in card]}...")
+    launches = w8a16_matmul.launches_gemv_f32
+    log(f"  float32 GEMV launches in these runs: {launches}")
+    if launches <= 0:
+        raise AssertionError("the int8 tiny run never launched the float32 "
+                             "GEMV")
+    return launches
 
 
 def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
@@ -851,7 +1065,9 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     def reset():
         for fn in wrappers.values():
             fn.launches = 0
+        decode_attention.launches_append = 0
         w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
+        w8a16_matmul.launches_gemv_f32 = 0
         for variant in flash_prefill.variant_launches:
             flash_prefill.variant_launches[variant] = 0
         torch.cuda.reset_peak_memory_stats()
@@ -864,8 +1080,10 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
                 buckets=(128, 512, 2048), decode_block=8, on_ready=reset,
                 int8=int8)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches["decode_attention_append"] = decode_attention.launches_append
     variants = dict(flash_prefill.variant_launches)
     regimes = {"gemv": w8a16_matmul.launches_gemv,
+               "gemv_f32": w8a16_matmul.launches_gemv_f32,
                "tc": w8a16_matmul.launches_tc}
     cfg, m = res["config"], res["metrics"]
     L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
@@ -878,16 +1096,18 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
                                  f"{r['generated']} tokens")
         if not all(0 <= t < cfg.vocab_size for t in r["ids"]):
             raise AssertionError(f"request {i}: token id out of range")
+    # Every decode launch writes the step's row itself: no standalone
+    # kv_append on the path, either cache dtype.
     want = {"flash_prefill": L * dispatches, "decode_attention": L * steps,
-            "kv_append": L * steps if int8 else 0,
+            "kv_append": 0, "decode_attention_append": L * steps,
             # seven projections per layer and the LM head, per forward
             "w8a16_matmul": (7 * L + 1) * (steps + dispatches) if int8 else 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     # Prefill rows take the tensor-core kernel; decode steps (8 rows), and
-    # a prefill's LM head on its last rows, the GEMV kernel.
-    if sum(regimes.values()) != launches["w8a16_matmul"] or (
-            int8 and min(regimes.values()) <= 0):
+    # a prefill's LM head on its last rows, the GEMV kernel; no float32.
+    if sum(regimes.values()) != launches["w8a16_matmul"] or regimes[
+            "gemv_f32"] or (int8 and min(regimes["gemv"], regimes["tc"]) <= 0):
         raise AssertionError(f"W8A16 launches by regime {regimes}")
     # bf16 at head_dim 128: every flash launch takes the tensor-core kernel.
     if variants != {"tensor_core": L * dispatches, "fma": 0}:
@@ -898,22 +1118,55 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     log(f"  {label} greedy streams sha256 {digest} (the same on every run "
         f"of this phase: fixed weights, prompts and reduction orders)")
     engine = res["engine"]
-    block = profile_dispatch(f"{label} decode block (8 steps x 8 slots)",
-                             engine.decode_steps)
+    # The decode block with the row written inside the decode launch, and
+    # (same call, same engine) with the pair it replaces: the row written
+    # first as before -- the standalone kv_append kernel (int8) or
+    # arange/clamp/long/index assignment (bf16) -- then decode attention.
+    blocks = {}
+    for tag in ("fused", "unfused", "fused", "unfused"):
+        with unfused_decode_write(tag == "unfused"):
+            blocks.setdefault(tag, []).append(profile_dispatch(
+                f"{label} decode block (8 steps x 8 slots), row write "
+                f"{tag}", engine.decode_steps))
+    block = blocks["fused"][0]
+    per_block = {tag: [sum(r[1] for r in b) for b in bs]
+                 for tag, bs in blocks.items()}
+    busy = {tag: [round(sum(r[0] for r in b), 3) for b in bs]
+            for tag, bs in blocks.items()}
+    # Kernels the fused block no longer launches, kind by kind (a block's
+    # total moves by a kernel or two from run to run on its own); the
+    # decode kernel with and without the write is one kind.
+    counts = {}
+    for tag, bs in blocks.items():
+        for b in bs:
+            kinds: dict[str, int] = {}
+            for _, n, key in b:
+                kind = re.sub(r", (true|false)>", ">", key)
+                kinds[kind] = kinds.get(kind, 0) + n
+            counts.setdefault(tag, []).append(kinds)
+    pairs = list(zip(counts["fused"], counts["unfused"]))
+    gone = {key: min(u.get(key, 0) - f.get(key, 0) for f, u in pairs)
+            for key in pairs[0][1]}
+    gone = {key: n for key, n in gone.items() if n > 0}
+    shed = sum(gone.values())
+    log(f"  {label} kernels per decode block: fused {per_block['fused']}, "
+        f"unfused {per_block['unfused']}; kernels the fused block no longer "
+        f"launches {shed} ({L} layers x {engine.decode_block} steps = "
+        f"{L * engine.decode_block}): "
+        f"{[(key[:60], n) for key, n in gone.items()]}; device busy ms fused "
+        f"{busy['fused']}, unfused {busy['unfused']}")
+    if int8 and shed < L * engine.decode_block:
+        raise AssertionError(f"int8 decode block sheds {shed} kernels, "
+                             f"fewer than one a layer and step")
     gemv = [r for r in block if "w8a16_gemv" in r[2]]
-    epilogue = [r for r in block if "w8a16_epilogue" in r[2]]
     if int8:
         log(f"  {label} decode block: the W8A16 GEMV kernel "
             f"{sum(r[0] for r in gemv):.3f} device ms over "
             f"{sum(r[1] for r in gemv)} launches "
             f"({sum(r[1] for r in gemv) / engine.decode_block:.0f} a step), "
-            f"{sum(r[0] for r in gemv) / engine.decode_block:.4f} ms a step; "
-            f"split epilogues {sum(r[1] for r in epilogue)}")
-        if not gemv or epilogue:
-            raise AssertionError(f"decode block: GEMV kernels {gemv}, "
-                                 f"epilogue kernels {epilogue} (a bf16 "
-                                 f"decode step sums its K splits inside "
-                                 f"the GEMV kernel)")
+            f"{sum(r[0] for r in gemv) / engine.decode_block:.4f} ms a step")
+        if not gemv:
+            raise AssertionError("decode block: no GEMV kernel")
     prompt = list(range(1000, 3000))
     profile_dispatch(f"{label} prefill 2000 tokens (bucket 2048, batch 1)",
                      lambda: engine.prefill_and_insert(0, prompt,
@@ -929,6 +1182,54 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     del launches["w8a16_matmul"]
     return {**launches, **{f"w8a16_matmul[{r}]": n
                            for r, n in regimes.items()}}
+
+
+class unfused_decode_write:
+    """Within the block (when `on`), the model's decode step writes its
+    K/V row as the serving path did before the write moved into the decode
+    launch: kv_append for an int8 cache, arange, clamp, long and index
+    assignment otherwise, then decode attention without append. A
+    measurement harness for one comparison in one call; the port has no
+    such switch."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from symmetry_tpu_torch.models import llama
+        from symmetry_tpu_torch.ops.decode_attention import decode_attention
+        from symmetry_tpu_torch.ops.kv_append import kv_append
+
+        self.saved = llama.decode_attention
+        if not self.on:
+            return self
+
+        def pair(q, k_cache, v_cache, layer, kv_length, k_scale=None,
+                 v_scale=None, *, window=None, append=None):
+            k_new, v_new, positions = append
+            if k_cache.dtype == torch.int8:
+                kv_append(k_cache, v_cache, k_scale, v_scale, k_new, v_new,
+                          layer, positions)
+            else:
+                T = k_cache.shape[2]
+                b_idx = torch.arange(k_cache.shape[1],
+                                     device=q.device)[:, None]
+                pos_w = torch.clamp(positions[:, None], max=T - 1).long()
+                k_cache[layer][b_idx, pos_w] = k_new[:, None].to(
+                    k_cache.dtype)
+                v_cache[layer][b_idx, pos_w] = v_new[:, None].to(
+                    v_cache.dtype)
+            return decode_attention(q, k_cache, v_cache, layer, kv_length,
+                                    k_scale, v_scale, window=window)
+
+        llama.decode_attention = pair
+        return self
+
+    def __exit__(self, *exc):
+        from symmetry_tpu_torch.models import llama
+
+        llama.decode_attention = self.saved
+        return False
 
 
 # ---------------------------------------------------------------------------
@@ -1106,8 +1407,9 @@ def check_host_tiny() -> None:
         if not (card[2]["reused"] or 0) > 0:
             raise AssertionError(f"host tiny {tag}: no prefix hit: {card}")
         k = stats["kernels"]
-        if min(k["flash_prefill"], k["decode_attention"]) <= 0 or (
-                int8 and min(k["kv_append"], k["w8a16_matmul"]) <= 0):
+        if min(k["flash_prefill"], k["decode_attention"],
+               k["decode_attention_append"]) <= 0 or k["kv_append"] or (
+                int8 and k["w8a16_matmul"] <= 0):
             raise AssertionError(f"host tiny {tag}: kernels {k}")
         log(f"  host tiny {tag}: {len(card)} requests, streamed text "
             f"identical card vs CPU (reused {[r['reused'] for r in card]}, "
@@ -1187,7 +1489,9 @@ def check_host_full(smi: str) -> dict:
     if writes > blocks + len(r1) + len(r2):
         raise AssertionError(f"{writes} event writes for {blocks} blocks")
     launches = {k: v - before[k] for k, v in stats["kernels"].items()}
-    if min(launches["flash_prefill"], launches["decode_attention"]) <= 0:
+    if min(launches["flash_prefill"], launches["decode_attention"]) <= 0 or (
+            launches["decode_attention_append"]
+            != launches["decode_attention"]) or launches["kv_append"]:
         raise AssertionError(f"host path launches {launches}")
     text = host.log_text()
     mem = [m for m in re.findall(r"max_memory_allocated=([0-9.]+)GiB", text)]
@@ -1293,14 +1597,18 @@ def main() -> int:
     log(f"  kernels built in {kernels.build_all():.3f} s")
 
     log("phase 3: kernels against their plain versions (bf16)")
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+    kv_append.launches = 0
     rows = [check_flash(), check_decode(int8=False), check_decode(int8=True),
-            check_kv_append(), *check_w8a16()]
+            check_fused_append(), *check_w8a16()]
+    kv_row = check_kv_append()
     check_no_host_sync()
     w8a8_row = check_w8a8()
+    kv_row["launches"] = kv_append.launches  # the pair's and its own
     torch.cuda.empty_cache()
 
     log("phase 4: tiny engine, card against CPU (float32)")
-    check_tiny()
+    f32_launches = check_tiny()
 
     log("phase 5: llama3-8b bf16 full width through the Scheduler")
     bf16 = check_full_width(smi, int8=False)
@@ -1309,18 +1617,23 @@ def main() -> int:
 
     log("phase 6: llama3-8b int8 full width through the Scheduler")
     int8 = check_full_width(smi, int8=True)
-    # Each route's launches from the serving path it belongs to.
+    # Each route's launches from the serving path it belongs to; float32
+    # rows serve in phase 4 (llama3-8b serves bf16).
     launches = {"flash_prefill": bf16["flash_prefill"],
                 "decode_attention": bf16["decode_attention"],
                 "decode_attention_int8": int8["decode_attention"],
-                "kv_append": int8["kv_append"],
+                "kv_append_fused": int8["decode_attention_append"],
                 "w8a16_matmul[gemv]": int8["w8a16_matmul[gemv]"],
+                "w8a16_matmul[gemv_f32]": f32_launches,
                 "w8a16_matmul[tc]": int8["w8a16_matmul[tc]"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} never launched on the path")
-    rows.append(w8a8_row)
+        if row["name"] == "w8a16_matmul[gemv_f32]":
+            row["path"] = ("phase 4: float32 tiny with int8 weights, the "
+                           "float32 serving path")
+    rows += [kv_row, w8a8_row]
     gc.collect()  # frees the int8 engine before the host phases
     torch.cuda.empty_cache()
 

@@ -81,4 +81,40 @@ __device__ __forceinline__ void unpack8(const uint2 u, float (&o)[8]) {
   o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
+// One warp quantizes a row of hd elements (at most 32 * J) to int8 exactly
+// as ops/quant.py quantize_kv does on the row upcast to float32: scale =
+// max(max|x|, 1e-8) / 127, q = clip(rint(x / scale), -127, 127). rintf
+// rounds half to even like torch.round and jnp.round, and the division is
+// IEEE (no fast-math), so the payload is bit-equal to the plain version.
+// The payload goes to dst[0, hd) unless dst is null, and to sm[0, sm_len)
+// (zeros past hd) unless sm is null; returns the scale (every lane).
+template <int J, typename T>
+__device__ __forceinline__ float quant_row(const T* src, int hd, int lane,
+                                           int8_t* dst, int8_t* sm,
+                                           int sm_len) {
+  float v[J];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = lane + 32 * j;
+    v[j] = i < hd ? to_f(src[i]) : 0.f;
+    amax = fmaxf(amax, fabsf(v[j]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int i = lane + 32 * j;
+    const int8_t qv =
+        i < hd ? static_cast<int8_t>(
+                     fminf(fmaxf(rintf(v[j] / scale), -127.f), 127.f))
+               : 0;
+    if (dst != nullptr && i < hd) dst[i] = qv;
+    if (sm != nullptr && i < sm_len) sm[i] = qv;
+  }
+  return scale;
+}
+
 }  // namespace symtorch

@@ -45,7 +45,25 @@
 //    128, 256) runs at the next one: shared rows are padded, the copies
 //    past the real head dim are zero-filled (cp.async's src-size), q is
 //    zero there, and only the real columns are stored. int8 rows whose
-//    length is not a multiple of 16 bytes are copied 8 bytes at a time.
+//    length is not a multiple of 16 bytes are copied 8 bytes at a time;
+//  - the step's own K/V row can be written by the same launch (append
+//    mode: k_new, v_new [B, K, hd] and positions [B]), which also replaces
+//    the Pallas TPU kernel symmetry_tpu/ops/kv_append.py `_kernel`
+//    (pl.pallas_call at kv_append.py:151) on the serving path. A separate
+//    launch for a 17 KB write costs a launch's fixed time, about a hundred
+//    times its bytes; folded in here it adds no launch. The row goes to
+//    p = min(max(pos, 0), T - 1). Every block whose span holds p builds the
+//    row in shared memory before anything else -- for an int8 cache with
+//    exactly csrc/kv_append.cu's arithmetic (quant_row) -- and the one
+//    block of query-head chunk 0 among them stores it, payload and scale,
+//    to the cache. That happens before the test for a span with no live
+//    row, so a free slot whose stale length reached capacity, or whose
+//    kv_length excludes p, still gets its row. No block reads row p from
+//    device memory for its result: where a warp's chunk holds p, it
+//    overwrites the copy it took of that row with the shared one before it
+//    reads the chunk. So blocks of other chunks (groups of more than 8
+//    query heads) never depend on the writer's store, and nothing depends
+//    on the order of blocks.
 #include <stdint.h>
 
 #include <type_traits>
@@ -118,12 +136,14 @@ __device__ __forceinline__ void cp_async_row(uint32_t dst, const void* src,
 
 // D: the built head dim (shared rows, registers); hd: the real one, the
 // row length in device memory, at most D.
-template <typename TQ, typename TKV, int D, int GT, int CB>
+template <typename TQ, typename TKV, int D, int GT, int CB, bool kAppend>
 __global__ void __launch_bounds__(NW * 32)
-decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
-                    const TKV* __restrict__ vc, const float* __restrict__ ks,
-                    const float* __restrict__ vs,
+decode_split_kernel(const TQ* __restrict__ q, TKV* __restrict__ kc,
+                    TKV* __restrict__ vc, float* __restrict__ ks,
+                    float* __restrict__ vs,
                     const int* __restrict__ kv_length,
+                    const TQ* __restrict__ k_new, const TQ* __restrict__ v_new,
+                    const int* __restrict__ positions,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int B, int Tcap, int K, int G, int n_chunks, int layer,
                     int window, int span, int hd, float scale) {
@@ -134,6 +154,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   extern __shared__ __align__(16) uint8_t ring[];
   __shared__ float sm_m[NW], sm_l[NW];
   __shared__ float sm_acc[NW][D];
+  __shared__ __align__(16) TKV sm_new[2][D];  // append: the K and V rows
+  __shared__ float sm_new_s[2];               // and their int8 scales
 
   const int kvh = blockIdx.x / n_chunks;
   const int g0 = (blockIdx.x % n_chunks) * GT;  // first query head served
@@ -144,10 +166,48 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
   const int lo = window > 0 ? max(len - window, 0) : 0;
   const int a = max(sp * span, lo);            // this block's live rows
   const int e = min((sp + 1) * span, len);     // are [a, e)
-  if (a >= e) return;
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+
+  const long long row = (long long)K * hd;  // elements per position
+  const long long kvbase =
+      ((long long)layer * B + b) * Tcap * row + (long long)kvh * hd;
+  // Scale planes: [L, B, K, T], position minor.
+  const long long sbase = (((long long)layer * B + b) * K + kvh) * Tcap;
+
+  // Append: the row at p, if this block's span holds it (-1 otherwise).
+  // Warp 0 builds the K row, warp 1 the V row; chunk 0 stores them. All
+  // before the exit below: the write does not depend on the length.
+  int p = -1;
+  if constexpr (kAppend) {
+    const int pos = min(max(positions[b], 0), Tcap - 1);
+    if (pos >= sp * span && pos < (sp + 1) * span) {  // uniform
+      p = pos;
+      if (warp < 2) {
+        const TQ* src =
+            (warp ? v_new : k_new) + ((long long)b * K + kvh) * hd;
+        const bool store = blockIdx.x % n_chunks == 0;
+        TKV* dst = (warp ? vc : kc) + kvbase + (long long)p * row;
+        if constexpr (kQuant) {
+          const float s = quant_row<(D + 31) / 32>(
+              src, hd, lane, store ? dst : nullptr, sm_new[warp], D);
+          if (lane == 0) {
+            sm_new_s[warp] = s;
+            if (store) (warp ? vs : ks)[sbase + p] = s;
+          }
+        } else {
+          static_assert(std::is_same<TQ, TKV>::value, "cache is q's dtype");
+          for (int i = lane; i < D; i += 32) {
+            const TKV x = i < hd ? src[i] : from_f<TKV>(0.f);
+            sm_new[warp][i] = x;
+            if (store && i < hd) dst[i] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (a >= e) return;
   const int rr = lane / LPR;         // row within a pass
   const int e0 = (lane % LPR) * 8;   // first element this lane reads
 
@@ -168,13 +228,8 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     }
   }
 
-  const long long row = (long long)K * hd;  // elements per position
-  const long long kvbase =
-      ((long long)layer * B + b) * Tcap * row + (long long)kvh * hd;
   const TKV* kb = kc + kvbase;
   const TKV* vb = vc + kvbase;
-  // Scale planes: [L, B, K, T], position minor.
-  const long long sbase = (((long long)layer * B + b) * K + kvh) * Tcap;
 
   // This warp's ring, and its chunks of WR rows: w, w + NW, ...
   uint8_t* wring = ring + warp * STAGES * Gm::STAGE;
@@ -227,11 +282,33 @@ decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kc,
     if (i + STAGES - 1 < n_w) issue(i + STAGES - 1);
     cp_async_commit();
 
-    const uint8_t* st = wring + (i % STAGES) * Gm::STAGE;
+    uint8_t* st = wring + (i % STAGES) * Gm::STAGE;
+    const int t0 = a + (warp + i * NW) * WR;
+    if (kAppend && p >= t0 && p < min(t0 + WR, e)) {  // warp-uniform
+      // Append: this chunk holds row p; take it from shared memory, not
+      // from the copy of device memory.
+      const int r = p - t0;
+      const uint32_t* nk = reinterpret_cast<const uint32_t*>(sm_new[0]);
+      const uint32_t* nv = reinterpret_cast<const uint32_t*>(sm_new[1]);
+      uint32_t* dk = reinterpret_cast<uint32_t*>(st + r * Gm::ROW_BYTES);
+      uint32_t* dv =
+          reinterpret_cast<uint32_t*>(st + Gm::KV_BYTES + r * Gm::ROW_BYTES);
+      for (int x = lane; x < Gm::ROW_BYTES / 4; x += 32) {
+        dk[x] = nk[x];
+        dv[x] = nv[x];
+      }
+      if constexpr (kQuant) {
+        if (lane == 0) {
+          float* sc = reinterpret_cast<float*>(st + 2 * Gm::KV_BYTES);
+          sc[r] = sm_new_s[0];
+          sc[WR + r] = sm_new_s[1];
+        }
+      }
+      __syncwarp();
+    }
     const TKV* sk = reinterpret_cast<const TKV*>(st);
     const TKV* sv = reinterpret_cast<const TKV*>(st + Gm::KV_BYTES);
     const float* sks = reinterpret_cast<const float*>(st + 2 * Gm::KV_BYTES);
-    const int t0 = a + (warp + i * NW) * WR;
 
     float sc[NP][GT];
     bool live[NP];
@@ -369,11 +446,14 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 
 struct Args {
   const void* q;
-  const void* kc;
-  const void* vc;
-  const void* ks;
-  const void* vs;
+  void* kc;
+  void* vc;
+  void* ks;
+  void* vs;
   const void* kv_length;
+  const void* k_new;  // append mode: all three, or none
+  const void* v_new;
+  const void* positions;
   void* out;
   float* part_acc;
   float* part_ml;
@@ -381,9 +461,9 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename TQ, typename TKV, int D, int GT, int CB>
+template <typename TQ, typename TKV, int D, int GT, int CB, bool kAppend>
 cudaError_t launch(const Args& a) {
-  auto kernel = decode_split_kernel<TQ, TKV, D, GT, CB>;
+  auto kernel = decode_split_kernel<TQ, TKV, D, GT, CB, kAppend>;
   const int smem = NW * STAGES * Geo<TKV, D, CB>::STAGE;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -391,10 +471,11 @@ cudaError_t launch(const Args& a) {
   const int n_chunks = (a.G + GT - 1) / GT;
   const dim3 grid(a.K * n_chunks, a.B, a.n_spans);
   kernel<<<grid, NW * 32, smem, a.stream>>>(
-      static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.kc),
-      static_cast<const TKV*>(a.vc), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int*>(a.kv_length),
-      a.part_acc, a.part_ml, a.B, a.Tcap, a.K, a.G, n_chunks, a.layer,
+      static_cast<const TQ*>(a.q), static_cast<TKV*>(a.kc),
+      static_cast<TKV*>(a.vc), static_cast<float*>(a.ks),
+      static_cast<float*>(a.vs), static_cast<const int*>(a.kv_length),
+      static_cast<const TQ*>(a.k_new), static_cast<const TQ*>(a.v_new),
+      static_cast<const int*>(a.positions), a.part_acc, a.part_ml, a.B, a.Tcap, a.K, a.G, n_chunks, a.layer,
       a.window, a.span, a.hd, 1.0f / sqrtf((float)a.hd));
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -405,13 +486,22 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// Append mode is its own kernel: compiled into one kernel with a runtime
+// test, both modes ran 6-21% slower than before the write moved in (H100,
+// llama3-8b widths); compiled apart, neither does.
+template <typename TQ, typename TKV, int D, int GT, int CB>
+cudaError_t launch_a(const Args& a) {
+  return a.positions != nullptr ? launch<TQ, TKV, D, GT, CB, true>(a)
+                                : launch<TQ, TKV, D, GT, CB, false>(a);
+}
+
 // The smallest register tile that holds the group, at most 8 heads.
 template <typename TQ, typename TKV, int D, int CB>
 cudaError_t launch_g(const Args& a) {
-  if (a.G <= 1) return launch<TQ, TKV, D, 1, CB>(a);
-  if (a.G <= 2) return launch<TQ, TKV, D, 2, CB>(a);
-  if (a.G <= 4) return launch<TQ, TKV, D, 4, CB>(a);
-  return launch<TQ, TKV, D, 8, CB>(a);
+  if (a.G <= 1) return launch_a<TQ, TKV, D, 1, CB>(a);
+  if (a.G <= 2) return launch_a<TQ, TKV, D, 2, CB>(a);
+  if (a.G <= 4) return launch_a<TQ, TKV, D, 4, CB>(a);
+  return launch_a<TQ, TKV, D, 8, CB>(a);
 }
 
 // Rows of 16-byte multiples take 16-byte copies; int8 rows of 8 (mod 16)
@@ -443,16 +533,20 @@ cudaError_t launch_d(const Args& a) {
 // D any multiple of 8 from 16 to 256;
 // caches [L, B, T, K, D] in `kv_dtype` (== dtype, or int8 with k_scale /
 // v_scale [L, B, K, T] float32), all contiguous; kv_length [B] int32 on the
-// device. window <= 0 means no window. The capacity T is split into n_spans
-// spans of `span` positions (n_spans = ceil(T / span)); `scratch` holds
-// B * n_q * n_spans * (D + 2) float32 for the spans' partials. Launches the
-// split kernel and the combine kernel; returns the first cudaError_t.
+// device. Append mode: k_new / v_new [B, K, D] in `dtype` and positions [B]
+// int32, contiguous, the rows written into the caches (and scales) at
+// (layer, slot, min(max(pos, 0), T - 1)) before they are read; all three
+// null otherwise. window <= 0 means no window. The capacity T is split into
+// n_spans spans of `span` positions (n_spans = ceil(T / span)); `scratch`
+// holds B * n_q * n_spans * (D + 2) float32 for the spans' partials.
+// Launches the split kernel and the combine kernel; returns the first
+// cudaError_t.
 extern "C" int decode_attention_launch(int dtype, int kv_dtype, const void* q,
-                                       const void* k_cache,
-                                       const void* v_cache,
-                                       const void* k_scale,
-                                       const void* v_scale,
-                                       const void* kv_length, void* out,
+                                       void* k_cache, void* v_cache,
+                                       void* k_scale, void* v_scale,
+                                       const void* kv_length,
+                                       const void* k_new, const void* v_new,
+                                       const void* positions, void* out,
                                        void* scratch, int L, int B, int T,
                                        int K, int D, int n_q, int layer,
                                        int window, int span, int n_spans,
@@ -460,13 +554,16 @@ extern "C" int decode_attention_launch(int dtype, int kv_dtype, const void* q,
   using namespace symtorch;
   if (B <= 0 || T <= 0 || K <= 0 || n_q <= 0 || n_q % K || layer < 0 ||
       layer >= L || span <= 0 || n_spans <= 0 ||
-      (long long)n_spans * span < T || (long long)(n_spans - 1) * span >= T)
+      (long long)n_spans * span < T || (long long)(n_spans - 1) * span >= T ||
+      (k_new == nullptr) != (v_new == nullptr) ||
+      (k_new == nullptr) != (positions == nullptr))
     return cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc + (long long)B * n_q * n_spans * D;
-  const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_length, out,
-               part_acc, part_ml, B, T, K, n_q / K, layer, window, span,
-               n_spans, D, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_length, k_new,
+               v_new, positions, out, part_acc, part_ml, B, T, K, n_q / K,
+               layer, window, span, n_spans, D,
+               static_cast<cudaStream_t>(stream)};
   if (kv_dtype == kInt8) {
     if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
     if (dtype == kF32) return launch_d<float, int8_t>(a);

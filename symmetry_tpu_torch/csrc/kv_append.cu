@@ -6,10 +6,14 @@
 // (called from `kv_append`, pl.pallas_call at kv_append.py:151).
 //
 // Arithmetic, exactly ops/quant.py `quantize_kv` on the row upcast to
-// float32: scale = max(max|x|, 1e-8) / 127, q = clip(rint(x / scale),
-// -127, 127). rintf rounds half to even like torch.round and jnp.round,
-// and the division is IEEE (no fast-math), so the payload is bit-equal to
-// the plain version on the same operand.
+// float32 (common.cuh quant_row, which the decode kernel's fused write
+// shares): scale = max(max|x|, 1e-8) / 127, q = clip(rint(x / scale),
+// -127, 127), bit-equal to the plain version on the same operand.
+//
+// The serving path no longer launches this kernel: the decode-attention
+// launch writes the step's row itself (csrc/decode_attention.cu, append
+// mode). It stays the direct counterpart of the TPU kernel, held against
+// its plain version, and for callers that write a row on its own.
 //
 // What bounds it on this card: neither -- it moves B * K * (2 D + 8) bytes
 // per call (about 17 KB for llama3-8b at 8 slots), so its time is the
@@ -42,35 +46,13 @@ kv_append_kernel(const T* __restrict__ k_new, const T* __restrict__ v_new,
   const bool is_v = blockIdx.z == 1;
   const int lane = threadIdx.x;
   const T* x = (is_v ? v_new : k_new) + ((long long)b * K + kvh) * D;
-  int8_t* cache = is_v ? cv : ck;
-  float* sc = is_v ? vs : ks;
   const int pos = min(max(positions[b], 0), Tcap - 1);
-
-  float v[kMaxPerLane];
-  float amax = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int i = lane + 32 * j;
-    v[j] = i < D ? to_f(x[i]) : 0.f;
-    amax = fmaxf(amax, fabsf(v[j]));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float scale = fmaxf(amax, 1e-8f) / 127.0f;
-
-  int8_t* dst =
-      cache + ((((long long)layer * B + b) * Tcap + pos) * K + kvh) * D;
-#pragma unroll
-  for (int j = 0; j < kMaxPerLane; ++j) {
-    const int i = lane + 32 * j;
-    if (i < D) {
-      const float qv = fminf(fmaxf(rintf(v[j] / scale), -127.f), 127.f);
-      dst[i] = static_cast<int8_t>(qv);
-    }
-  }
+  int8_t* dst = (is_v ? cv : ck) +
+                ((((long long)layer * B + b) * Tcap + pos) * K + kvh) * D;
+  const float scale = quant_row<kMaxPerLane>(x, D, lane, dst, nullptr, 0);
   if (lane == 0)
-    sc[(((long long)layer * B + b) * K + kvh) * Tcap + pos] = scale;
+    (is_v ? vs : ks)[(((long long)layer * B + b) * K + kvh) * Tcap + pos] =
+        scale;
 }
 
 template <typename T>

@@ -21,15 +21,12 @@
 //    `gv::w8a16_gemv_tc_kernel` (below): swap-AB products on the tensor
 //    cores, the weight bulk-copied through a ring, K splits summed inside
 //    a thread-block cluster.
-//  - "gemv_f32", every f32 activation: `w8a16_gemv_kernel`, float32 FMAs
-//    (exact enough that float32 serving on the card reproduces the CPU's
-//    greedy tokens): one block per (panel, 8 rows, K split); a thread
-//    reads 8 columns of a weight row with one 8-byte load and keeps 8 x 8
-//    float32 sums in registers; the block's x rows sit in shared memory,
-//    staged 256 K-rows at a time; 32 rows of the panel are read per step
-//    by the 256 threads. Small panels counts (wk: 16 panels) split K so
-//    that about 264 blocks are in flight; the splits' float32 partials are
-//    summed, scaled and cast by `w8a16_epilogue_kernel`.
+//  - "gemv_f32", every f32 activation (f32 serving, any row count):
+//    `gv::w8a16_gemv_f32_kernel` (below), the tensor-core GEMV's machinery
+//    -- the bulk-copied ring, the deal of `gemv_plan`, K splits summed in
+//    a cluster -- with the products on the CUDA cores in float32 (exact
+//    enough that float32 serving on the card reproduces the CPU's greedy
+//    tokens; no TF32), up to 16 rows a tile, more rows in 16-row tiles.
 //  - "tc", M > 16 bf16 rows (prefill: up to the 2048-row token budget):
 //    operations bound (2 * M * K * N bf16 operations against the card's
 //    dense bf16 peak). `tc::w8a16_tc_kernel`: a persistent grid, one block
@@ -69,109 +66,19 @@ namespace {
 
 constexpr int PW = 64;  // packed panel width (output columns)
 
-// ---- GEMV regime -----------------------------------------------------------
-constexpr int GV_THREADS = 256;
-constexpr int GV_CPT = 8;                       // columns per thread
-constexpr int GV_TPR = PW / GV_CPT;             // threads per panel row (8)
-constexpr int GV_RPS = GV_THREADS / GV_TPR;     // panel rows per step (32)
-constexpr int GV_MT = 8;                        // x rows per block
-constexpr int GV_KC = 256;                      // K rows staged per chunk
-
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(GV_THREADS)
-w8a16_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-                  const float* __restrict__ scale, TO* __restrict__ out,
-                  float* __restrict__ part, int M, int K, int N,
-                  int k_per_split, int apply_scale) {
-  __shared__ __align__(16) float xs[GV_KC][GV_MT];
-  __shared__ float red[GV_THREADS / 32][GV_MT][PW];
-
-  const int panel = blockIdx.x;
-  const int m0 = blockIdx.y * GV_MT;
-  const int split = blockIdx.z;
-  const int k_lo = split * k_per_split;
-  const int k_hi = min(K, k_lo + k_per_split);
-  const int tid = threadIdx.x;
-  const int cg = tid % GV_TPR;   // column group: columns cg*8 .. cg*8+7
-  const int r = tid / GV_TPR;    // row within a step
-  const int mrows = min(GV_MT, M - m0);
-  const int8_t* wp = w + (long long)panel * K * PW + cg * GV_CPT;
-
-  float acc[GV_MT][GV_CPT];
-#pragma unroll
-  for (int m = 0; m < GV_MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_CPT; ++c) acc[m][c] = 0.f;
-
-  for (int kc = k_lo; kc < k_hi; kc += GV_KC) {
-    const int kn = min(GV_KC, k_hi - kc);
-    __syncthreads();
-    for (int i = tid; i < GV_KC * GV_MT; i += GV_THREADS) {
-      const int m = i / GV_KC, kk = i % GV_KC;
-      xs[kk][m] = (m < mrows && kk < kn)
-                      ? to_f(x[(long long)(m0 + m) * K + kc + kk])
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = r; kk < kn; kk += GV_RPS) {
-      const uint2 raw =
-          *reinterpret_cast<const uint2*>(wp + (long long)(kc + kk) * PW);
-      float wf[8];
-      unpack8(raw, wf);
-      const float4 xa = *reinterpret_cast<const float4*>(&xs[kk][0]);
-      const float4 xb = *reinterpret_cast<const float4*>(&xs[kk][4]);
-      const float xv[GV_MT] = {xa.x, xa.y, xa.z, xa.w,
-                               xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-      for (int m = 0; m < GV_MT; ++m)
-#pragma unroll
-        for (int c = 0; c < GV_CPT; ++c)
-          acc[m][c] = fmaf(xv[m], wf[c], acc[m][c]);
-    }
-  }
-
-  // Sum the rows of a step: lanes cg, cg + 8, cg + 16, cg + 24 of a warp,
-  // then the 8 warps through shared memory.
-  const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int m = 0; m < GV_MT; ++m)
-#pragma unroll
-    for (int c = 0; c < GV_CPT; ++c) {
-      float v = acc[m][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      if (lane < GV_TPR) red[warp][m][cg * GV_CPT + c] = v;
-    }
-  __syncthreads();
-  for (int i = tid; i < GV_MT * PW; i += GV_THREADS) {
-    const int m = i / PW, col = i % PW;
-    if (m >= mrows) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < GV_THREADS / 32; ++wi) s += red[wi][m][col];
-    const int n = panel * PW + col;
-    const long long o = (long long)(m0 + m) * N + n;
-    if (gridDim.z == 1) {
-      out[o] = from_f<TO>(apply_scale ? s * scale[n] : s);
-    } else {
-      part[(long long)split * M * N + o] = s;
-    }
-  }
+// One int8 value of a 32-bit word already XORed with 0x80808080, as a
+// float, exactly: selector 0x7650 + i puts byte i, b + 128 for the value
+// b, into the mantissa of 0x4B000000 (the float 2^23 + b + 128), and 2^23
+// + 128 is subtracted. A permute and a subtraction, off the quarter-rate
+// int-to-float path.
+__device__ __forceinline__ float magic_f(uint32_t w, uint32_t sel) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
 }
 
-template <typename TO>
-__global__ void w8a16_epilogue_kernel(const float* __restrict__ part,
-                                      const float* __restrict__ scale,
-                                      TO* __restrict__ out, int M, int N,
-                                      int splits, int apply_scale) {
-  const long long total = (long long)M * N;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s += part[sp * total + i];
-    out[i] = from_f<TO>(apply_scale ? s * scale[i % N] : s);
-  }
+// The word's four values.
+__device__ __forceinline__ void cvt4f(uint32_t w, float (&f)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = magic_f(w, 0x7650u + i);
 }
 
 // ---- Tensor-core regime -----------------------------------------------------
@@ -211,15 +118,12 @@ struct Bars {
 };
 
 // Four int8 values (one 32-bit word, already XORed with 0x80808080) to two
-// bf16 pairs, exactly: byte b becomes the float 2^23 + b by a byte permute
-// into the mantissa of 0x4B000000, and 2^23 + 128 is subtracted.
+// bf16 pairs, exactly (cvt4f, then the bf16 rounding, exact for them).
 __device__ __forceinline__ void cvt4(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const float f0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7651)) - 8388736.f;
-  const float f2 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7652)) - 8388736.f;
-  const float f3 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7653)) - 8388736.f;
-  lo = pack_bf16(f0, f1);
-  hi = pack_bf16(f2, f3);
+  float f[4];
+  cvt4f(w, f);
+  lo = pack_bf16(f[0], f[1]);
+  hi = pack_bf16(f[2], f[3]);
 }
 
 template <int MT, typename TO>
@@ -458,37 +362,60 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
 
 }  // namespace tc
 
-// ---- GEMV regime on the tensor cores (bf16 x, M <= 16) ----------------------
-// Swap-AB: a panel's 64 output columns are the 64-row A operand of wgmma
-// m64nNk16 (the converted weight, MN-major through the transpose
-// immediate), x's rows, zero-padded to N = NP (8 or 16), the narrow B
-// (K-major, as x lies in memory), so one read of the weight serves every
-// row. Work items are (panel, K split) (ops/qmm.py gemv_plan): the splits
-// of a panel run on the blocks of one thread-block cluster, block rank r
-// always split r; cluster c of G takes panels c, c + G, ... Per block:
+// ---- GEMV regimes: bf16 x on the tensor cores, float32 x on FMAs ----------
+// Both GEMV kernels share one deal and one pipeline. Work items are
+// (row tile, panel, K split) (ops/qmm.py gemv_plan): the splits of an item
+// run on the blocks of one thread-block cluster, block rank r always split
+// r; cluster c of G takes items c, c + G, ... of the panels x row tiles,
+// row tile fastest (bf16 rows are one tile). Per block:
 //  - a producer warp whose one thread brings each 64-deep step into a ring
-//    of 20 stages with an mbarrier each: the panel's 4,096 contiguous
-//    weight bytes by a bulk copy, and beside them the step's x tile (NP
-//    rows x 64 columns, 1 or 2 KB, rows past M and columns past K
-//    zero-filled) by TMA, from L2 after the first panel. With a stage in
-//    each warpgroup's hands, 64 KB of weight stay in flight, past the
-//    ~25 KB an SM needs to cover device-memory latency at the card's rate
-//    (a deeper ring measured no faster). Nothing is sized by K, so any K
-//    takes the kernel;
-//  - four warpgroups take every fourth step: each converts its int8 stage
-//    to a bf16 staging tile (the tensor-core kernel's converter: prmt into
-//    2^23's mantissa, one subtract, cvt.rn.bf16x2, 128-byte swizzled rows,
-//    fence.proxy.async), issues four wgmma k16 products into its own
-//    accumulator, waits for them and hands the stage (weight and x) back;
-//    four in turn keep the conversion ahead of the copies;
-//  - at a panel's end each warpgroup parks its [NP x 64] float32 sums in
-//    shared memory and goes on with the next panel, and an epilogue warp
-//    adds the four in a fixed order; the cluster's other blocks store their
-//    sums into rank 0's shared memory (distributed shared memory, an
-//    mbarrier arrival a lane), and rank 0's epilogue warp adds them in
-//    rank order, scales, casts and stores. No second kernel, no partials
-//    in device memory, no float atomics: the result does not change from
-//    run to run.
+//    of stages with an mbarrier each: the panel's 4,096 contiguous weight
+//    bytes by a bulk copy, and beside them the step's x tile (NP rows x 64
+//    columns, rows past M and columns past K zero-filled) by TMA, from L2
+//    after the first panel. With a stage in each warpgroup's hands, 64 KB
+//    of weight stay in flight, past the ~25 KB an SM needs to cover
+//    device-memory latency at the card's rate. Nothing is sized by K, so
+//    any K takes the kernels;
+//  - four warpgroups take every fourth step (below, per kernel);
+//  - at an item's end the consumers park their [NP x 64] float32 sums in
+//    shared memory and go on with the next item, and an epilogue warp adds
+//    them in a fixed order; the cluster's other blocks store their sums
+//    into rank 0's shared memory (distributed shared memory, an mbarrier
+//    arrival a lane), and rank 0's epilogue warp adds them in rank order,
+//    scales, casts and stores. No second kernel, no partials in device
+//    memory, no float atomics: the result does not change from run to run.
+//
+// bf16 x, M <= 16 (`w8a16_gemv_tc_kernel`). Swap-AB: a panel's 64 output
+// columns are the 64-row A operand of wgmma m64nNk16 (the converted
+// weight, MN-major through the transpose immediate), x's rows, zero-padded
+// to N = NP (8 or 16), the narrow B (K-major, as x lies in memory, TMA
+// under the 128-byte swizzle), so one read of the weight serves every row.
+// A warpgroup converts its int8 stage to a bf16 staging tile (the
+// tensor-core kernel's converter: prmt into 2^23's mantissa, one subtract,
+// cvt.rn.bf16x2, 128-byte swizzled rows, fence.proxy.async), issues four
+// wgmma k16 products into its own accumulator, waits for them and hands the
+// stage back; four in turn keep the conversion ahead of the copies. Ring:
+// 20 stages (a deeper one measured no faster).
+//
+// float32 x, any M (`w8a16_gemv_f32_kernel`), in tiles of NP = 8 or 16
+// rows. The products stay on the CUDA cores in float32 (no TF32), so the
+// result is as exact as the plain version's up to summation order. At 16
+// rows the FMAs outweigh the weight's bytes (`wg`: 0.94 G FMAs), so the
+// design spends as few other instructions and shared-memory wavefronts as
+// it can on each:
+//  - the x tile is float32 [NP][64] (no swizzle), twice the bf16 tile's
+//    bytes, so the ring has 16 stages;
+//  - warp w of a warpgroup takes rows 16 w .. 16 w + 15 of the step, lane
+//    l output columns 2 l and 2 l + 1. Per quad of rows a lane loads the
+//    weight word holding its two bytes (two lanes a word, one wavefront
+//    a row), converts its two values (magic_f: a permute and a
+//    subtraction each, off the quarter-rate int-to-float path, which alone
+//    would cost ~16 us on `wg`), and for each x row one 16-byte load of
+//    four k values, the same address in every lane (a broadcast), feeds 8
+//    FMAs;
+//  - every lane sums its rows in a fixed order, and each warp parks one
+//    [NP x 64] partial at an item's end, which the epilogue warp adds in
+//    warpgroup-then-warp order, so a stream is the same run to run.
 namespace gv {
 
 constexpr int NWG = 4;                  // converter-consumer warpgroups
@@ -498,7 +425,10 @@ constexpr int NT = NWG * 128 + 64;
 constexpr int STEP = 64;                // K rows a step
 constexpr int W8_BYTES = STEP * PW;     // an int8 stage: 4,096 bytes
 constexpr int WB_BYTES = STEP * 128;    // the step as bf16 rows: 8,192
-constexpr int RING = 20;                // stages
+constexpr int RING = 20;                // stages, bf16 x
+constexpr int RING_F32 = 16;            // stages, float32 x
+constexpr int NRED = NWG;               // partials an item, bf16 x
+constexpr int NRED_F32 = NWG * 4;       // float32 x: one a consuming warp
 
 struct Bars {
   uint64_t full[RING], empty[RING], red_full, red_empty, in_full, in_free;
@@ -510,9 +440,136 @@ struct Bars {
 // sums.
 constexpr size_t smem_bytes(int np, int cluster) {
   return 1024 + size_t(RING) * (np * 128 + W8_BYTES) +
-         size_t(NWG) * WB_BYTES + size_t(NWG + cluster - 1) * np * PW * 4;
+         size_t(NWG) * WB_BYTES + size_t(NRED + cluster - 1) * np * PW * 4;
 }
 static_assert(smem_bytes(16, 8) + sizeof(Bars) <= 232448, "ring does not fit");
+
+// float32 x: the ring's x tiles (NP rows x 256 bytes) and weight stages,
+// each consuming warp's parked sums, rank 0's inbox.
+constexpr size_t smem_bytes_f32(int np, int cluster) {
+  return 1024 + size_t(RING_F32) * (np * STEP * 4 + W8_BYTES) +
+         size_t(NRED_F32 + cluster - 1) * np * PW * 4;
+}
+static_assert(smem_bytes_f32(16, 8) + sizeof(Bars) <= 232448,
+              "ring does not fit");
+
+// A block's share of the deal: its rank (= K split) and cluster, its K
+// rows, and the items its cluster takes.
+struct Deal {
+  int rank, csize, G, cid, k_lo, k_hi, nsteps, row_tiles, items;
+  __device__ Deal(int M, int K, int N, int k_per_split, int np) {
+    rank = (int)cluster_ctarank();
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(csize));
+    G = gridDim.x / csize;                 // clusters
+    cid = blockIdx.x / csize;              // this block's cluster
+    k_lo = rank * k_per_split;
+    k_hi = min(K, k_lo + k_per_split);
+    nsteps = (k_hi - k_lo + STEP - 1) / STEP;
+    row_tiles = (M + np - 1) / np;
+    const int total = (N / PW) * row_tiles;
+    items = total > cid ? (total - cid + G - 1) / G : 0;
+  }
+  __device__ int panel(int i) const { return (cid + i * G) / row_tiles; }
+  __device__ int row0(int i, int np) const {
+    return (cid + i * G) % row_tiles * np;
+  }
+};
+
+// The producer thread: each step of this block's items through the ring,
+// its x tile (XT bytes) and the panel's weight rows on one barrier.
+template <int R, int NP, int XT>
+__device__ __forceinline__ void produce(const Deal& d, const CUtensorMap* tx,
+                                        const int8_t* w, int K, uint32_t sX,
+                                        uint32_t sW8, uint32_t full,
+                                        uint32_t empty) {
+  int it = 0;
+  for (int i = 0; i < d.items; ++i) {
+    const int p = d.panel(i), row0 = d.row0(i, NP);
+    for (int j = 0; j < d.nsteps; ++j, ++it) {
+      const int s = it % R;
+      if (it >= R) mbar_wait(empty + 8 * s, ((it / R) & 1) ^ 1);
+      const int k0 = d.k_lo + j * STEP;
+      const uint32_t bytes = min(STEP, d.k_hi - k0) * PW;
+      mbar_expect_tx(full + 8 * s, XT + bytes);
+      tma_load_2d(sX + s * XT, tx, full + 8 * s, k0, row0);
+      bulk_load(sW8 + s * W8_BYTES, w + ((long long)p * K + k0) * PW, bytes,
+                full + 8 * s);
+    }
+  }
+}
+
+// The epilogue warp. Per item: the NR parked partials added in order;
+// then the cluster's, in rank order, on rank 0, which scales, casts and
+// stores. Lane l owns entries l, l + 32, ... of the [NP][64] sums.
+template <int NP, int NR, typename TO>
+__device__ __forceinline__ void epilogue(
+    const Deal& d, const float* red, const float* in, uint32_t sIn,
+    uint32_t red_full, uint32_t red_empty, uint32_t in_full, uint32_t in_free,
+    int lane, const float* scale, TO* out, int M, int N, int apply_scale) {
+  constexpr int SUMS = NP * PW;  // floats of a [NP x 64] sum
+  constexpr int PER = SUMS / 32;
+  for (int i = 0; i < d.items; ++i) {
+    mbar_wait(red_full, i & 1);
+    float v[PER];
+#pragma unroll
+    for (int x = 0; x < PER; ++x) {
+      const int e = lane + 32 * x;
+      v[x] = red[e];
+#pragma unroll
+      for (int g = 1; g < NR; ++g) v[x] += red[g * SUMS + e];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(red_empty);
+    if (d.csize > 1 && d.rank > 0) {
+      // Hand the sums to rank 0 once it has read the previous ones.
+      if (i > 0) mbar_wait_cluster(in_free, (i - 1) & 1);
+      const uint32_t slot = map_rank(sIn, 0) + (d.rank - 1) * SUMS * 4;
+#pragma unroll
+      for (int x = 0; x < PER; ++x)
+        st_cluster(slot + (lane + 32 * x) * 4, v[x]);
+      mbar_arrive_cluster(map_rank(in_full, 0));
+      continue;
+    }
+    if (d.csize > 1) {
+      mbar_wait_cluster(in_full, i & 1);
+      for (int r = 1; r < d.csize; ++r)
+#pragma unroll
+        for (int x = 0; x < PER; ++x)
+          v[x] += in[(r - 1) * SUMS + lane + 32 * x];
+      if (i + 1 < d.items)
+        for (int r = 1; r < d.csize; ++r)
+          mbar_arrive_cluster(map_rank(in_free, r));
+    }
+    const int p = d.panel(i), row0 = d.row0(i, NP);
+#pragma unroll
+    for (int x = 0; x < PER; ++x) {
+      const int e = lane + 32 * x;
+      const int m = row0 + e / PW, n = p * PW + e % PW;
+      if (m < M)
+        out[(long long)m * N + n] =
+            from_f<TO>(apply_scale ? v[x] * scale[n] : v[x]);
+    }
+  }
+}
+
+// Barriers of a launch: the ring's (R stages), the parked sums' and the
+// inbox's. Then every block's barriers exist before any block reaches into
+// another.
+__device__ __forceinline__ void init_bars(Bars& bars, int R, int csize) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < R; ++s) {
+      mbar_init(smem_u32(&bars.full[s]), 1);
+      mbar_init(smem_u32(&bars.empty[s]), 4);  // one per consuming warp
+    }
+    mbar_init(smem_u32(&bars.red_full), NWG * 128);  // every consumer
+    mbar_init(smem_u32(&bars.red_empty), 1);         // the epilogue warp
+    mbar_init(smem_u32(&bars.in_full),
+              csize > 1 ? (csize - 1) * 32 : 1);     // remote lanes
+    mbar_init(smem_u32(&bars.in_free), 32);  // rank 0's epilogue lanes
+    mbar_init_fence();
+  }
+  cluster_sync();
+}
 
 template <int NP>
 __device__ __forceinline__ void mma(float (&d)[NP / 2], uint64_t a,
@@ -531,17 +588,7 @@ w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   __shared__ Bars bars;
   constexpr int XT = NP * 128;          // an x tile: one step
   constexpr int SUMS = NP * PW;         // floats of a [NP x 64] sum
-  constexpr int PER = SUMS / 32;        // of them an epilogue lane owns
-  const int rank = (int)cluster_ctarank();
-  int csize;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(csize));
-  const int G = gridDim.x / csize;                // clusters
-  const int cid = blockIdx.x / csize;             // this block's cluster
-  const int k_lo = rank * k_per_split;
-  const int k_hi = min(K, k_lo + k_per_split);
-  const int nsteps = (k_hi - k_lo + STEP - 1) / STEP;
-  const int panels = N / PW;
-  const int items = panels > cid ? (panels - cid + G - 1) / G : 0;
+  const Deal d(M, K, N, k_per_split, NP);
 
   // One layout for every rank, so rank 0's inbox sits at the same offset
   // in each block's view.
@@ -550,98 +597,27 @@ w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t sW8 = sX + RING * XT;
   const uint32_t sWB = sW8 + RING * W8_BYTES;
   const uint32_t sRed = sWB + NWG * WB_BYTES;
-  const uint32_t sIn = sRed + NWG * SUMS * 4;
+  const uint32_t sIn = sRed + NRED * SUMS * 4;
   float* red = reinterpret_cast<float*>(gv_smem + (sRed - base));
   const float* in = reinterpret_cast<const float*>(gv_smem + (sIn - base));
   const uint32_t full = smem_u32(&bars.full[0]);  // + 8 s
   const uint32_t empty = smem_u32(&bars.empty[0]);
   const uint32_t red_full = smem_u32(&bars.red_full);
   const uint32_t red_empty = smem_u32(&bars.red_empty);
-  const uint32_t in_full = smem_u32(&bars.in_full);
-  const uint32_t in_free = smem_u32(&bars.in_free);
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < RING; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 4);  // one arrival per consuming warp
-    }
-    mbar_init(red_full, NWG * 128);  // every consuming thread
-    mbar_init(red_empty, 1);         // the epilogue warp
-    mbar_init(in_full, csize > 1 ? (csize - 1) * 32 : 1);  // remote lanes
-    mbar_init(in_free, 32);          // rank 0's epilogue lanes
-    mbar_init_fence();
-  }
-  // Every block's barriers exist before any block reaches into another.
-  cluster_sync();
+  init_bars(bars, RING, d.csize);
 
+  const int tid = threadIdx.x;
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int warp_id = __shfl_sync(0xffffffffu, tid >> 5, 0);
   const int lane = tid & 31;
   if (warp_id == PRODUCER_WARP) {
-    // Each step of this block's items through the ring: its x tile and
-    // the panel's weight rows, on one barrier.
-    if (lane == 0) {
-      int it = 0;
-      for (int p = cid; p < panels; p += G) {
-        for (int j = 0; j < nsteps; ++j, ++it) {
-          const int s = it % RING;
-          if (it >= RING) mbar_wait(empty + 8 * s, ((it / RING) & 1) ^ 1);
-          const int k0 = k_lo + j * STEP;
-          const uint32_t bytes = min(STEP, k_hi - k0) * PW;
-          mbar_expect_tx(full + 8 * s, XT + bytes);
-          tma_load_2d(sX + s * XT, &tx, full + 8 * s, k0, 0);
-          bulk_load(sW8 + s * W8_BYTES, w + ((long long)p * K + k0) * PW,
-                    bytes, full + 8 * s);
-        }
-      }
-    }
+    if (lane == 0)
+      produce<RING, NP, XT>(d, &tx, w, K, sX, sW8, full, empty);
     __syncwarp();
   } else if (warp_id == EPILOGUE_WARP) {
-    // Per item: the warpgroups' sums added in warpgroup order; then the
-    // cluster's, in rank order, on rank 0, which scales, casts and
-    // stores. Lane l owns entries l, l + 32, ... of the [NP][64] sums.
-    for (int i = 0; i < items; ++i) {
-      mbar_wait(red_full, i & 1);
-      float v[PER];
-#pragma unroll
-      for (int x = 0; x < PER; ++x) {
-        const int e = lane + 32 * x;
-        v[x] = red[e];
-#pragma unroll
-        for (int g = 1; g < NWG; ++g) v[x] += red[g * SUMS + e];
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(red_empty);
-      if (csize > 1 && rank > 0) {
-        // Hand the sums to rank 0 once it has read the previous ones.
-        if (i > 0) mbar_wait_cluster(in_free, (i - 1) & 1);
-        const uint32_t slot = map_rank(sIn, 0) + (rank - 1) * SUMS * 4;
-#pragma unroll
-        for (int x = 0; x < PER; ++x)
-          st_cluster(slot + (lane + 32 * x) * 4, v[x]);
-        mbar_arrive_cluster(map_rank(in_full, 0));
-        continue;
-      }
-      if (csize > 1) {
-        mbar_wait_cluster(in_full, i & 1);
-        for (int r = 1; r < csize; ++r)
-#pragma unroll
-          for (int x = 0; x < PER; ++x)
-            v[x] += in[(r - 1) * SUMS + lane + 32 * x];
-        if (i + 1 < items)
-          for (int r = 1; r < csize; ++r)
-            mbar_arrive_cluster(map_rank(in_free, r));
-      }
-      const int p = cid + i * G;
-#pragma unroll
-      for (int x = 0; x < PER; ++x) {
-        const int e = lane + 32 * x;
-        const int m = e / PW, n = p * PW + e % PW;
-        if (m < M)
-          out[(long long)m * N + n] =
-              from_f<TO>(apply_scale ? v[x] * scale[n] : v[x]);
-      }
-    }
+    epilogue<NP, NRED, TO>(d, red, in, sIn, red_full, red_empty,
+                           smem_u32(&bars.in_full), smem_u32(&bars.in_free),
+                           lane, scale, out, M, N, apply_scale);
     __syncwarp();
   } else if (wg < NWG) {
     const int ct = tid - wg * 128;
@@ -650,10 +626,10 @@ w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
     float* my_red = red + wg * SUMS;
     float acc[NP / 2];
     int it = 0;  // ring steps walked
-    for (int i = 0; i < items; ++i) {
+    for (int i = 0; i < d.items; ++i) {
 #pragma unroll
       for (int e = 0; e < NP / 2; ++e) acc[e] = 0.f;
-      for (int j = 0; j < nsteps; ++j, ++it) {
+      for (int j = 0; j < d.nsteps; ++j, ++it) {
         if (j % NWG != wg) continue;
         const int s = it % RING;
         mbar_wait(full + 8 * s, (it / RING) & 1);
@@ -713,6 +689,109 @@ w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
   cluster_sync();
 }
 
+template <int NP, typename TO>
+__global__ void __launch_bounds__(NT, 1)
+w8a16_gemv_f32_kernel(const __grid_constant__ CUtensorMap tx,
+                      const int8_t* __restrict__ w,
+                      const float* __restrict__ scale, TO* __restrict__ out,
+                      int M, int K, int N, int k_per_split, int apply_scale) {
+  extern __shared__ __align__(1024) uint8_t gv_smem[];
+  __shared__ Bars bars;
+  constexpr int XT = NP * STEP * 4;     // an x tile: NP float32 rows
+  constexpr int SUMS = NP * PW;         // floats of a [NP x 64] sum
+  const Deal d(M, K, N, k_per_split, NP);
+
+  const uint32_t base = smem_u32(gv_smem);
+  const uint32_t sX = (base + 1023) & ~1023u;
+  const uint32_t sW8 = sX + RING_F32 * XT;
+  const uint32_t sRed = sW8 + RING_F32 * W8_BYTES;
+  const uint32_t sIn = sRed + NRED_F32 * SUMS * 4;
+  float* red = reinterpret_cast<float*>(gv_smem + (sRed - base));
+  const float* in = reinterpret_cast<const float*>(gv_smem + (sIn - base));
+  const uint32_t full = smem_u32(&bars.full[0]);  // + 8 s
+  const uint32_t empty = smem_u32(&bars.empty[0]);
+  const uint32_t red_full = smem_u32(&bars.red_full);
+  const uint32_t red_empty = smem_u32(&bars.red_empty);
+  init_bars(bars, RING_F32, d.csize);
+
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp_id = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int lane = tid & 31;
+  if (warp_id == PRODUCER_WARP) {
+    if (lane == 0)
+      produce<RING_F32, NP, XT>(d, &tx, w, K, sX, sW8, full, empty);
+    __syncwarp();
+  } else if (warp_id == EPILOGUE_WARP) {
+    epilogue<NP, NRED_F32, TO>(d, red, in, sIn, red_full, red_empty,
+                               smem_u32(&bars.in_full),
+                               smem_u32(&bars.in_free), lane, scale, out, M,
+                               N, apply_scale);
+    __syncwarp();
+  } else if (wg < NWG) {
+    const int warp = (tid >> 5) & 3;  // step rows 16 warp .. 16 warp + 15
+    // Lane l's columns 2l, 2l + 1: bytes 2 (l % 2), + 1 of word l / 2.
+    const uint32_t sel = 0x7650u + 2 * (lane & 1);
+    float* my_red = red + (wg * 4 + warp) * SUMS;
+    float acc[NP][2];
+    int it = 0;  // ring steps walked
+    for (int i = 0; i < d.items; ++i) {
+#pragma unroll
+      for (int m = 0; m < NP; ++m) acc[m][0] = acc[m][1] = 0.f;
+      for (int j = 0; j < d.nsteps; ++j, ++it) {
+        if (j % NWG != wg) continue;
+        const int s = it % RING_F32;
+        mbar_wait(full + 8 * s, (it / RING_F32) & 1);
+        // Rows past K (a half last step) hold stale weight bytes, always
+        // a finite value, against x's zero fill: they add exactly zero.
+        const uint32_t* ws =
+            reinterpret_cast<const uint32_t*>(gv_smem + (sW8 - base) +
+                                              s * W8_BYTES) +
+            16 * warp * (PW / 4) + (lane >> 1);
+        const float* xs =
+            reinterpret_cast<const float*>(gv_smem + (sX - base) + s * XT) +
+            16 * warp;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {  // a quad of rows: k = 4 h + r
+          float wf[4][2];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const uint32_t u = ws[(4 * h + r) * (PW / 4)] ^ 0x80808080u;
+            wf[r][0] = magic_f(u, sel);
+            wf[r][1] = magic_f(u, sel + 1);
+          }
+#pragma unroll
+          for (int m = 0; m < NP; ++m) {
+            const float4 xv =
+                *reinterpret_cast<const float4*>(xs + m * STEP + 4 * h);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float a = acc[m][c];
+              a = fmaf(xv.x, wf[0][c], a);
+              a = fmaf(xv.y, wf[1][c], a);
+              a = fmaf(xv.z, wf[2][c], a);
+              a = fmaf(xv.w, wf[3][c], a);
+              acc[m][c] = a;
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
+      // Park the warp's sums once the epilogue has read the previous
+      // item's.
+      if (i > 0) mbar_wait(red_empty, (i - 1) & 1);
+#pragma unroll
+      for (int m = 0; m < NP; ++m)
+        *reinterpret_cast<float2*>(my_red + m * PW + 2 * lane) =
+            make_float2(acc[m][0], acc[m][1]);
+      mbar_arrive(red_full);
+    }
+  }
+  // No block leaves while another may still reach into its shared memory.
+  cluster_sync();
+}
+
 // A launch of `clusters` clusters of `cluster` blocks (not copyable: the
 // configuration points at its own attribute).
 struct Config {
@@ -733,37 +812,56 @@ struct Config {
   Config(const Config&) = delete;
 };
 
-template <int NP, typename TO>
-cudaError_t allow_smem(int cluster) {
-  return cudaFuncSetAttribute(w8a16_gemv_tc_kernel<NP, TO>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem_bytes(NP, cluster));
-}
+// The kernel of an x type and row tile, and its shared memory.
+template <typename TX, int NP, typename TO>
+struct Kernel {
+  static constexpr bool kF32 = std::is_same<TX, float>::value;
+  static auto fn() {
+    if constexpr (kF32) return w8a16_gemv_f32_kernel<NP, TO>;
+    else return w8a16_gemv_tc_kernel<NP, TO>;
+  }
+  static size_t smem(int cluster) {
+    return kF32 ? smem_bytes_f32(NP, cluster) : smem_bytes(NP, cluster);
+  }
+  static cudaError_t allow(int cluster) {
+    return cudaFuncSetAttribute(fn(),
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem(cluster));
+  }
+};
 
 // Clusters of `cluster` blocks the card holds at once (ops/qmm.py
-// gemv_capacity reads it to deal the work). Both row variants hold one
-// block an SM, so the 16-row one answers for both.
+// gemv_capacity reads it to deal the work). Both row tiles of a kernel
+// hold one block an SM, so the 16-row one answers for both.
+template <typename TX>
 cudaError_t capacity(int cluster, int* fit) {
-  cudaError_t err = allow_smem<16, __nv_bfloat16>(cluster);
+  using Kn = Kernel<TX, 16, float>;
+  cudaError_t err = Kn::allow(cluster);
   if (err != cudaSuccess) return err;
-  Config c(cluster, 1, smem_bytes(16, cluster), nullptr);
-  return cudaOccupancyMaxActiveClusters(
-      fit, w8a16_gemv_tc_kernel<16, __nv_bfloat16>, &c.cfg);
+  Config c(cluster, 1, Kn::smem(cluster), nullptr);
+  return cudaOccupancyMaxActiveClusters(fit, Kn::fn(), &c.cfg);
 }
 
 // Exactly the deal of ops/qmm.py gemv_plan: `clusters` clusters, each
-// resident at once, so every block streams about the same bytes.
-template <int NP, typename TO>
+// resident at once, so every block streams about the same bytes. x by TMA:
+// bf16 rows under the 128-byte swizzle the wgmma B descriptor reads,
+// float32 rows plain (256 bytes a step).
+template <typename TX, int NP, typename TO>
 cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
                    int M, int K, int N, int cluster, int k_per_split,
                    int clusters, int apply_scale, cudaStream_t s) {
+  using Kn = Kernel<TX, NP, TO>;
   CUtensorMap tx;
-  if (!make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M, K, NP))
-    return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<NP, TO>(cluster);
+  const bool mapped =
+      Kn::kF32 ? make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, M, K,
+                             NP, STEP * 4, CU_TENSOR_MAP_SWIZZLE_NONE)
+               : make_map_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, M,
+                             K, NP);
+  if (!mapped) return cudaErrorInvalidValue;
+  cudaError_t err = Kn::allow(cluster);
   if (err != cudaSuccess) return err;
-  Config c(cluster, clusters, smem_bytes(NP, cluster), s);
-  return cudaLaunchKernelEx(&c.cfg, w8a16_gemv_tc_kernel<NP, TO>, tx,
+  Config c(cluster, clusters, Kn::smem(cluster), s);
+  return cudaLaunchKernelEx(&c.cfg, Kn::fn(), tx,
                             static_cast<const int8_t*>(w),
                             static_cast<const float*>(scale),
                             static_cast<TO*>(out), M, K, N, k_per_split,
@@ -783,26 +881,6 @@ cudaError_t by_out(int out_dtype, F f) {
   return cudaErrorInvalidValue;
 }
 
-template <typename TO>
-cudaError_t launch_gemv_f32(const void* x, const void* w, const void* scale,
-                            void* out, void* part, int M, int K, int N,
-                            int splits, int k_per_split, int apply_scale,
-                            cudaStream_t s) {
-  const dim3 grid(N / PW, (M + GV_MT - 1) / GV_MT, splits);
-  w8a16_gemv_kernel<float, TO><<<grid, GV_THREADS, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<TO*>(out),
-      static_cast<float*>(part), M, K, N, k_per_split, apply_scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long total = (long long)M * N;
-  const int blocks = (int)std::min<long long>((total + 255) / 256, 4096);
-  w8a16_epilogue_kernel<TO><<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<const float*>(scale),
-      static_cast<TO*>(out), M, N, splits, apply_scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace symtorch
 
@@ -811,21 +889,19 @@ cudaError_t launch_gemv_f32(const void* x, const void* w, const void* scale,
 // out [M, N] in `out_dtype`; K a multiple of 32, N of 64. `regime` names
 // the kernel, and each takes only its own arguments (the others must be
 // as stated):
-//  - kGemv, the tensor-core GEMV: bf16 x, M <= 16; `splits` K splits (the
-//    cluster size, at most 8) of `k_per_split` rows, a multiple of 64 when
-//    split; `clusters` clusters; part null, tile_rows 0;
-//  - kGemvF32, the float32 FMA GEMV: float32 x; `splits` K splits of
-//    `k_per_split` rows, a multiple of 256 when split; part a float32
-//    workspace of splits * M * N when split, else null; clusters and
+//  - kGemv, the tensor-core GEMV: bf16 x, M <= 16; kGemvF32, the float32
+//    GEMV: float32 x, any M. Both: `splits` K splits (the cluster size, at
+//    most 8) of `k_per_split` rows, a multiple of 64 when split;
+//    `clusters` clusters, at most the items (panels x 8- or 16-row tiles);
 //    tile_rows 0;
 //  - kTc, the tensor-core kernel: bf16 x; `tile_rows` 128 or 256; splits
-//    1, k_per_split K, clusters 0, part null.
-// Returns the cudaError_t of the launches.
+//    1, k_per_split K, clusters 0.
+// Returns the cudaError_t of the launch.
 extern "C" int w8a16_launch(int regime, int x_dtype, int out_dtype,
                             const void* x, const void* w, const void* scale,
-                            void* out, void* part, int M, int K, int N,
-                            int splits, int k_per_split, int clusters,
-                            int apply_scale, int tile_rows, void* stream) {
+                            void* out, int M, int K, int N, int splits,
+                            int k_per_split, int clusters, int apply_scale,
+                            int tile_rows, void* stream) {
   using namespace symtorch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // every K row in exactly one non-empty split
@@ -833,33 +909,31 @@ extern "C" int w8a16_launch(int regime, int x_dtype, int out_dtype,
       k_per_split <= 0 || (long long)splits * k_per_split < K ||
       (long long)(splits - 1) * k_per_split >= K)
     return cudaErrorInvalidValue;
+  const int np = M <= 8 ? 8 : 16;  // a GEMV's row tile
   switch (regime) {
     case kGemv:
-      if (x_dtype != kBF16 || M > 16 || splits > 8 || clusters < 1 ||
-          clusters > N / PW || (splits > 1 && k_per_split % gv::STEP) ||
-          part != nullptr || tile_rows != 0)
+    case kGemvF32:
+      if (x_dtype != (regime == kGemv ? kBF16 : kF32) ||
+          (regime == kGemv && M > 16) || splits > 8 || clusters < 1 ||
+          clusters > (long long)(N / PW) * ((M + np - 1) / np) ||
+          (splits > 1 && k_per_split % gv::STEP) || tile_rows != 0)
         return cudaErrorInvalidValue;
       return by_out(out_dtype, [&](auto o) {
         using TO = decltype(o);
-        return M <= 8 ? gv::launch<8, TO>(x, w, scale, out, M, K, N, splits,
-                                          k_per_split, clusters, apply_scale, s)
-                      : gv::launch<16, TO>(x, w, scale, out, M, K, N, splits,
-                                           k_per_split, clusters, apply_scale,
-                                           s);
-      });
-    case kGemvF32:
-      if (x_dtype != kF32 || clusters != 0 || tile_rows != 0 ||
-          (splits > 1 && k_per_split % GV_KC) ||
-          (part != nullptr) != (splits > 1))
-        return cudaErrorInvalidValue;
-      return by_out(out_dtype, [&](auto o) {
-        return launch_gemv_f32<decltype(o)>(x, w, scale, out, part, M, K, N,
-                                            splits, k_per_split, apply_scale,
-                                            s);
+        auto go = [&](auto tx) {
+          using TX = decltype(tx);
+          return np == 8 ? gv::launch<TX, 8, TO>(x, w, scale, out, M, K, N,
+                                                  splits, k_per_split,
+                                                  clusters, apply_scale, s)
+                         : gv::launch<TX, 16, TO>(x, w, scale, out, M, K, N,
+                                                   splits, k_per_split,
+                                                   clusters, apply_scale, s);
+        };
+        return regime == kGemv ? go(__nv_bfloat16{}) : go(float{});
       });
     case kTc:
       if (x_dtype != kBF16 || splits != 1 || clusters != 0 ||
-          part != nullptr || (tile_rows != 128 && tile_rows != 256))
+          (tile_rows != 128 && tile_rows != 256))
         return cudaErrorInvalidValue;
       return by_out(out_dtype, [&](auto o) {
         using TO = decltype(o);
@@ -872,10 +946,14 @@ extern "C" int w8a16_launch(int regime, int x_dtype, int out_dtype,
   }
 }
 
-// The clusters of `cluster` (1-8) tensor-core GEMV blocks the current
-// device holds at once, into *fit. Returns the cudaError_t of the query.
-extern "C" int w8a16_gemv_capacity(int cluster, int* fit) {
+// The clusters of `cluster` (1-8) blocks of the GEMV kernel for `x_dtype`
+// (bf16: tensor cores; float32: FMAs) the current device holds at once,
+// into *fit. Returns the cudaError_t of the query.
+extern "C" int w8a16_gemv_capacity(int x_dtype, int cluster, int* fit) {
+  using namespace symtorch;
   if (cluster < 1 || cluster > 8 || fit == nullptr)
     return cudaErrorInvalidValue;
-  return symtorch::gv::capacity(cluster, fit);
+  if (x_dtype == kF32) return gv::capacity<float>(cluster, fit);
+  if (x_dtype == kBF16) return gv::capacity<__nv_bfloat16>(cluster, fit);
+  return cudaErrorInvalidValue;
 }

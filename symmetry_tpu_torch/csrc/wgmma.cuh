@@ -442,19 +442,24 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A row-major [rows, cols] matrix of `elem`-byte elements as a 2-D TMA map
-// with boxes of 128 bytes x `box_rows` rows, 128-byte swizzle, zero fill
-// past the edges. The row pitch must be a multiple of 16 bytes.
+// with boxes of `box_bytes` (128 by default) x `box_rows` rows, the given
+// swizzle (128-byte by default; a swizzled box is at most 128 bytes wide,
+// a plain one up to 256 elements), zero fill past the edges. The row pitch
+// must be a multiple of 16 bytes.
 inline bool make_map_2d(CUtensorMap* map, const void* base,
                         CUtensorMapDataType type, int elem, long long rows,
-                        long long cols, int box_rows) {
+                        long long cols, int box_rows, int box_bytes = 128,
+                        CUtensorMapSwizzle swizzle =
+                            CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(cols) * elem};
-  const cuuint32_t box[2] = {cuuint32_t(128 / elem), cuuint32_t(box_rows)};
+  const cuuint32_t box[2] = {cuuint32_t(box_bytes / elem),
+                             cuuint32_t(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -25,7 +25,9 @@ Protocol: JSON lines, as in the JAX package's host.
            {"op": "stats", …}  (scheduler counters with the `emit`,
             `journal`, `engine_alive` and `prefix_summary` riders, and a
             `kernels` rider: each kernel wrapper's launch count in this
-            process, so a caller can show the path ran on the kernels)
+            process, and `decode_attention_append`, the decode launches
+            that wrote the step's K/V row, so a caller can show the path
+            ran on the kernels)
 
 Refused, in the JAX package's own reply shapes: `profile` answers
 {"op": "profile", "error"} (device profiling, ROADMAP Queue 1 item 12);
@@ -287,6 +289,9 @@ class EngineHost:
         m["journal"] = {k: self._reported.get(k, 0)
                         for k in list(self._reported)}
         m["kernels"] = {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+        # of the decode launches, those that also wrote the step's K/V row
+        m["kernels"]["decode_attention_append"] = (
+            decode_attention.launches_append)
         summary = self._engine.prefix_cache_summary()
         if summary is not None:
             m["prefix_summary"] = summary  # pool-gossip rider

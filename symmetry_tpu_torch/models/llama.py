@@ -9,14 +9,16 @@ static shapes.
 
 Attention routing in `_layer`:
   - prefill from an empty cache (prefill_flash, S > 1): ops/flash.py;
-  - one position per slot (S == 1): ops/decode_attention.py;
+  - one position per slot (S == 1): ops/decode_attention.py, which also
+    writes the step's K/V row (append mode; quantized for an int8 cache,
+    init_cache(quantized=True));
   - anything else (a continuation over a live cache): ops/attention.py.
-An int8 cache (init_cache(quantized=True)) is written by ops/kv_append.py at
-S == 1 and by quantize_kv + index assignment otherwise. Weight leaves may be
+Calls of more than one position write the cache by index assignment
+(quantize_kv first for an int8 cache). Weight leaves may be
 dense, QuantizedTensor or PackedQuantizedTensor (ops/quant.py qmatmul
 routes by layout; packed leaves take ops/qmm.py). On CUDA tensors the
-attention routes, the KV append and packed leaves launch the package's
-hand-written kernels.
+attention routes (the decode step's row write with them) and packed leaves
+launch the package's hand-written kernels.
 
 Not ported in this slice: MoE (ROADMAP Queue 1 item 13) and sequence-
 parallel prefill (item 14).
@@ -35,7 +37,6 @@ from symmetry_tpu_torch.ops import decode_attention as decode_ops
 from symmetry_tpu_torch.ops import flash as flash_ops
 from symmetry_tpu_torch.ops.decode_attention import decode_attention
 from symmetry_tpu_torch.ops.flash import flash_prefill
-from symmetry_tpu_torch.ops.kv_append import kv_append
 from symmetry_tpu_torch.ops.norm import norm_weight, rms_norm
 from symmetry_tpu_torch.ops.quant import (
     PackedQuantizedTensor,
@@ -371,22 +372,26 @@ def _layer(
     k = apply_rope(k.reshape(B, S, nkv, D), positions, config.rope_theta)
     v = v.reshape(B, S, nkv, D)
 
-    # Write the new K/V straight into the full cache at (layer, slot,
-    # position), in place. Padded tail tokens write garbage past kv_valid:
-    # never read, overwritten later. Positions clamp to the capacity: a
-    # free slot's length keeps growing with every decode step, and its
-    # garbage must land inside its own lane.
-    T = cache.k.shape[2]
-    if cache.quantized and S == 1:
-        # Decode into an int8 cache: one fused call per layer quantizes the
-        # new rows and writes payload and scales in place.
-        kv_append(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                  k[:, 0].contiguous(), v[:, 0].contiguous(), layer,
-                  positions[:, 0].contiguous())
+    if S == 1:
+        # One position per slot: the decode kernel writes the step's K/V
+        # row into the full cache at (layer, slot, min(position, T - 1)) --
+        # quantized, for an int8 cache -- and attends over the cache with
+        # it, in one launch; the layer is selected inside the kernel. A free
+        # slot's length keeps growing with every decode step: the clamp
+        # keeps its garbage inside its own lane.
+        attn = decode_attention(
+            q[:, 0], cache.k, cache.v, layer, kv_valid, cache.k_scale,
+            cache.v_scale, window=config.sliding_window,
+            append=(k[:, 0].contiguous(), v[:, 0].contiguous(),
+                    positions[:, 0].contiguous()))[:, None]
     else:
+        # Write the new K/V straight into the full cache at (layer, slot,
+        # position), in place. Padded tail tokens write garbage past
+        # kv_valid: never read, overwritten later.
+        T = cache.k.shape[2]
         b_idx = torch.arange(B, device=h.device)[:, None]
         pos_w = torch.clamp(positions, max=T - 1).long()
-        if S > 1 and not prefill_flash:
+        if not prefill_flash:
             # A continuation (a prompt chunk, a cached hit's suffix) may
             # run pad tokens past the capacity. The JAX package drops those
             # writes; here they clamp onto row T - 1, so each carries the
@@ -408,22 +413,17 @@ def _layer(
             cache.k[layer][b_idx, pos_w] = k.to(cache.k.dtype)
             cache.v[layer][b_idx, pos_w] = v.to(cache.v.dtype)
 
-    if prefill_flash and S > 1:
-        # Prefill from empty: attention over this call's own K/V; the cache
-        # is never read back.
-        attn = flash_prefill(q, k, v, seq_lens, window=config.sliding_window)
-    elif S == 1:
-        # One position per slot: the full cache is the operand, the layer
-        # is selected inside the kernel.
-        attn = decode_attention(q[:, 0], cache.k, cache.v, layer, kv_valid,
-                                cache.k_scale, cache.v_scale,
-                                window=config.sliding_window)[:, None]
-    else:
-        attn = gqa_attention(
-            q, cache.k[layer], cache.v[layer], positions, kv_valid,
-            sliding_window=config.sliding_window,
-            k_scale=cache.k_scale[layer] if cache.quantized else None,
-            v_scale=cache.v_scale[layer] if cache.quantized else None)
+        if prefill_flash:
+            # Prefill from empty: attention over this call's own K/V; the
+            # cache is never read back.
+            attn = flash_prefill(q, k, v, seq_lens,
+                                 window=config.sliding_window)
+        else:
+            attn = gqa_attention(
+                q, cache.k[layer], cache.v[layer], positions, kv_valid,
+                sliding_window=config.sliding_window,
+                k_scale=cache.k_scale[layer] if cache.quantized else None,
+                v_scale=cache.v_scale[layer] if cache.quantized else None)
     h = h + qmatmul(attn.reshape(B, S, nq * D), lp["wo"])
 
     x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)

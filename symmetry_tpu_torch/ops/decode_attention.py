@@ -26,6 +26,16 @@ planes: the k scale multiplies each score and the v scale each
 probability, as in `_quant_kernel`. The TPU kernel's capacity gate
 (`supports`) is a TPU measurement and is not carried over: every
 single-position decode on the card takes this kernel.
+
+Append mode (`append=(k_new, v_new, positions)`): the same launch first
+writes the step's K/V row of each slot into the cache at (layer, slot,
+min(max(pos, 0), T - 1)) -- for an int8 cache quantized exactly as
+ops/kv_append.py does, payload and scale -- and attends over the cache with
+that row in it. This is the serving path's write of a decode step
+(models/llama.py): it replaces a `kv_append` launch (int8) or the index
+assignments (bf16/f32). One block writes each (slot, KV head) row:
+`append_writes` says which. The plain version is `kv_append_reference` or
+the index assignment, then the attention reference.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 
 from symmetry_tpu_torch.ops import kernels
 from symmetry_tpu_torch.ops.attention import gqa_attention
+from symmetry_tpu_torch.ops.kv_append import kv_append_reference
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # Positions a block of the split kernel reads: 16 spans at a 4096
@@ -75,6 +86,20 @@ def live_blocks(lengths, capacity: int, n_kv: int, group: int,
     return per_head * n_kv * -(-group // group_tile(group))
 
 
+def append_writes(block: tuple[int, int, int], positions, capacity: int,
+                  group: int) -> bool:
+    """Whether block (x, slot, span) of the split kernel's grid (KV heads x
+    chunks of query heads, slots, spans) stores the appended row of its
+    slot for KV head x // chunks, as the kernel decides: the block of chunk
+    0 whose span holds min(max(positions[slot], 0), capacity - 1). It
+    decides before the test for a span with no live row, so the slot's
+    length and the window do not enter."""
+    x, b, sp = block
+    n_chunks = -(-group // group_tile(group))
+    p = min(max(int(positions[b]), 0), capacity - 1)
+    return x % n_chunks == 0 and sp * SPAN <= p < (sp + 1) * SPAN
+
+
 def decode_attention(
     q: torch.Tensor,          # [B, n_q_heads, D] (single decode position)
     k_cache: torch.Tensor,    # [L, B, T, K, D] FULL cache (bf16/f32 or int8)
@@ -85,9 +110,12 @@ def decode_attention(
     v_scale: torch.Tensor | None = None,  # position minor)
     *,
     window: int | None = None,  # sliding-window span: keys >= length - window
+    append: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Returns [B, n_q_heads, D] in q's dtype. A slot with kv_length 0 gets
-    finite garbage, not NaN. Lengths above T are read as T."""
+    finite garbage, not NaN. Lengths above T are read as T. `append` is
+    (k_new [B, K, D], v_new [B, K, D] in q's dtype, positions [B] int32):
+    the rows written into the caches (in place) before they are read."""
     if k_cache.ndim != 5 or v_cache.shape != k_cache.shape or q.ndim != 3:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
                          f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
@@ -110,16 +138,32 @@ def decode_attention(
     layer = int(layer)
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} layers")
+    if append is not None:
+        k_new, v_new, positions = append
+        if (k_new.shape != (B, K, D) or v_new.shape != k_new.shape
+                or positions.shape != (B,)):
+            raise ValueError(f"decode_attention: append rows "
+                             f"{tuple(k_new.shape)} / {tuple(v_new.shape)}, "
+                             f"positions {tuple(positions.shape)} for cache "
+                             f"{tuple(k_cache.shape)}")
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, layer,
                                           kv_length, k_scale, v_scale,
-                                          window=window)
+                                          window=window, append=append)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     operands = [("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
                 ("kv_length", kv_length)]
     if quantized:
         operands += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if append is not None:
+        operands += [("k_new", k_new), ("v_new", v_new),
+                     ("positions", positions)]
+        if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+            raise TypeError("decode_attention: appended rows must be in q's "
+                            "dtype")
+        if positions.dtype != torch.int32:
+            raise TypeError("decode_attention: positions must be int32")
     for name, t in operands:
         if t.device != q.device:
             raise ValueError(f"decode_attention: {name} on {t.device}, "
@@ -152,15 +196,21 @@ def decode_attention(
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        kv_length.data_ptr(), out.data_ptr(), scratch.data_ptr(), L, B, T, K,
-        D, nq, layer, int(window or 0), SPAN, n_spans,
+        kv_length.data_ptr(),
+        *((k_new.data_ptr(), v_new.data_ptr(), positions.data_ptr())
+          if append is not None else (None, None, None)),
+        out.data_ptr(), scratch.data_ptr(), L, B, T, K, D, nq, layer,
+        int(window or 0), SPAN, n_spans,
         torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(rc, "decode_attention")
     decode_attention.launches += 1
+    if append is not None:
+        decode_attention.launches_append += 1
     return out
 
 
-decode_attention.launches = 0
+decode_attention.launches = 0         # every launch
+decode_attention.launches_append = 0  # of them, launches that wrote a row
 
 
 def decode_attention_reference(
@@ -168,11 +218,24 @@ def decode_attention_reference(
     layer: int, kv_length: torch.Tensor,
     k_scale: torch.Tensor | None = None, v_scale: torch.Tensor | None = None,
     *, window: int | None = None,
+    append: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Plain version: gqa_attention at S = 1 on the layer slice (the decode
-    query sits at position length - 1; lengths are clamped to T as the
-    kernel reads them)."""
+    """Plain version: the appended rows written first (`kv_append_reference`
+    for an int8 cache, index assignment at min(max(pos, 0), T - 1) in the
+    cache's dtype otherwise), then gqa_attention at S = 1 on the layer
+    slice (the decode query sits at position length - 1; lengths are
+    clamped to T as the kernel reads them)."""
     T = k_cache.shape[2]
+    if append is not None:
+        k_new, v_new, positions = append
+        if k_cache.dtype == torch.int8:
+            kv_append_reference(k_cache, v_cache, k_scale, v_scale, k_new,
+                                v_new, layer, positions)
+        else:
+            b = torch.arange(k_cache.shape[1], device=k_cache.device)
+            pos = torch.clamp(positions.long(), 0, T - 1)
+            k_cache[layer, b, pos] = k_new.to(k_cache.dtype)
+            v_cache[layer, b, pos] = v_new.to(v_cache.dtype)
     lengths = torch.clamp(kv_length, max=T)
     positions = (lengths - 1)[:, None]
     return gqa_attention(

@@ -43,11 +43,11 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
     }),
     "decode_attention": ("decode_attention.cu", {
         # dtype, kv_dtype, q, k_cache, v_cache, k_scale, v_scale, kv_length,
-        # out, scratch, L, B, T, K, D, n_q, layer, window, span, n_spans,
-        # stream
+        # k_new, v_new, positions (append mode, else null), out, scratch,
+        # L, B, T, K, D, n_q, layer, window, span, n_spans, stream
         "decode_attention_launch": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _P],
+                                    _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _P],
     }),
     "kv_append": ("kv_append.cu", {
         # dtype, k_new, v_new, k_cache, v_cache, k_scale, v_scale,
@@ -56,12 +56,12 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
                              _I, _I, _P],
     }),
     "w8a16": ("w8a16.cu", {
-        # regime, x_dtype, out_dtype, x, w, scale, out, part, M, K, N,
-        # splits, k_per_split, clusters, apply_scale, tile_rows, stream
-        "w8a16_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
-        # cluster, int* fit
-        "w8a16_gemv_capacity": [_I, _P],
+        # regime, x_dtype, out_dtype, x, w, scale, out, M, K, N, splits,
+        # k_per_split, clusters, apply_scale, tile_rows, stream
+        "w8a16_launch": [_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
+        # x_dtype, cluster, int* fit
+        "w8a16_gemv_capacity": [_I, _I, _P],
     }),
     "w8a8": ("w8a8.cu", {
         # out_dtype, xq, w, xs, ws, out, part, M, K, N, splits,

@@ -9,8 +9,12 @@ a CUDA tensor to the plain version.
 
 The JAX package takes its kernel only under SYMMETRY_KV_APPEND on a TPU:
 that gate is a TPU measurement (XLA's aliasing cost a second cache buffer
-there). Here the write is in place by construction, so every single-
-position write into an int8 cache on the card takes the kernel.
+there). Here the serving path writes a decode step's row inside the
+decode-attention launch instead (ops/decode_attention.py, append mode,
+whose int8 write is this kernel's arithmetic and whose plain version is
+`kv_append_reference`): a launch of its own for a 17 KB write costs a
+launch's fixed time. This kernel stays the TPU kernel's direct counterpart
+for a caller that writes rows on their own.
 
 Positions clamp to the last row, min(pos, T - 1): a retired slot's stale
 length may reach capacity, and its garbage row stays in its own lane.

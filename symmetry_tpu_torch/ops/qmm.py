@@ -22,16 +22,17 @@ the activation's). Kernel regimes (csrc/w8a16.cu, chosen by
     thread-block cluster whose blocks sum their partials through
     distributed shared memory in a fixed order (`gemv_plan` deals the
     (panel, K split) items);
-  - "gemv_f32": float32 activations at any row count, on CUDA-core FMAs
-    (exact enough that float32 serving reproduces the CPU's greedy
-    tokens), split over K by `gemv_splits` with a second kernel summing
-    the splits;
+  - "gemv_f32": float32 activations at any row count, the same ring,
+    deal and cluster sums with the products on CUDA-core FMAs (exact
+    enough that float32 serving reproduces the CPU's greedy tokens), in
+    tiles of up to 16 rows (`gemv_plan` deals row tiles x panels);
   - "tc": more bf16 rows (prefill), operations bound: x by TMA, the int8
     weight by bulk copies into a ring, converted to bf16 inside the
     pipeline, wgmma products, a persistent grid over the output tiles
     `tc_tile_rows` sizes and `tiles` orders.
-Launches are counted per kernel family (`w8a16_matmul.launches_gemv` for
-both GEMV regimes, `.launches_tc`; `.launches` is their sum).
+Launches are counted per kernel (`w8a16_matmul.launches_gemv`,
+`.launches_gemv_f32`, `.launches_tc`; `.launches` is their sum). No regime
+allocates scratch.
 
 W8A8 (`w8a8_matmul`, Pallas `_kernel`): the activation is quantized per row
 to int8 (`quantize_rows`, plain torch, as the JAX package computes it in
@@ -57,15 +58,13 @@ from symmetry_tpu_torch.ops.quant import mixed_dot
 PANEL = 64          # output columns per packed panel
 K_GRAIN = 32        # K comes in whole 32-row steps (a GEMV block's rows per
                     # step; the tensor-core kernel zero-fills a half step)
-GEMV_ROWS = 16      # bf16 rows up to which the GEMV kernel runs
-GEMV_STEP = 64      # K rows a tensor-core GEMV step: 4,096 bytes of a panel
+GEMV_ROWS = 16      # bf16 rows up to which the GEMV kernel runs; the
+                    # float32 GEMV's row tile
+GEMV_STEP = 64      # K rows a GEMV step: 4,096 bytes of a panel
 GEMV_CLUSTERS = (1, 2, 4, 8)  # K splits of a panel: its cluster's blocks
 # What an item costs beyond its steps, in steps: the hand-off of its sums
 # and the pipeline's turn between panels.
 _GEMV_ITEM_OVERHEAD = 3
-_GEMV_ROW_TILE = 8  # x rows per float32 GEMV block
-_GEMV_K_CHUNK = 256  # K rows a float32 GEMV block stages at a time
-_TARGET_BLOCKS = 264  # two blocks per SM of an H100
 TILE_COLS = 128     # output columns of a tensor-core tile (a panel pair)
 TILE_ROWS = (256, 128)  # tile heights both tensor-core kernels are built for
 W8A8_K_STEP = 128   # K values the W8A8 kernel multiplies a step
@@ -98,34 +97,39 @@ def w8a16_regime(m: int, dtype: torch.dtype) -> str:
     return "gemv" if m <= GEMV_ROWS else "tc"
 
 
-_gemv_capacity: dict[int, dict[int, int]] = {}
+_gemv_capacity: dict[tuple[int, int], dict[int, int]] = {}
 
 
-def gemv_capacity(device: torch.device) -> dict[int, int]:
-    """{cluster size: clusters of it the card holds at once} for the
-    tensor-core GEMV, from the kernel's occupancy on `device` (how a card's
-    SMs fall into GPCs varies from card to card). Asked once a device;
-    a host query, no device synchronization."""
+def gemv_capacity(device: torch.device,
+                  dtype: torch.dtype = torch.bfloat16) -> dict[int, int]:
+    """{cluster size: clusters of it the card holds at once} for the GEMV
+    kernel of `dtype` rows (bf16: tensor cores; float32: FMAs), from the
+    kernel's occupancy on `device` (how a card's SMs fall into GPCs varies
+    from card to card). Asked once a device and dtype; a host query, no
+    device synchronization."""
     index = torch.device(device).index
     index = torch.cuda.current_device() if index is None else index
-    if index not in _gemv_capacity:
+    code = kernels.dtype_code(dtype)
+    if (index, code) not in _gemv_capacity:
         lib = kernels.library("w8a16")
         table = {}
         with torch.cuda.device(index):
             for c in GEMV_CLUSTERS:
                 fit = ctypes.c_int(0)
-                kernels.check(lib.w8a16_gemv_capacity(c, ctypes.byref(fit)),
+                kernels.check(lib.w8a16_gemv_capacity(code, c,
+                                                      ctypes.byref(fit)),
                               "w8a16_gemv_capacity")
                 table[c] = fit.value
-        _gemv_capacity[index] = table
-    return _gemv_capacity[index]
+        _gemv_capacity[(index, code)] = table
+    return _gemv_capacity[(index, code)]
 
 
 class GemvPlan(NamedTuple):
-    """A tensor-core GEMV launch: x rows padded to `rows` (wgmma's N, 8 or
-    16); K cut into `cluster` splits of `k_per_split` rows, the blocks of
-    one cluster; `clusters` clusters, cluster c taking panels c, c +
-    clusters, ..."""
+    """A GEMV launch: x rows in tiles of `rows` (8 or 16: wgmma's N for
+    bf16, the FMA tile for float32; rows past m zero); K cut into `cluster`
+    splits of `k_per_split` rows, the blocks of one cluster; `clusters`
+    clusters, cluster c taking items c, c + clusters, ... of the row tiles
+    x panels, row tile fastest."""
     rows: int
     cluster: int
     k_per_split: int
@@ -134,56 +138,47 @@ class GemvPlan(NamedTuple):
 
 def gemv_plan(m: int, k: int, n: int,
               capacity: dict[int, int]) -> GemvPlan:
-    """The tensor-core GEMV's work deal for [m <= 16, k] x [k, n], on a card
-    that holds `capacity[c]` clusters of c blocks at once (`gemv_capacity`).
-    Plain Python on the shapes (no tensor value), and the launch's only
-    deal: the kernel runs `clusters` clusters of `cluster` blocks as given,
-    never more than are resident at once. Items are (panel, K split), all
-    of one size; for each cluster size (= splits) that cuts K into that
-    many non-empty splits, a block's time is its item count (the panels of
-    its cluster) times an item's steps plus a fixed hand-off; the least
-    wins, the smaller cluster on a tie. So on a card that holds 16
-    eight-block clusters `wk` (16 panels) splits 8 ways, and `lm_head`
-    (2,004 panels) is not split."""
-    rows = 8 if m <= 8 else 16
-    panels = n // PANEL
+    """The GEMV's work deal for [m, k] x [k, n] (m <= 16 bf16 rows, or
+    float32 rows at any m), on a card that holds `capacity[c]` clusters of
+    c blocks at once (`gemv_capacity`). Plain Python on the shapes (no
+    tensor value), and the launch's only deal: the kernel runs `clusters`
+    clusters of `cluster` blocks as given, never more than are resident at
+    once. Items are (row tile, panel, K split), all of one size; for each
+    cluster size (= splits) that cuts K into that many non-empty splits, a
+    block's time is its item count (the items of its cluster) times an
+    item's steps plus a fixed hand-off; the least wins, the smaller cluster
+    on a tie. So on a card that holds 16 eight-block clusters `wk` (16
+    panels) splits 8 ways, and `lm_head` (2,004 panels) is not split."""
+    rows = 8 if m <= 8 else GEMV_ROWS
+    items = (n // PANEL) * -(-m // rows)
     steps = -(-k // GEMV_STEP)
     best = None
     for c in GEMV_CLUSTERS:  # c = 1 qualifies on any card
         per = -(-steps // c)
         if -(-steps // per) != c or capacity.get(c, 0) < 1:
             continue  # fewer splits than blocks, or no such cluster fits
-        clusters = min(panels, capacity[c])
-        cost = -(-panels // clusters) * (per + _GEMV_ITEM_OVERHEAD)
+        clusters = min(items, capacity[c])
+        cost = -(-items // clusters) * (per + _GEMV_ITEM_OVERHEAD)
         if best is None or cost < best[0]:
             best = (cost, GemvPlan(rows, c, per * GEMV_STEP, clusters))
     return best[1]
 
 
-def gemv_items(plan: GemvPlan, k: int, n: int
-               ) -> Iterator[tuple[int, int, int, int]]:
-    """The items of a GEMV launch in the kernel's deal: (block, panel,
-    first K row, end K row). Block b is rank b % cluster (split b %
-    cluster) of cluster b // cluster, which takes panels cluster_id,
-    cluster_id + clusters, ..."""
+def gemv_items(plan: GemvPlan, m: int, k: int, n: int
+               ) -> Iterator[tuple[int, int, int, int, int]]:
+    """The items of a GEMV launch in the kernel's deal: (block, first row,
+    panel, first K row, end K row). Block b is rank b % cluster (split b %
+    cluster) of cluster b // cluster, which takes items cluster_id,
+    cluster_id + clusters, ... of the row tiles x panels, row tile
+    fastest."""
+    tiles = -(-m // plan.rows)
     for cl in range(plan.clusters):
         for r in range(plan.cluster):
             k0 = r * plan.k_per_split
             k1 = min(k, k0 + plan.k_per_split)
-            for p in range(cl, n // PANEL, plan.clusters):
-                yield cl * plan.cluster + r, p, k0, k1
-
-
-def gemv_splits(m: int, k: int, n: int) -> tuple[int, int]:
-    """(splits, rows per split) of the K dimension for the float32 GEMV
-    kernel:
-    enough splits that about _TARGET_BLOCKS blocks run, each split a whole
-    number of staged chunks."""
-    blocks = (n // PANEL) * -(-m // _GEMV_ROW_TILE)
-    want = max(1, -(-_TARGET_BLOCKS // blocks))
-    per = -(-k // want)
-    per = -(-per // _GEMV_K_CHUNK) * _GEMV_K_CHUNK
-    return -(-k // per), per
+            for t in range(cl, (n // PANEL) * tiles, plan.clusters):
+                yield (cl * plan.cluster + r, t % tiles * plan.rows,
+                       t // tiles, k0, k1)
 
 
 def tc_tile_rows(m: int, n: int, work: int = 1) -> int:
@@ -274,35 +269,28 @@ def w8a16_matmul(
     regime = w8a16_regime(M, x.dtype)
     # each kernel's own arguments; csrc/w8a16.cu refuses any other
     splits, per, clusters, tile_rows = 1, K, 0, 0
-    part = None
-    if regime == "gemv":
-        plan = gemv_plan(M, K, N, gemv_capacity(x.device))
-        splits, per, clusters = plan.cluster, plan.k_per_split, plan.clusters
-    elif regime == "gemv_f32":
-        splits, per = gemv_splits(M, K, N)
-        if splits > 1:
-            part = torch.empty((splits, M, N), dtype=torch.float32,
-                               device=x.device)
-    else:
+    if regime == "tc":
         tile_rows = tc_tile_rows(M, N)
+    else:
+        plan = gemv_plan(M, K, N, gemv_capacity(x.device, x.dtype))
+        splits, per, clusters = plan.cluster, plan.k_per_split, plan.clusters
     lib = kernels.library("w8a16")
     rc = lib.w8a16_launch(
         _REGIME_CODE[regime], x_code, out_code, x.data_ptr(),
-        w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None, M, K, N, splits, per,
-        clusters, int(apply_scale), tile_rows,
+        w_packed.data_ptr(), w_scale.data_ptr(), out.data_ptr(), M, K, N,
+        splits, per, clusters, int(apply_scale), tile_rows,
         torch.cuda.current_stream(x.device).cuda_stream)
     kernels.check(rc, "w8a16_matmul")
     w8a16_matmul.launches += 1
-    if regime != "tc":
-        w8a16_matmul.launches_gemv += 1
-    else:
-        w8a16_matmul.launches_tc += 1
+    setattr(w8a16_matmul, f"launches_{regime}",
+            getattr(w8a16_matmul, f"launches_{regime}") + 1)
     return out
 
 
-w8a16_matmul.launches = 0       # launches_gemv + launches_tc
+# launches = launches_gemv + launches_gemv_f32 + launches_tc
+w8a16_matmul.launches = 0
 w8a16_matmul.launches_gemv = 0
+w8a16_matmul.launches_gemv_f32 = 0
 w8a16_matmul.launches_tc = 0
 
 

@@ -13,6 +13,20 @@ each slot's capacity into the spans of `split_plan` and merge the spans'
 partial softmaxes: the plan must cover the capacity exactly, and a torch
 model of that arithmetic (float32 partials per live span, then the merge)
 must equal the JAX kernel at the same atol.
+
+Append mode (`decode_attention(..., append=(k_new, v_new, positions))`, the
+serving path's decode write): the port's plain version (write, then
+attend) against JAX `kv_append(interpret=True)` or the JAX engine's index
+assignment, then JAX `decode_attention(interpret=True)` on the caches JAX
+wrote. Caches bit-equal to the JAX engine's own write (quantize_kv and
+`.at[].set`); against the JAX kv_append kernel the payload bit for bit and
+the scales at rtol 1e-6 (tests/test_torch_kv_append.py: its interpret mode
+rounds the scale's division differently by one float32 ULP). Outputs at
+ATOL for float32 q over an int8 cache; bf16 outputs within one bf16 step of
+the largest output (2**-7 max|y|: both sides sum in float32 in other
+orders, then round). Which split-kernel block stores the row
+(`append_writes`) must give exactly one writer per (slot, KV head) whatever
+the lengths and windows.
 """
 
 import jax.numpy as jnp
@@ -22,11 +36,13 @@ import torch
 
 from symmetry_tpu.models import PRESETS as JAX_PRESETS
 from symmetry_tpu.ops.attention import gqa_attention as jax_gqa
+from symmetry_tpu.ops import kv_append as jax_kva
 from symmetry_tpu.ops.decode_attention import decode_attention as jax_decode
 from symmetry_tpu.ops.quant import quantize_kv as jax_quantize_kv
 from symmetry_tpu_torch.models.llama import PRESETS
 from symmetry_tpu_torch.ops.decode_attention import (
     SPAN,
+    append_writes,
     decode_attention,
     group_tile,
     kernel_supports,
@@ -358,3 +374,170 @@ class TestSplitModel:
         assert np.isfinite(got).all()
         live = lengths > 0
         np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=0)
+
+
+# Append mode: a capacity of two spans and five slots, the step's position
+# at a span's first row, at the span before's last row, at T - 1, stale past
+# the capacity (written at T - 1), and past its slot's kv_length (written,
+# not read).
+APPEND_T = 2 * SPAN
+APPEND_POS = [SPAN, SPAN - 1, APPEND_T - 1, APPEND_T + 88, 300]
+APPEND_LEN = [SPAN + 1, SPAN, APPEND_T, APPEND_T, 100]
+
+
+def append_case(G, D, seed, bf16=False):
+    """q [B, K G, D], caches [2, B, T, K, D], new rows [B, K, D] (float32,
+    bf16 values when bf16), positions and lengths, from numpy."""
+    q, k, v, lengths = make_case(B=5, T=APPEND_T, K=2, G=G, D=D, seed=seed,
+                                 lengths=APPEND_LEN)
+    rng = np.random.default_rng(seed + 1)
+    k_new, v_new = ((rng.normal(size=(5, 2, D)) * 3).astype(np.float32)
+                    for _ in range(2))
+    arrays = [q, k, v, k_new, v_new]
+    if bf16:
+        arrays = [torch.from_numpy(a).bfloat16().float().numpy()
+                  for a in arrays]
+    return (*arrays, np.asarray(APPEND_POS, np.int32), lengths)
+
+
+def jax_index_write(cache, layer, rows, pos):
+    """The JAX engine's decode write: rows at (layer, slot, min(pos, T-1))."""
+    p = jnp.clip(jnp.asarray(pos), 0, cache.shape[2] - 1)
+    return cache.at[layer, jnp.arange(cache.shape[1]), p].set(
+        rows.astype(cache.dtype))
+
+
+class TestAppendPlain:
+    @pytest.mark.parametrize("D", [128, 96])
+    @pytest.mark.parametrize("G", [1, 4, 7, 16])
+    def test_int8_matches_jax_kv_append_then_decode(self, G, D):
+        layer = 1
+        q, k, v, k_new, v_new, pos, lengths = append_case(G, D, G + D)
+        kq, vq, ks, vs = quantized(k, v)
+        jax_caches = [np.asarray(a) for a in jax_kva.kv_append(
+            *(jnp.asarray(a) for a in (kq, vq, ks, vs, k_new, v_new)),
+            jnp.int32(layer), jnp.asarray(pos), interpret=True)]
+        # the JAX engine's own int8 write: quantize_kv and index assignment
+        (jk, jks), (jv, jvs) = (jax_quantize_kv(jnp.asarray(a))
+                                for a in (k_new, v_new))
+        engine = [np.asarray(jax_index_write(jnp.asarray(c), layer, r, pos))
+                  for c, r in ((kq, jk), (vq, jv))]
+        for sc, r in ((ks, jks), (vs, jvs)):  # [L, B, K, T], position minor
+            moved = jnp.moveaxis(jnp.asarray(sc), -1, -2)
+            engine.append(np.array(jnp.moveaxis(
+                jax_index_write(moved, layer, r, pos), -1, -2)))
+        t = [torch.from_numpy(a.copy()) for a in (kq, vq, ks, vs)]
+        got = decode_attention(
+            torch.from_numpy(q), t[0], t[1], layer,
+            torch.from_numpy(lengths), t[2], t[3],
+            append=(torch.from_numpy(k_new), torch.from_numpy(v_new),
+                    torch.from_numpy(pos))).numpy()
+        for mine, exact, kernel, name in zip(t, engine, jax_caches,
+                                             ("k", "v", "ks", "vs")):
+            np.testing.assert_array_equal(mine.numpy(), exact, err_msg=name)
+            if name in ("k", "v"):
+                np.testing.assert_array_equal(mine.numpy(), kernel,
+                                              err_msg=name)
+            else:
+                np.testing.assert_allclose(mine.numpy(), kernel, rtol=1e-6,
+                                           atol=0, err_msg=name)
+        want = jax_int8(q, *jax_caches, layer, lengths, SPAN)
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+    @pytest.mark.parametrize("D", [128, 96])
+    @pytest.mark.parametrize("G", [1, 4, 7, 16])
+    def test_bf16_matches_jax_write_then_decode(self, G, D):
+        layer = 0
+        q, k, v, k_new, v_new, pos, lengths = append_case(G, D, 50 + G + D,
+                                                          bf16=True)
+        jq, jk_new, jv_new = (jnp.asarray(a, jnp.bfloat16)
+                              for a in (q, k_new, v_new))
+        jk, jv = (jax_index_write(jnp.asarray(c, jnp.bfloat16), layer, r,
+                                  pos)
+                  for c, r in ((k, jk_new), (v, jv_new)))
+        want = np.asarray(jax_decode(jq, jk, jv, jnp.int32(layer),
+                                     jnp.asarray(lengths), block_t=SPAN,
+                                     interpret=True)).astype(np.float32)
+        tk, tv = (torch.from_numpy(a).bfloat16() for a in (k, v))
+        got = decode_attention(
+            torch.from_numpy(q).bfloat16(), tk, tv, layer,
+            torch.from_numpy(lengths),
+            append=(torch.from_numpy(k_new).bfloat16(),
+                    torch.from_numpy(v_new).bfloat16(),
+                    torch.from_numpy(pos))).float().numpy()
+        for mine, theirs in ((tk, jk), (tv, jv)):
+            np.testing.assert_array_equal(
+                mine.float().numpy(), np.asarray(theirs).astype(np.float32))
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=2.0 ** -7 * np.abs(want).max())
+
+    def test_stale_slot_past_capacity_writes_last_row_only(self):
+        """A position past capacity writes row T - 1 of its own slot and
+        layer; every other row, slot and layer is untouched."""
+        q, k, v, k_new, v_new, pos, lengths = append_case(4, 128, 3)
+        tk, tv = torch.from_numpy(k.copy()), torch.from_numpy(v.copy())
+        decode_attention(torch.from_numpy(q), tk, tv, 1,
+                         torch.from_numpy(lengths),
+                         append=(torch.from_numpy(k_new),
+                                 torch.from_numpy(v_new),
+                                 torch.from_numpy(pos)))
+        written = np.zeros((5, APPEND_T), bool)
+        written[np.arange(5), np.clip(pos, 0, APPEND_T - 1)] = True
+        np.testing.assert_array_equal(tk.numpy()[1][written],
+                                      k_new[[0, 1, 2, 3, 4]])
+        np.testing.assert_array_equal(tk.numpy()[1][~written], k[1][~written])
+        np.testing.assert_array_equal(tv.numpy()[0], v[0])
+
+    def test_rejects_mismatched_rows(self):
+        q, k, v, k_new, v_new, pos, lengths = append_case(4, 128, 4)
+        t = [torch.from_numpy(a) for a in (q, k, v, k_new, v_new, pos,
+                                           lengths)]
+        with pytest.raises(ValueError, match="append"):
+            decode_attention(t[0], t[1], t[2], 0, t[6],
+                             append=(t[3][:, :1], t[4], t[5]))
+        with pytest.raises(ValueError, match="append"):
+            decode_attention(t[0], t[1], t[2], 0, t[6],
+                             append=(t[3], t[4], t[5][:3]))
+
+
+class TestAppendOwner:
+    """The owner rule over the split kernel's whole grid (K x chunks, B,
+    spans): one writer per (slot, KV head), in the span holding the clamped
+    position, whatever the lengths and the window -- including blocks that
+    find no live row and exit, which must write first."""
+
+    @pytest.mark.parametrize("capacity", [16, 255, 256, 257, 512, 1000,
+                                          4096])
+    @pytest.mark.parametrize("group", [1, 2, 4, 7, 8, 12, 16])
+    def test_one_writer_per_slot_and_head(self, capacity, group):
+        K = 2
+        chunks = -(-group // group_tile(group))
+        spans = len(split_plan(capacity))
+        positions = [-3, 0, SPAN - 1, SPAN, capacity - 1, capacity,
+                     capacity + 77, capacity // 2]
+        B = len(positions)
+        rng = np.random.default_rng(capacity + group)
+        exiting_writers = 0
+        for lengths in ([0] * B, [capacity] * B,
+                        [p + 1 for p in positions],
+                        rng.integers(0, capacity + 50, B).tolist()):
+            for window in (None, 1, 100):
+                writers = {}
+                for x in range(K * chunks):
+                    for b in range(B):
+                        for sp in range(spans):
+                            if not append_writes((x, b, sp), positions,
+                                                 capacity, group):
+                                continue
+                            key = (b, x // chunks)
+                            writers[key] = writers.get(key, 0) + 1
+                            p = min(max(positions[b], 0), capacity - 1)
+                            assert x % chunks == 0
+                            assert sp * SPAN <= p < (sp + 1) * SPAN
+                            n = min(max(lengths[b], 0), capacity)
+                            lo = max(n - window, 0) if window else 0
+                            if max(sp * SPAN, lo) >= min((sp + 1) * SPAN, n):
+                                exiting_writers += 1  # writes, then exits
+                assert writers == {(b, kv): 1 for b in range(B)
+                                   for kv in range(K)}
+        assert exiting_writers > 0  # the sweep does cover that case

@@ -365,6 +365,8 @@ class TestNoHostSync:
         (kq, ks), (vq, vs) = (quantize_kv(x) for x in (kd, vd))
         ks, vs = (s.transpose(-1, -2).contiguous() for s in (ks, vs))
         qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        rows = torch.randn((2, 4, 2, 128), device=dev).bfloat16()
+        append = (rows[0], rows[1], lengths - 1)
         for fn in (lambda: flash_prefill(qb, kb, vb, seq_lens, window=64),
                    lambda: flash_prefill(q, k, v, seq_lens),
                    lambda: decode_attention(qd, kd, vd, 1, lengths,
@@ -378,6 +380,8 @@ class TestNoHostSync:
             flash_prefill(q, k, v, seq_lens)
             decode_attention(qd, kd, vd, 1, lengths, window=100)
             decode_attention(qd, kq, vq, 0, lengths, ks, vs)
+            decode_attention(qd, kd, vd, 1, lengths, append=append)
+            decode_attention(qd, kq, vq, 0, lengths, ks, vs, append=append)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -453,6 +457,82 @@ class TestKvAppendKernel:
 
 
 @pytest.mark.gpu
+class TestFusedAppend:
+    """The decode launch's own write of the step's row (append mode)
+    against the unfused pair -- the row written first (the standalone
+    kv_append kernel for an int8 cache, index assignment otherwise), then
+    decode attention -- bit for bit in caches and outputs, and against the
+    plain version at the decode tolerance."""
+
+    @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+    @pytest.mark.parametrize("G,D", [(4, 128), (7, 128), (16, 128), (4, 96),
+                                     (1, 64)])
+    @pytest.mark.parametrize("window", [None, 200])
+    def test_bit_equal_to_the_unfused_pair(self, kind, G, D, window):
+        dev = cuda_or_skip()
+        T = 3 * SPAN
+        # a span's first and last rows, T - 1, stale past T, past its
+        # slot's length (written, not read), the first row
+        pos = torch.tensor([SPAN, SPAN - 1, T - 1, T + 40, 500, 0],
+                           dtype=torch.int32, device=dev)
+        lengths = torch.tensor([SPAN + 1, SPAN, T, T, 300, 1],
+                               dtype=torch.int32, device=dev)
+        q, k, v, _ = make_case(B=6, T=T, K=2, G=G, D=D, L=2, seed=G + D)
+        dtype = torch.float32 if kind == "float32" else torch.bfloat16
+        g = torch.Generator().manual_seed(G * D)
+        rows = [(torch.randn((6, 2, D), generator=g) * 3).to(dev, dtype)
+                for _ in range(2)]
+        q = torch.from_numpy(q).to(dev, dtype)
+        if kind == "int8":
+            (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(a))
+                                  for a in (k, v))
+            state = [kq, vq, ks.transpose(-1, -2).contiguous(),
+                     vs.transpose(-1, -2).contiguous()]
+        else:
+            state = [torch.from_numpy(a).to(dtype) for a in (k, v)]
+            state += [None, None]
+        fused, pair, plain = ([t.to(dev) if t is not None else None
+                               for t in state] for _ in range(3))
+        before = (decode_attention.launches_append, kv_append.launches)
+        got = decode_attention(q, fused[0], fused[1], 1, lengths, fused[2],
+                               fused[3], window=window,
+                               append=(*rows, pos))
+        torch.cuda.synchronize()
+        assert (decode_attention.launches_append,
+                kv_append.launches) == (before[0] + 1, before[1])
+        if kind == "int8":
+            kv_append(*pair, *rows, 1, pos)
+        else:
+            b = torch.arange(6, device=dev)
+            p = pos.long().clamp(0, T - 1)
+            pair[0][1, b, p], pair[1][1, b, p] = rows
+        want = decode_attention(q, pair[0], pair[1], 1, lengths, pair[2],
+                                pair[3], window=window)
+        ref = decode_attention_reference(q, plain[0], plain[1], 1, lengths,
+                                         plain[2], plain[3], window=window,
+                                         append=(*rows, pos))
+        for a, b_, c in zip(fused, pair, plain):
+            if a is not None:
+                assert torch.equal(a, b_) and torch.equal(a, c)
+        assert torch.equal(got, want)
+        tol = 1e-4 if kind == "float32" else 2.0 ** -7 * float(
+            ref.float().abs().max())
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=0)
+
+    def test_refuses_rows_of_another_dtype(self):
+        dev = cuda_or_skip()
+        q, k, v, lengths = make_case(B=2, T=64, seed=3)
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+                   for a in (q, k, v))
+        rows = torch.zeros((2, 2, 128), device=dev)
+        with pytest.raises(TypeError, match="append"):
+            decode_attention(q, k, v, 0, torch.from_numpy(lengths).to(dev),
+                             append=(rows, rows, torch.zeros(
+                                 2, dtype=torch.int32, device=dev)))
+
+
+@pytest.mark.gpu
 class TestW8A16Kernel:
     # 1..16 rows take the GEMV kernel, more bf16 rows the tensor-core one:
     # rows at and around its 64-row products and 128/256-row tiles
@@ -472,14 +552,14 @@ class TestW8A16Kernel:
                                      * 0.05))
         q, s = pt.q.to(dev), pt.scale.to(dev)
         regime = w8a16_regime(M, dtype)
-        before = (w8a16_matmul.launches, w8a16_matmul.launches_gemv,
-                  w8a16_matmul.launches_tc)
+        counters = ("launches", "launches_gemv", "launches_gemv_f32",
+                    "launches_tc")
+        before = [getattr(w8a16_matmul, c) for c in counters]
         got = w8a16_matmul(x, q, s)
         torch.cuda.synchronize()
-        assert (w8a16_matmul.launches, w8a16_matmul.launches_gemv,
-                w8a16_matmul.launches_tc) == (
-            before[0] + 1, before[1] + (regime != "tc"),
-            before[2] + (regime == "tc"))
+        assert [getattr(w8a16_matmul, c) - b
+                for c, b in zip(counters, before)] == [
+            1] + [int(c == f"launches_{regime}") for c in counters[1:]]
         assert got.dtype == dtype and got.shape == (M, N)
         want = w8a16_reference(x, q, s)
         mag = float(want.float().abs().max())
@@ -559,10 +639,11 @@ class TestW8A16Gemv:
         q, s = leaves[leaf]
         g = torch.Generator().manual_seed(M)
         x = torch.randn((M, q.shape[1]), generator=g).to(dev, dtype)
-        before = w8a16_matmul.launches_gemv
+        counter = f"launches_{w8a16_regime(M, dtype)}"
+        before = getattr(w8a16_matmul, counter)
         got = w8a16_matmul(x, q, s)
         torch.cuda.synchronize()
-        assert w8a16_matmul.launches_gemv == before + 1
+        assert getattr(w8a16_matmul, counter) == before + 1
         want = w8a16_reference(x, q, s)
         mag = float(want.float().abs().max())
         tol = 2.0 ** -7 * mag if dtype == torch.bfloat16 else 1e-4 * mag
@@ -582,6 +663,36 @@ class TestW8A16Gemv:
             a, b = w8a16_matmul(x, q, s, **kw), w8a16_matmul(x, q, s, **kw)
             torch.cuda.synchronize()
             assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("M", [1, 9, 16, 17, 40, 300])
+    @pytest.mark.parametrize("K,N", [(4096, 1024), (96, 192), (1024, 512)])
+    def test_float32_rows_any_count(self, M, K, N):
+        """float32 rows on the FMA GEMV at any count, in 16-row tiles past
+        16 (a half last step at K = 96): within 1e-5 max|y| of the plain
+        version (float32 products, sums in another order), the same bits
+        on a second call, no scratch (one launch, nothing allocated but
+        the output)."""
+        dev = cuda_or_skip()
+        g = torch.Generator().manual_seed(M + K + N)
+        x = torch.randn((M, K), generator=g).to(dev)
+        pt = pack_quantized(quantize(torch.randn((K, N), generator=g)
+                                     * 0.05))
+        q, s = pt.q.to(dev), pt.scale.to(dev)
+        before = w8a16_matmul.launches_gemv_f32
+        w8a16_matmul(x, q, s)  # first use: builds, asks the occupancy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        allocated = torch.cuda.memory_allocated()
+        got = w8a16_matmul(x, q, s)
+        torch.cuda.synchronize()
+        # the peak holds the output (in 512-byte blocks) and nothing else
+        assert torch.cuda.max_memory_allocated() - allocated == (
+            got.numel() * got.element_size() + 511) // 512 * 512
+        assert w8a16_matmul.launches_gemv_f32 == before + 2
+        want = w8a16_reference(x, q, s)
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert torch.equal(got, w8a16_matmul(x, q, s))
 
     # Down projections longer than any preset's: Qwen2/2.5-72B and
     # Llama-3.1-405B, at their own widths
@@ -716,8 +827,9 @@ class TestEngineOnCard:
 
     def test_tiny_int8_greedy_card_equals_cpu(self):
         """int8 weights (packed where the kernel takes them) and an int8
-        KV cache: all three int8 kernels on the card, plain versions on
-        the CPU, greedy ids identical."""
+        KV cache: W8A16 and the int8 decode kernel, which writes the
+        step's row (no standalone KV append), on the card, plain versions
+        on the CPU, greedy ids identical."""
         from symmetry_tpu_torch.engine.engine import (InferenceEngine,
                                                       SamplingParams)
         from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
@@ -742,12 +854,15 @@ class TestEngineOnCard:
                       for _ in range(4)]
             return firsts, np.concatenate(blocks)[:, :len(prompts)]
 
-        counts = (w8a16_matmul.launches, kv_append.launches,
+        counts = (w8a16_matmul.launches, decode_attention.launches_append,
                   decode_attention.launches)
+        appends = kv_append.launches
         f_card, t_card = run(dev)
         assert all(after > before for after, before in zip(
-            (w8a16_matmul.launches, kv_append.launches,
+            (w8a16_matmul.launches, decode_attention.launches_append,
              decode_attention.launches), counts))
+        # the decode step's row is written by the decode launch itself
+        assert kv_append.launches == appends
         f_cpu, t_cpu = run("cpu")
         assert f_card == f_cpu
         np.testing.assert_array_equal(t_card, t_cpu)

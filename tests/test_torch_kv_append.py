@@ -7,6 +7,12 @@ bit; scales at rtol 1e-6 (one float32 ULP: interpret mode may associate the
 max and the division differently from the port), and everything not
 written must be untouched. The CUDA kernel is held against the plain
 version on the card (bit for bit) in tests/test_torch_gpu.py.
+
+The serving path writes a decode row inside the decode-attention launch
+(`decode_attention(..., append=...)`); its plain version is held here
+against the same JAX kernel on the same cases, and its output against JAX
+`decode_attention(interpret=True)` over the caches the JAX kernel wrote
+(atol 2e-5, float32 on both sides).
 """
 
 import jax
@@ -16,7 +22,9 @@ import pytest
 import torch
 
 from symmetry_tpu.ops import kv_append as jkva
+from symmetry_tpu.ops.decode_attention import decode_attention as jdecode
 from symmetry_tpu.ops.quant import quantize_kv as jquantize_kv
+from symmetry_tpu_torch.ops.decode_attention import decode_attention
 from symmetry_tpu_torch.ops.kv_append import kv_append
 
 L, B, T, K, D = 3, 8, 64, 2, 128
@@ -106,6 +114,45 @@ class TestKvAppendParity:
                       torch.zeros(B, dtype=torch.int32))
         with pytest.raises(ValueError, match="layer"):
             kv_append(*tensors, L, torch.zeros(B, dtype=torch.int32))
+
+
+class TestFusedIntoDecode:
+    """The decode launch's own write (append mode) leaves the caches the
+    JAX kernel leaves, and attends over them as JAX's decode kernel does."""
+
+    @pytest.mark.parametrize("layer", [0, 2])
+    @pytest.mark.parametrize("positions", [
+        [0, 1, 31, 32, 33, 62, 63, 40],           # across scale blocks
+        [T, T + 5, T - 1, 0, 4, 4, 17, 63]])      # stale slots at capacity
+    def test_matches_jax_kernel_then_decode(self, layer, positions):
+        # caches as quantize_kv writes them (unit-normal rows), not
+        # make_state's arbitrary payloads and scales, whose scores saturate
+        # the softmax
+        rng = np.random.default_rng(layer)
+        (kq, ks), (vq, vs) = (jquantize_kv(jnp.asarray(
+            rng.normal(size=(L, B, T, K, D)).astype(np.float32)))
+            for _ in range(2))
+        state = [np.array(a) for a in (kq, vq, jnp.moveaxis(ks, -1, -2),
+                                       jnp.moveaxis(vs, -1, -2))]
+        state += make_state(layer + 11)[4:]
+        q = rng.normal(size=(B, 4 * K, D)).astype(np.float32)
+        lengths = np.minimum(np.asarray(positions) + 1, T).astype(np.int32)
+        lengths[3] = 0  # an empty slot still gets its row
+        tensors = [torch.from_numpy(a.copy()) for a in state]
+        got = decode_attention(
+            torch.from_numpy(q), tensors[0], tensors[1], layer,
+            torch.from_numpy(lengths), tensors[2], tensors[3],
+            append=(tensors[4], tensors[5],
+                    torch.tensor(positions, dtype=torch.int32))).numpy()
+        want_caches = jax_append(state, layer, positions)
+        assert_same([t.numpy() for t in tensors[:4]], want_caches)
+        want = np.asarray(jdecode(
+            jnp.asarray(q), *(jnp.asarray(a) for a in want_caches[:2]),
+            jnp.int32(layer), jnp.asarray(lengths),
+            k_scale=jnp.asarray(want_caches[2]),
+            v_scale=jnp.asarray(want_caches[3]), interpret=True))
+        live = lengths > 0  # an empty slot's output is garbage by contract
+        np.testing.assert_allclose(got[live], want[live], atol=2e-5, rtol=0)
 
 
 def test_jax_is_cpu():

@@ -140,8 +140,9 @@ class TestTilePlan:
 
 
 class TestGemvPlan:
-    """The tensor-core GEMV's deal of (panel, K split) items over clusters
-    (`gemv_plan`, `gemv_items`), for every preset leaf at decode rows."""
+    """The GEMV's deal of (row tile, panel, K split) items over clusters
+    (`gemv_plan`, `gemv_items`), for every preset leaf at decode rows
+    (bf16 and float32) and at float32 prefill rows."""
 
     @pytest.mark.parametrize("k,n", LEAF_SHAPES + LONG_K_SHAPES)
     @pytest.mark.parametrize("m", range(1, 17))
@@ -152,12 +153,40 @@ class TestGemvPlan:
         plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
         assert plan.rows == (8 if m <= 8 else 16)
         cover = {}
-        for block, panel, k0, k1 in qmm.gemv_items(plan, k, n):
-            assert 0 <= k0 < k1 <= k
+        for block, row0, panel, k0, k1 in qmm.gemv_items(plan, m, k, n):
+            assert 0 <= k0 < k1 <= k and row0 == 0  # one row tile
             assert block // plan.cluster < plan.clusters
             cover.setdefault(panel, set()).add((k0, k1 - k0))
         assert sorted(cover) == list(range(n // qmm.PANEL))
         for spans in cover.values():  # every K row of every panel once
+            assert_partition(spans, k)
+
+    @pytest.mark.parametrize("k,n", LEAF_SHAPES)
+    @pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 32, 128, 300, 2048])
+    @pytest.mark.parametrize("cap", sorted(CAPACITIES))
+    def test_float32_rows_cover_output_and_k_once(self, m, k, n, cap):
+        """float32 rows at any count (decode, prefill, chunks) on the same
+        deal: tiles of 8 (m <= 8) or 16 rows x panels, every (row tile,
+        panel) once with every K row once, the rows of the last tile past
+        m zero-filled by the copy; no more clusters than items or than the
+        card holds at once."""
+        if not qmm.kernel_supports(k, n):
+            pytest.skip("stays on the mixed dot")
+        assert qmm.w8a16_regime(m, torch.float32) == "gemv_f32"
+        plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
+        tiles = -(-m // plan.rows)
+        assert plan.rows == (8 if m <= 8 else 16)
+        assert plan.clusters <= min((n // qmm.PANEL) * tiles,
+                                    CAPACITIES[cap][plan.cluster])
+        cover = {}
+        for block, row0, panel, k0, k1 in qmm.gemv_items(plan, m, k, n):
+            assert 0 <= k0 < k1 <= k and 0 <= row0 < m
+            assert row0 % plan.rows == 0
+            assert block // plan.cluster < plan.clusters
+            cover.setdefault((row0, panel), set()).add((k0, k1 - k0))
+        assert sorted(cover) == [(t * plan.rows, p) for t in range(tiles)
+                                 for p in range(n // qmm.PANEL)]
+        for spans in cover.values():
             assert_partition(spans, k)
 
     @pytest.mark.parametrize("k,n", LEAF_SHAPES)
@@ -172,7 +201,7 @@ class TestGemvPlan:
         plan = qmm.gemv_plan(m, k, n, CAPACITIES[cap])
         per_block = [0] * (plan.clusters * plan.cluster)
         items = [0] * len(per_block)
-        for block, _, k0, k1 in qmm.gemv_items(plan, k, n):
+        for block, _, _, k0, k1 in qmm.gemv_items(plan, m, k, n):
             per_block[block] += (k1 - k0) * qmm.PANEL
             items[block] += 1
         assert max(items) - min(items) <= 1
@@ -221,6 +250,17 @@ class TestGemvPlan:
         # a cluster size the card cannot hold is never dealt
         assert plan(8, 4096, 1024, {1: 132, 2: 66, 4: 30, 8: 0}).cluster < 8
 
+    def test_float32_prefill_shapes(self):
+        """float32 rows past 16 in 16-row tiles: at the 2048-row budget
+        `wg` has 128 tiles x 224 panels, far more items than clusters, so
+        K is not split and every SM takes about 217 of them; a short
+        chunk on the narrow `wk` (2 tiles x 16 panels) still splits K."""
+        cap = CAPACITIES["gpc16"]
+        assert qmm.gemv_plan(2048, 4096, 14336, cap) == qmm.GemvPlan(
+            16, 1, 4096, 132)
+        assert qmm.gemv_plan(32, 4096, 1024, cap) == qmm.GemvPlan(
+            16, 4, 1024, 32)
+
 
 # ---------------------------------------------------------------------------
 # Torch models of the kernels' byte handling
@@ -258,6 +298,25 @@ class TestConversion:
             bf = torch.from_numpy(got.copy()).to(torch.bfloat16)
             assert torch.equal(bf.float(), torch.from_numpy(
                 values.astype(np.float32)))
+
+    def test_magic_number_to_float32_every_byte_every_lane(self):
+        """The float32 GEMV's cvt4f: one 32-bit word of four int8 weights,
+        sign bits flipped, becomes four float32 values by four permutes
+        and four subtractions; every byte value in every lane, the other
+        lanes random, comes back exactly as the int8 value."""
+        rng = np.random.default_rng(11)
+        values = np.arange(-128, 128, dtype=np.int8)
+        for lane in range(4):
+            others = rng.integers(0, 256, (256, 4)).astype(np.uint8)
+            others[:, lane] = values.view(np.uint8)
+            word = others.view("<u4")[:, 0].astype(np.uint32)
+            got = np.stack([magic_int8_to_float(word, i) for i in range(4)],
+                           axis=1)
+            np.testing.assert_array_equal(
+                got, others.view(np.int8).astype(np.float32))
+            assert got.dtype == np.float32
+            np.testing.assert_array_equal(got[:, lane],
+                                          values.astype(np.float32))
 
     def test_transpose4_selectors(self):
         """The transposer's 4 x 4 byte transposition: r[i] = bytes (k = i,

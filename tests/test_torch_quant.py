@@ -21,7 +21,8 @@ from symmetry_tpu.ops import quant as jquant
 from symmetry_tpu_torch.convert import params_from_numpy
 from symmetry_tpu_torch.ops.attention import gqa_attention
 from symmetry_tpu_torch.ops.qmm import (
-    gemv_splits,
+    GemvPlan,
+    gemv_plan,
     kernel_supports,
     w8a16_apply,
     w8a16_matmul,
@@ -179,11 +180,16 @@ class TestPacking:
                                   ("layers/wk", "untileable")]
 
     def test_gemv_splits_fill_the_card(self):
-        # wk at decode: 16 panels split 16 ways over K; lm_head never splits
-        assert gemv_splits(8, 4096, 1024) == (16, 256)
-        assert gemv_splits(8, 4096, 128256) == (1, 4096)
-        splits, per = gemv_splits(8, 14336, 4096)
-        assert splits * per >= 14336 and per % 256 == 0
+        # float32 rows take the GEMV's one deal (`gemv_plan`, K splits on a
+        # thread-block cluster, no scratch): wk at decode, 16 panels, split
+        # 8 ways over K; lm_head never splits; wd's splits whole 64-row
+        # steps
+        cap = {1: 132, 2: 66, 4: 32, 8: 16}
+        assert gemv_plan(8, 4096, 1024, cap) == GemvPlan(8, 8, 512, 16)
+        assert gemv_plan(8, 4096, 128256, cap).cluster == 1
+        plan = gemv_plan(8, 14336, 4096, cap)
+        assert (plan.cluster * plan.k_per_split >= 14336
+                and plan.k_per_split % 64 == 0)
 
 
 class TestConverter:
