@@ -81,10 +81,35 @@ Phases (any failure raises and exits non-zero):
               (exit 0), TTFT by path, tok/s, memory; then, in-process on the
               same config, a profile of one chunk step and one cached
               admission and the chunk attention's device time;
-  9. report   one JSON line listing the nine kernel rows (W8A16 one per
+  9. spec     speculative decoding on llama3-8b at full width and depth,
+              8 slots, k_draft 8, bf16 and then int8: (a) a plain greedy
+              run's continuation as every slot's draft is accepted whole,
+              and a draft corrupted at j stops the slot at j + 1 tokens,
+              the tokens the plain run's (the verify forward's logits on
+              the plain context within LOGIT_TOL of the plain run's; a
+              slot may part from it only at a near tie); int8 verifies
+              all on the tensor-core W8A16 kernel; (b) through the
+              Scheduler on cycling weights, greedy output identical with
+              speculation on and off, with verify blocks; (c) a seeded
+              sampled stream runs to its budget; the verify dispatch's
+              wall, device busy and kernels, acceptance and tok/s on and
+              off;
+ 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 4 layers
+              written by the port's writer (2 shards and an index json)
+              into build/chip_smoke/ckpt; the leaves loaded on the card
+              bit-equal to those written; the engine host started on it
+              at the provider's default `tpu:` section, cold (warm cache
+              written) and warm (from it), in bf16 and with
+              quantization: int8: streamed text identical to an
+              in-process engine built from the same tensors through
+              params_from_numpy, the warm cache's leaves bit-equal to that
+              engine's; load seconds and each host's peak RSS; the
+              directory removed;
+ 11. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3), the nvidia-smi
-              line, and last the {"ok": true, ...} line.
+              line, and last the {"ok": true, ...} line. Each phase
+              prints its seconds.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -884,6 +909,19 @@ def check_w8a8() -> dict:
 # Phases 4-5: the engine behind the Scheduler
 
 
+def id_tokenizer(vocab_size: int):
+    """A byte tokenizer whose stream carries exact ids: one character per
+    token id."""
+    from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids):
+            return "".join(chr(ID_BASE + i) for i in ids
+                           if i not in (self.BOS, self.EOS))
+
+    return IdTokenizer(vocab_size)
+
+
 def serve(preset_name: str, *, device: str, dtype: torch.dtype,
           prompt_lens: list[int], max_new: int, max_slots: int,
           max_seq_len: int, buckets: tuple[int, ...], decode_block: int,
@@ -897,23 +935,14 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
     (fused_dequant) and an int8 KV cache (kv_quant). `cfg` replaces the
     preset's config; `sampling` (SamplingParams fields) replaces greedy for
     every request."""
-    from symmetry_tpu_torch.engine.engine import InferenceEngine, SamplingParams
-    from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
-    from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.models.llama import init_params, preset
-
-    class IdTokenizer(ByteTokenizer):
-        """One character per token id, so the stream carries exact ids."""
-
-        def decode(self, ids):
-            return "".join(chr(ID_BASE + i) for i in ids
-                           if i not in (self.BOS, self.EOS))
 
     cfg = cfg or preset(preset_name)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
         params = init_params(cfg, gen, dtype, quantize=int8)
-    engine = InferenceEngine(cfg, params, IdTokenizer(cfg.vocab_size),
+    engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
                              max_slots=max_slots, max_seq_len=max_seq_len,
                              prefill_buckets=buckets, cache_dtype=dtype,
                              decode_block=decode_block, kv_quant=int8,
@@ -925,6 +954,18 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
                for n in prompt_lens]
     if on_ready is not None:
         on_ready()
+    return schedule(engine, prompts, max_new, sampling)
+
+
+def schedule(engine, prompts: list[list[int]], max_new: int,
+             sampling: dict | None = None,
+             speculative: bool | None = None) -> dict:
+    """Serve `prompts` through a Scheduler on `engine`, all submitted at
+    once; `speculative` is every request's per-request switch (False opts
+    out of speculation)."""
+    from symmetry_tpu_torch.engine.engine import SamplingParams
+    from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
+
     sched = Scheduler(engine)
     events = {i: [] for i in range(len(prompts))}
     done = {i: threading.Event() for i in range(len(prompts))}
@@ -940,7 +981,7 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
         sched.submit(GenRequest(prompt_ids=ids,
                                 sampling=SamplingParams(**(sampling or {})),
                                 max_new_tokens=max_new, emit=emit,
-                                id=f"r{i}"))
+                                id=f"r{i}", speculative=speculative))
     sched.start()
     try:
         for i, ev in done.items():
@@ -949,7 +990,7 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
     finally:
         sched.stop()
     t_end = time.monotonic()
-    if device == "cuda":
+    if engine.device.type == "cuda":
         torch.cuda.synchronize()
     out = []
     for i in range(len(prompts)):
@@ -959,9 +1000,10 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
                         reason=last.finish_reason,
                         generated=last.tokens_generated, ttft_s=last.ttft_s))
     decoded = sum(r["generated"] - 1 for r in out)
-    return dict(requests=out, metrics=dict(sched.metrics), wall_s=t_end - t0,
+    return dict(requests=out, metrics=dict(sched.metrics),
+                stats=sched.stats(), wall_s=t_end - t0,
                 decode_tok_s=decoded / (t_end - min(first_at.values())),
-                config=cfg, engine=engine)
+                config=engine.config, engine=engine)
 
 
 def profile_dispatch(label: str, fn) -> list[tuple[float, int, str]]:
@@ -1577,6 +1619,490 @@ def profile_host_path(tpu: dict) -> None:
         f"layers")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: speculative decoding at full width and depth
+
+SPEC_K = 8
+CYCLE_TOKEN = 120
+# The verify forward ([B, 1 + k] through the continuation path) and a
+# decode step compute the same logits in another order, and the LM head
+# rounds them to bf16 (steps of 1/32 at magnitudes 4-8): on an H100 they
+# differ by a few bf16 steps (about 0.12, bf16 and int8 alike; the phase
+# prints its "max |diff|"). Lanes whose context is the plain run's must
+# agree within this; a slot may then part from the plain run only where
+# the plain run's two best logits are within twice it (exact ties are
+# common).
+LOGIT_TOL = 0.25
+
+
+class recorded_logits:
+    """Within the block, the engine's sampling and verify ops also keep
+    the float32 logits they were given (a harness for comparing the
+    verify forward with the plain run; the port has no such switch)."""
+
+    def __enter__(self):
+        from symmetry_tpu_torch.engine import engine as eng
+
+        self.saved = (eng.sample_tokens, eng.verify_tokens)
+        self.decode: list[torch.Tensor] = []
+        self.verify: list[torch.Tensor] = []
+
+        def sample(logits, *a, **kw):
+            self.decode.append(logits.float())
+            return self.saved[0](logits, *a, **kw)
+
+        def verify(logits, *a, **kw):
+            self.verify.append(logits.float())
+            return self.saved[1](logits, *a, **kw)
+
+        eng.sample_tokens, eng.verify_tokens = sample, verify
+        return self
+
+    def __exit__(self, *exc):
+        from symmetry_tpu_torch.engine import engine as eng
+
+        eng.sample_tokens, eng.verify_tokens = self.saved
+        return False
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def cycling(engine, token: int) -> dict:
+    """tests/test_spec.py cycling_params made dominant at llama3-8b width:
+    every embedding's coordinate 0 is set to 256, which every position's
+    final hidden state then carries (about 45 of its ~64 norm), and the LM
+    head's column `token` to 10 at coordinate 0 and 0 elsewhere (an int8
+    head: payload 127 there, scale 10 / 127), so `token` leads every
+    other logit by hundreds at every position: greedy output cycles on it
+    and the drafter matches. Returns the leaves it replaced."""
+    from symmetry_tpu_torch.ops.quant import (PackedQuantizedTensor,
+                                              QuantizedTensor,
+                                              pack_quantized,
+                                              unpack_quantized)
+
+    saved = {k: engine.params[k] for k in ("embed", "lm_head")}
+    embed = saved["embed"].clone()
+    embed[:, 0] = 256.0
+    head = saved["lm_head"]
+    if isinstance(head, PackedQuantizedTensor):
+        flat = unpack_quantized(head)
+        q, scale = flat.q.clone(), flat.scale.clone()
+        q[:, token] = 0
+        q[0, token] = 127
+        scale[token] = 10.0 / 127
+        head = pack_quantized(QuantizedTensor(q, scale))
+    else:
+        head = head.clone()
+        head[:, token] = 0.0
+        head[0, token] = 10.0
+    engine.params.update(embed=embed, lm_head=head)
+    return saved
+
+
+def check_oracle(engine, assign, label: str) -> tuple[list, np.ndarray]:
+    """(a): a plain greedy run (first tokens, two decode blocks), then
+    its continuation as every slot's draft, whole and corrupted at j =
+    slot mod k, each verify after re-admitting the same prompts. Returns
+    the oracle drafts."""
+    B, K = engine.max_slots, engine.spec.k_draft
+    vocab = engine.config.vocab_size
+    first = engine.prefill_and_insert_many(assign)
+    with recorded_logits() as rec:
+        plain = np.concatenate([engine.decode_steps() for _ in range(2)])
+    chain = [[first[b]] + plain[:, b].tolist() for b in range(B)]
+    # step i of the plain run scored chain[b][i + 1]
+    plain_logits = torch.stack(rec.decode, 1)       # [B, steps, V]
+    gaps = top2_gap(plain_logits).cpu().numpy()
+    oracle = np.array([c[1:K + 1] for c in chain], np.int64)
+    corrupt = oracle.copy()
+    for b in range(B):
+        corrupt[b, b % K] = (corrupt[b, b % K] + 1) % vocab
+    for name, draft, want in (
+            ("oracle", oracle, [K + 1] * B),
+            ("corrupted at j = slot mod k", corrupt,
+             [b % K + 1 for b in range(B)])):
+        if engine.prefill_and_insert_many(assign) != first:
+            raise AssertionError("re-admission changed the first tokens")
+        with recorded_logits() as rec:
+            toks, n_emit = engine.verify_step(draft, np.full(B, K, np.int32))
+        vlog = rec.verify[0]                         # [B, 1 + K, V]
+        parted, worst = [], 0.0
+        for b in range(B):
+            got = toks[:n_emit[b], b].tolist()
+            ref = chain[b][1:want[b] + 1]
+            if engine.slot_length(b) != len(assign[b][1]) + int(n_emit[b]):
+                raise AssertionError(f"slot {b}: length "
+                                     f"{engine.slot_length(b)} after "
+                                     f"emitting {n_emit[b]}")
+            part = next((i for i, t in enumerate(got)
+                         if i >= len(ref) or t != ref[i]), None)
+            # lanes whose context (prompt + drafts before them) is the
+            # plain run's: up to the corruption and up to a parting
+            last = min(want[b] - 1, part if part is not None else K)
+            worst = max(worst, float((vlog[b, :last + 1]
+                                      - plain_logits[b, :last + 1])
+                                     .abs().max()))
+            if part is None and len(got) == want[b]:
+                continue
+            if part is None or gaps[b, part] > 2 * LOGIT_TOL:
+                raise AssertionError(
+                    f"{label} {name}: slot {b} emitted {got}, the plain "
+                    f"run {ref}, away from a near tie (plain top-2 gaps "
+                    f"{gaps[b, :want[b]].tolist()})")
+            parted.append((b, int(n_emit[b]), part, float(gaps[b, part])))
+        log(f"  {label} verify, {name}: n_emit {n_emit.tolist()} (want "
+            f"{want}); verify vs plain-run logits on lanes of the plain "
+            f"context max |diff| {worst:.4f}; slots parting from the plain "
+            f"run at a near tie (slot, n_emit, position, plain top-2 gap) "
+            f"{parted}, all other slots equal to it")
+        if worst > LOGIT_TOL:
+            raise AssertionError(f"{label} {name}: verify logits differ "
+                                 f"from the plain run's by {worst}")
+    return chain, oracle
+
+
+def check_speculative(smi: str, *, int8: bool) -> None:
+    """llama3-8b at full depth, 8 slots, k_draft 8, with the verify step:
+    (a) oracle drafts -- a plain greedy run's continuation -- are accepted
+    whole and a draft corrupted at j stops the slot at j + 1 tokens, the
+    tokens those of the plain run (a slot may part from it only at a near
+    tie, LOGIT_TOL); (b) through the Scheduler with cycling weights,
+    greedy output with speculation on equals every request opted out,
+    with verify blocks; (c) a seeded sampled stream runs to its budget
+    with speculation on."""
+    from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                  SamplingParams)
+    from symmetry_tpu_torch.engine.spec import SpecConfig
+    from symmetry_tpu_torch.models.llama import init_params, preset
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    label = "int8 (W8A16 weights, int8 KV)" if int8 else "bf16"
+    cfg, B, K = preset("llama3-8b"), 8, SPEC_K
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16, quantize=int8)
+    engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
+                             max_slots=B, max_seq_len=1024,
+                             prefill_buckets=(128, 512), decode_block=8,
+                             kv_quant=int8, fused_dequant=int8,
+                             speculative=SpecConfig(k_draft=K),
+                             device="cuda")
+    del params
+    engine.warmup()
+    rng = np.random.default_rng(9)
+    top = min(cfg.vocab_size, 50000)
+    assign = [(b, rng.integers(0, top, n).tolist(), SamplingParams())
+              for b, n in enumerate((40, 60, 80, 100, 110, 120, 90, 70))]
+
+    regimes = (w8a16_matmul.launches_gemv, w8a16_matmul.launches_tc)
+    _, oracle = check_oracle(engine, assign, label)
+    w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
+    engine.verify_step(oracle, np.full(B, K, np.int32))
+    gemv, tc = w8a16_matmul.launches_gemv, w8a16_matmul.launches_tc
+    w8a16_matmul.launches_gemv += regimes[0]
+    w8a16_matmul.launches_tc += regimes[1]
+    if int8:
+        log(f"  int8 W8A16 launches by regime in one verify ({B} x "
+            f"{1 + K} = {B * (1 + K)} rows): gemv {gemv} tc {tc}")
+        if tc != 7 * cfg.num_layers + 1 or gemv:
+            raise AssertionError(f"int8 verify W8A16 launches gemv {gemv} "
+                                 f"tc {tc}: not all on the tensor-core "
+                                 f"kernel")
+    rows = profile_dispatch(
+        f"{label} verify dispatch ([{B}, {1 + K}], oracle drafts)",
+        lambda: engine.verify_step(oracle, np.full(B, K, np.int32)))
+    log(f"  {label} verify dispatch on {smi}: {sum(r[1] for r in rows)} "
+        f"kernels")
+
+    # (b) Through the Scheduler with cycling weights, speculation on and
+    # off (every request opted out), in turns.
+    saved = cycling(engine, CYCLE_TOKEN)
+    prompts = [rng.integers(0, top, n).tolist()
+               for n in (30, 50, 70, 90, 100, 110, 60, 40)]
+    runs: dict[str, list] = {}
+    for tag, spec in (("off", False), ("on", None), ("on", None),
+                      ("off", False)):
+        runs.setdefault(tag, []).append(
+            schedule(engine, prompts, 64, speculative=spec))
+    ids = {tag: [[r["ids"] for r in run["requests"]] for run in rs]
+           for tag, rs in runs.items()}
+    spec_stats = runs["on"][0]["stats"]["speculative"]
+    per_verify = spec_stats["spec_tokens"] / max(1, spec_stats[
+        "verify_blocks"])
+    log(f"  {label} Scheduler, 8 requests x 64 tokens, cycling on token "
+        f"{CYCLE_TOKEN}: identical on/off {ids['on'][0] == ids['off'][0]}; "
+        f"verify_blocks {spec_stats['verify_blocks']}, drafted "
+        f"{spec_stats['drafted']}, accepted {spec_stats['accepted']} (rate "
+        f"{spec_stats['acceptance_rate']}), tokens emitted per verify "
+        f"dispatch over the 8 slots {per_verify:.2f}, per slot "
+        f"{spec_stats['tokens_per_dispatch']}; steps on "
+        f"{runs['on'][0]['metrics']['steps']} off "
+        f"{runs['off'][0]['metrics']['steps']}; aggregate decode tok/s on "
+        f"{[round(r['decode_tok_s'], 2) for r in runs['on']]} off "
+        f"{[round(r['decode_tok_s'], 2) for r in runs['off']]} ({smi})")
+    if not ids["on"][0] == ids["on"][1] == ids["off"][0] == ids["off"][1]:
+        raise AssertionError(f"{label}: greedy output differs with "
+                             f"speculation on and off")
+    if spec_stats["verify_blocks"] <= 0:
+        raise AssertionError(f"{label}: no verify block with speculation on")
+
+    # (c) A seeded sampled stream with speculation on.
+    res = schedule(engine, prompts[:1], 64,
+                   sampling=dict(temperature=0.9, seed=4))
+    r = res["requests"][0]
+    log(f"  {label} seeded stream (temperature 0.9, seed 4): "
+        f"{r['generated']} tokens, {r['reason']}, verify_blocks "
+        f"{res['stats']['speculative']['verify_blocks']}")
+    if r["reason"] != "length" or r["generated"] != 64:
+        raise AssertionError(f"{label} seeded stream ended {r['reason']} "
+                             f"after {r['generated']} tokens")
+    engine.params.update(saved)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: checkpoint loading
+
+CKPT_LAYERS = 4
+CKPT_CHATS = ["hello there, how are you today?",
+              "please write one short sentence about a harbour at night",
+              "list three colours"]
+
+
+def checkpoint_params():
+    """llama3-8b's widths at CKPT_LAYERS layers, bf16, drawn on the card
+    from torch.Generator seed 0."""
+    import dataclasses
+
+    from symmetry_tpu_torch.models.llama import init_params, preset
+
+    cfg = dataclasses.replace(preset("llama3-8b"), num_layers=CKPT_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16)
+    # ones are no test of the norm leaves' bytes
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for name in ("attn_norm", "mlp_norm"):
+        params["layers"][name] = torch.rand(
+            params["layers"][name].shape, generator=g, device="cuda").to(
+            torch.bfloat16) + 0.5
+    return cfg, params
+
+
+def assert_bit_equal(got: dict, want: dict, what: str) -> int:
+    """Every leaf (int8 leaves: payload and scales) equal bit for bit;
+    returns the number of tensors compared."""
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                yield from leaves(tree[key])
+        elif isinstance(tree, tuple):  # (Packed)QuantizedTensor
+            yield from tree
+        else:
+            yield tree
+
+    a, b = list(leaves(got)), list(leaves(want))
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} leaves, want {len(b)}")
+    for x, y in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: a leaf differs ({x.dtype} "
+                                 f"{tuple(x.shape)} vs {y.dtype} "
+                                 f"{tuple(y.shape)})")
+    return len(a)
+
+
+def reap(proc: subprocess.Popen, timeout: float = 120.0
+         ) -> tuple[int, float]:
+    """Wait for `proc` with os.wait4: (exit code, its peak resident set in
+    GiB, getrusage's ru_maxrss of that one child)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+        if pid:
+            proc.returncode = os.waitstatus_to_exitcode(status)
+            return proc.returncode, usage.ru_maxrss / 2**20
+        if time.monotonic() > deadline:
+            proc.kill()
+            raise AssertionError(f"pid {proc.pid} did not exit in "
+                                 f"{timeout:.0f} s")
+        time.sleep(0.1)
+
+
+def serve_in_turn(engine, prompts: list[list[int]], max_new: int,
+                  pipeline_depth: int) -> list[str]:
+    """Greedy requests through one Scheduler, each submitted when the one
+    before has finished (as phase 10 feeds the host); their streamed
+    text."""
+    from symmetry_tpu_torch.engine.engine import SamplingParams
+    from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
+
+    sched = Scheduler(engine, pipeline_depth=pipeline_depth)
+    sched.start()
+    texts = []
+    try:
+        for i, ids in enumerate(prompts):
+            events, done = [], threading.Event()
+
+            def emit(ev, events=events, done=done):
+                events.append(ev)
+                if ev.done:
+                    done.set()
+            sched.submit(GenRequest(prompt_ids=ids, sampling=SamplingParams(),
+                                    max_new_tokens=max_new, emit=emit,
+                                    id=f"c{i}"))
+            if not done.wait(600):
+                raise AssertionError(f"request c{i} did not complete")
+            texts.append("".join(ev.text for ev in events))
+    finally:
+        sched.stop()
+    return texts
+
+
+def check_checkpoint(smi: str) -> None:
+    """Write a bf16 HF-layout checkpoint with the port's writer (2 shards
+    and an index json), serve it through the engine host at the
+    provider's default `tpu:` section twice (cold: load, warm cache
+    written; warm: from the cache), in bf16 and with quantization: int8;
+    hold the loaded leaves against the tensors written and the streamed
+    text against an in-process engine built from the same tensors."""
+    import shutil
+
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.models.llama import quantize_params
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    ckpt = os.path.join(OUT_DIR, "ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        cfg, params = checkpoint_params()
+        t0 = time.perf_counter()
+        weights.save_checkpoint(ckpt, params, cfg, dtype=torch.bfloat16,
+                                shards=2)
+        size = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt))
+        log(f"  wrote {ckpt}: {sorted(os.listdir(ckpt))}, "
+            f"{size / 1e9:.3f} GB in {time.perf_counter() - t0:.3f} s")
+        # The leaves on the card, loaded cold, bit-equal to those written.
+        loaded, lcfg = weights.load_checkpoint(ckpt, dtype=torch.bfloat16)
+        if lcfg != cfg:
+            raise AssertionError(f"config read back {lcfg} != {cfg}")
+        n = assert_bit_equal(loaded, params,
+                             "cold load")
+        del loaded
+        log(f"  load_checkpoint: {n} leaves on the card bit-equal to the "
+            f"tensors written")
+        # The resident set, for scale: processes that start CUDA, hold the
+        # checkpoint's bytes on the card, or load the checkpoint.
+        rss_of = {
+            "CUDA only": "torch.zeros(1, device='cuda')",
+            f"CUDA + {size / 1e9:.3f} GB on the card":
+                f"torch.ones({size}, dtype=torch.uint8, device='cuda')",
+            "CUDA + load_checkpoint": (
+                "from symmetry_tpu_torch.engine.weights import "
+                f"load_checkpoint; load_checkpoint({ckpt!r})")}
+        env = {**os.environ, "PYTHONPATH": ROOT}
+        for what, code in rss_of.items():
+            rc, rss_of[what] = reap(subprocess.Popen(
+                [sys.executable, "-c", f"import torch; {code}; "
+                 f"torch.cuda.synchronize()"], cwd=ROOT, env=env), 300)
+            if rc != 0:
+                raise AssertionError(f"the {what} process exited {rc}")
+        log(f"  peak RSS of one process (getrusage ru_maxrss, wait4): "
+            f"{', '.join(f'{k} {v:.3f} GiB' for k, v in rss_of.items())}")
+        # The same tensors through params_from_numpy, for the in-process
+        # reference engines.
+        host_tree = {k: (v.float().cpu().numpy() if not isinstance(v, dict)
+                         else {kk: vv.float().cpu().numpy()
+                               for kk, vv in v.items()})
+                     for k, v in params.items()}
+        del params
+        tok = get_tokenizer(None, vocab_size=cfg.vocab_size)
+        chats = [tok.apply_chat_template([{"role": "user", "content": c}])
+                 for c in CKPT_CHATS]
+        for quant in (False, True):
+            tag = "int8" if quant else "bf16"
+            tpu = {"checkpoint_path": ckpt,
+                   **({"quantization": "int8"} if quant else {})}
+            ref_params = params_from_numpy(host_tree, device="cuda",
+                                           dtype=torch.bfloat16)
+            if quant:
+                ref_params = quantize_params(ref_params)
+            defaults = TpuConfig.from_dict(tpu)
+            engine = InferenceEngine(
+                cfg, ref_params, tok, max_slots=defaults.max_batch_size,
+                max_seq_len=defaults.max_seq_len,
+                prefill_buckets=defaults.prefill_buckets,
+                cache_dtype=torch.bfloat16,
+                decode_block=defaults.decode_block,
+                prefill_chunk=defaults.prefill_chunk)
+            warm = weights.load_warm_cache(ckpt, dtype=torch.bfloat16,
+                                           quantize=quant)
+            if warm is not None:
+                raise AssertionError("a warm cache before the first start")
+            engine.warmup()
+            want_text = serve_in_turn(engine, chats, 24,
+                                      defaults.pipeline_depth)
+            del engine
+            texts, ready, rss = {}, {}, {}
+            for start in ("cold", "warm"):
+                host = HostProc(f"ckpt_{tag}_{start}", tpu)
+                try:
+                    ready[start] = host.wait_for(
+                        lambda f: f.get("op") == "ready")
+                    for i, content in enumerate(CKPT_CHATS):
+                        submit(host, f"c{i}", content, 24)
+                        host.wait_done([f"c{i}"])
+                    texts[start] = [stream(host, f"c{i}")["text"]
+                                    for i in range(len(CKPT_CHATS))]
+                    host.send({"op": "shutdown"})
+                    rc, rss[start] = reap(host.proc)
+                finally:
+                    host.kill()
+                if rc != 0:
+                    raise AssertionError(f"host {host.label} exit code {rc}")
+                text = host.log_text()
+                path = ("warm" if "weights loaded from warm cache" in text
+                        else "cold" if "weights loaded cold" in text
+                        else None)
+                if path != start:
+                    raise AssertionError(f"host {host.label} took the {path} "
+                                         f"path (log {host.log_path})")
+                if start == "cold" and "warm weight cache written" not in text:
+                    raise AssertionError(f"host {host.label}: no warm cache "
+                                         f"written (log {host.log_path})")
+            if not texts["cold"] == texts["warm"] == want_text:
+                raise AssertionError(
+                    f"{tag}: streamed text cold {texts['cold']} / warm "
+                    f"{texts['warm']} != in-process {want_text}")
+            # The warm cache's leaves on the card, bit-equal to the
+            # reference tree (int8: quantized on the card from the same
+            # tensors).
+            warm_params, _ = weights.load_warm_cache(
+                ckpt, dtype=torch.bfloat16, quantize=quant)
+            n = assert_bit_equal(warm_params, ref_params,
+                                 f"{tag} warm cache")
+            del warm_params, ref_params
+            log(f"  host {tag} on the checkpoint: build_s cold "
+                f"{ready['cold']['build_s']} s, warm {ready['warm']['build_s']} "
+                f"s (the load inside from_tpu_config; warmup_s "
+                f"{ready['cold']['warmup_s']} / {ready['warm']['warmup_s']}); "
+                f"peak RSS of the host process (getrusage ru_maxrss, wait4) "
+                f"cold {rss['cold']:.3f} GiB, warm {rss['warm']:.3f} GiB; "
+                f"warm-cache leaves bit-equal to the "
+                f"in-process tree ({n} tensors); streamed text identical "
+                f"cold, warm and in-process for {len(CKPT_CHATS)} chats: "
+                f"{[t[:24] for t in want_text]} ({smi})")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -1587,14 +2113,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
+    marks = [t_start]
+
+    def phase_done(n: int) -> None:
+        marks.append(time.perf_counter())
+        log(f"  phase {n} took {marks[-1] - marks[-2]:.1f} s")
+
     log("phase 1: device")
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log(f"  {name}, capability {torch.cuda.get_device_capability(0)}, "
         f"torch {torch.__version__} (CUDA {torch.version.cuda}); {smi}")
+    phase_done(1)
 
     log("phase 2: build")
     log(f"  kernels built in {kernels.build_all():.3f} s")
+    phase_done(2)
 
     log("phase 3: kernels against their plain versions (bf16)")
     from symmetry_tpu_torch.ops.kv_append import kv_append
@@ -1606,14 +2141,17 @@ def main() -> int:
     w8a8_row = check_w8a8()
     kv_row["launches"] = kv_append.launches  # the pair's and its own
     torch.cuda.empty_cache()
+    phase_done(3)
 
     log("phase 4: tiny engine, card against CPU (float32)")
     f32_launches = check_tiny()
+    phase_done(4)
 
     log("phase 5: llama3-8b bf16 full width through the Scheduler")
     bf16 = check_full_width(smi, int8=False)
     gc.collect()  # frees the bf16 engine before the int8 one is built
     torch.cuda.empty_cache()
+    phase_done(5)
 
     log("phase 6: llama3-8b int8 full width through the Scheduler")
     int8 = check_full_width(smi, int8=True)
@@ -1636,14 +2174,33 @@ def main() -> int:
     rows += [kv_row, w8a8_row]
     gc.collect()  # frees the int8 engine before the host phases
     torch.cuda.empty_cache()
+    phase_done(6)
 
     log("phase 7: engine host, tiny, card against CPU")
     check_host_tiny()
+    phase_done(7)
 
     log("phase 8: engine host, llama3-8b bf16, the provider's default tpu: "
         "section")
     tpu = check_host_full(smi)
     profile_host_path(tpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done(8)
+
+    log(f"phase 9: speculative decoding, llama3-8b full width and depth, "
+        f"8 slots, k_draft {SPEC_K}")
+    for int8_spec in (False, True):
+        check_speculative(smi, int8=int8_spec)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done(9)
+
+    log(f"phase 10: checkpoint loading, llama3-8b width at {CKPT_LAYERS} "
+        f"layers, through the engine host")
+    check_checkpoint(smi)
+    phase_done(10)
+    log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -33,9 +33,15 @@ with float32 scale planes, and `fused_dequant` packs int8 weights
 init_params(quantize=True)) into the W8A16 kernel's layout; leaves the
 kernel cannot take stay flat on the mixed dot, logged and counted.
 
-Knobs outside this slice (mesh, pipeline microbatches, speculative
-decoding, disaggregated roles, device profiling) raise EngineError naming
-their ROADMAP item.
+Speculative decoding (`speculative`, engine/spec/) verifies every slot's
+n-gram draft in ONE batched [B, 1 + k_draft] forward (`verify_step`): the
+continuation trunk, per-position acceptance (ops/sampling.py
+verify_tokens) and a rollback of the cache lengths to the first
+rejection. `from_tpu_config` loads an HF checkpoint (engine/weights.py)
+through the warm cache when `checkpoint_path` is set.
+
+Knobs outside this slice (mesh, pipeline microbatches, disaggregated
+roles, device profiling) raise EngineError naming their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -56,7 +62,13 @@ from symmetry_tpu_torch.engine.prefix_cache import (
     RadixHit,
     RadixIndex,
 )
+from symmetry_tpu_torch.engine.spec import SpecConfig
 from symmetry_tpu_torch.engine.tokenizer import Tokenizer, get_tokenizer
+from symmetry_tpu_torch.engine.weights import (
+    load_checkpoint,
+    load_warm_cache,
+    save_warm_cache,
+)
 from symmetry_tpu_torch.models.llama import (
     KVCache,
     ModelConfig,
@@ -66,10 +78,11 @@ from symmetry_tpu_torch.models.llama import (
     logits_from_hidden,
     pack_params,
     preset,
+    quantize_params,
 )
 from symmetry_tpu_torch.ops import kernels, prng
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
-from symmetry_tpu_torch.ops.sampling import sample_tokens
+from symmetry_tpu_torch.ops.sampling import sample_tokens, verify_tokens
 from symmetry_tpu_torch.utils.logging import logger
 from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
 
@@ -169,10 +182,8 @@ _NOT_PORTED = {
     "mesh": "tensor / pipeline parallel meshes (ROADMAP Queue 1 item 14)",
     "multihost": "multi-host meshes (ROADMAP Queue 1 item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
-    "speculative": "speculative decoding (ROADMAP Queue 1 item 7)",
     "role": "disaggregated prefill/decode roles (ROADMAP Queue 1 item 11)",
     "profile_sample": "device profiling probes (ROADMAP Queue 1 item 12)",
-    "checkpoint_path": "checkpoint loading (ROADMAP Queue 1 item 10)",
 }
 
 
@@ -213,7 +224,7 @@ class InferenceEngine:
         prefix_block_tokens: int = 16,
         prefix_gossip_blocks: int = 64,
         prefix_gossip_s: float = 2.0,
-        speculative=None,
+        speculative: SpecConfig | None = None,
         fused_dequant: bool = False,
         role: str = "unified",
         profile_sample: int = 0,
@@ -222,7 +233,6 @@ class InferenceEngine:
         refused = {
             "mesh": mesh is not None,
             "pipeline_microbatches": pipeline_microbatches > 1,
-            "speculative": speculative is not None,
             "role": role != "unified",
             "profile_sample": profile_sample > 0,
         }
@@ -258,6 +268,14 @@ class InferenceEngine:
                                      else self.PREFILL_TOKEN_BUDGET)
         if self.prefill_token_budget < 1:
             raise EngineError("prefill_token_budget must be >= 1")
+        # Speculative decoding (engine/spec/): None keeps the serving path
+        # as it is -- no verify dispatch, the scheduler never drafts,
+        # warmup runs the same shapes.
+        self.spec = speculative
+        if self.spec is not None and 1 + self.spec.k_draft > max_seq_len:
+            raise EngineError(
+                f"speculative k_draft {self.spec.k_draft} does not fit "
+                f"max_seq_len {max_seq_len}")
 
         dev = self.device
         self.state = DecodeState(
@@ -481,6 +499,36 @@ class InferenceEngine:
         self.state = st._replace(cache=cache, last_token=toks,
                                  rng=keys[:, 0])
         return toks
+
+    def _verify(self, draft: torch.Tensor, n_draft: torch.Tensor):
+        """Speculative verify: ONE batched forward over [B, 1 + k_draft]
+        positions -- the pending last_token plus every slot's drafted
+        continuation -- then per-position acceptance (verify_tokens) and a
+        per-slot rollback of the cache lengths to the first rejection.
+
+        The trunk is the continuation path the chunks run (absolute-
+        position causal masking against the live cache), so KV for all
+        1 + k positions is written in place; positions past each slot's
+        seq_len write garbage that the rolled-back lengths exclude and
+        later writes overwrite -- the rollback is one lengths update, no
+        data movement. A slot with n_draft 0 advances exactly one token,
+        like a plain decode step. Returns (tokens [1 + k, B], n_emit [B])."""
+        st = self.state
+        tokens = torch.cat([st.last_token[:, None], draft], dim=1)
+        old_lengths = st.cache.lengths
+        h, cache = forward_hidden(self.params, self.config, tokens, st.cache,
+                                  seq_lens=1 + n_draft)
+        # The head over all 1 + k positions: every lane is a candidate.
+        logits = logits_from_hidden(self.params, self.config, h)
+        # One split of each slot's key per verify, as a decode step takes.
+        keys = prng.split(st.rng)
+        out, n_emit = verify_tokens(logits, draft, n_draft, keys[:, 1],
+                                    st.temperature, st.top_p, st.top_k)
+        last = torch.gather(out, 1, (n_emit - 1).long()[:, None])[:, 0]
+        self.state = st._replace(
+            cache=cache._replace(lengths=old_lengths + n_emit),
+            last_token=last, rng=keys[:, 0])
+        return out.T, n_emit
 
     # ------------------------------------------------------------------
     # Host-side API (called by the scheduler's engine thread)
@@ -963,6 +1011,12 @@ class InferenceEngine:
                         zeros(batch, A), scratch, full(batch, 1, torch.int32),
                         full(batch, 0, torch.int64), *rows(batch))
                     self._store_prefill_scratch(batch, bucket, prefix)
+        if self.spec is not None:
+            # The [B, 1 + k_draft] verify shape: zero drafts advance every
+            # lane one garbage token, harmless before the first insert.
+            self.verify_step(
+                np.zeros((self.max_slots, self.spec.k_draft), np.int64),
+                np.zeros((self.max_slots,), np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -973,6 +1027,32 @@ class InferenceEngine:
         detokenize, emit) overlaps block N+1's device execution."""
         toks = [self._decode_one() for _ in range(self.decode_block)]
         return HostFuture(torch.stack(toks))
+
+    def verify_step_dispatch(self, draft: np.ndarray, n_draft: np.ndarray
+                             ) -> tuple[HostFuture, HostFuture]:
+        """Dispatch ONE speculative verify WITHOUT syncing: `draft`
+        [B, k_draft] holds each slot's proposed continuation tokens,
+        `n_draft` [B] how many are real (0 = no proposal; the slot advances
+        one plain token). Returns (tokens [1 + k, B], n_emit [B]) as
+        HostFutures, which the scheduler syncs an iteration later, as it
+        does a decode block's."""
+        if self.spec is None:
+            raise EngineError("speculative decoding is not enabled")
+        k = self.spec.k_draft
+        if draft.shape != (self.max_slots, k):
+            raise EngineError(
+                f"draft shape {draft.shape} != {(self.max_slots, k)}")
+        toks, n_emit = self._verify(
+            self._dev(np.asarray(draft, np.int64)),
+            self._dev(np.asarray(n_draft, np.int32)))
+        return HostFuture(toks), HostFuture(n_emit)
+
+    def verify_step(self, draft: np.ndarray, n_draft: np.ndarray
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """Synchronous verify (tests and non-pipelined callers):
+        tokens[:n, b] with n = n_emit[b] are slot b's emitted run."""
+        toks, n_emit = self.verify_step_dispatch(draft, n_draft)
+        return np.asarray(toks), np.asarray(n_emit)
 
     def decode_steps(self) -> np.ndarray:
         """decode_block tokens for every slot; host gets [K, B] int64."""
@@ -1019,14 +1099,19 @@ class InferenceEngine:
         (provider/config.py TpuConfig), on the card unless the caller asks
         for the CPU.
 
-        The weights are `init_params(preset(model_preset or "tiny"))` drawn
-        from torch.Generator(d).manual_seed(0), d the card when one is
-        present and else the CPU: random weights of the preset's shape, NOT
-        the JAX package's jax.random.key(0) weights.
+        With `checkpoint_path`, the weights and config come from that HF
+        safetensors directory (engine/weights.py): from the warm cache when
+        `warm_cache` is on and the cache is current, else by a cold load
+        (quantized for `quantization: int8`) that then writes the cache,
+        best effort. A checkpoint that is missing or cannot be read raises
+        CheckpointError; nothing falls back to random weights. Without it,
+        the weights are `init_params(preset(model_preset or "tiny"))`
+        drawn from torch.Generator(d).manual_seed(0), d the card when one
+        is present and else the CPU: random weights of the preset's shape,
+        NOT the JAX package's jax.random.key(0) weights.
         Knobs outside this slice raise EngineError naming their ROADMAP
-        item: checkpoint_path, a mesh of more than one device, multihost,
-        pipeline microbatches, speculative decoding, a tier role and
-        profile_sample."""
+        item: a mesh of more than one device, multihost, pipeline
+        microbatches, a tier role and profile_sample."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
@@ -1036,8 +1121,6 @@ class InferenceEngine:
         mesh = dict(tpu_cfg.mesh or {})
         if int(np.prod([int(v) for v in mesh.values()] or [1])) > 1:
             raise _refuse("mesh")
-        if tpu_cfg.checkpoint_path:
-            raise _refuse("checkpoint_path")
         dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                   "float16": torch.float16}
         if tpu_cfg.dtype not in dtypes:
@@ -1050,21 +1133,27 @@ class InferenceEngine:
         if tpu_cfg.kv_quantization not in (None, "int8"):
             raise EngineError(f"unsupported tpu.kv_quantization "
                               f"{tpu_cfg.kv_quantization!r}")
-        config = preset(tpu_cfg.model_preset or "tiny")
-        # Drawn on the card whenever one is present (then moved to
-        # `device`), so that one config gives the same weights on a machine
-        # whatever the engine's device: a host on the card and one with
-        # --device cpu serve the same model. The CUDA and CPU generators
-        # draw different numbers from one seed.
-        draw_on = "cuda" if torch.cuda.is_available() else "cpu"
-        params = init_params(config,
-                             torch.Generator(device=draw_on).manual_seed(0),
-                             dtype, quantize=tpu_cfg.quantization == "int8")
+        quant = tpu_cfg.quantization == "int8"
+        if tpu_cfg.checkpoint_path:
+            params, config = _load_weights(
+                tpu_cfg.checkpoint_path, dtype=dtype, quantize=quant,
+                warm=bool(getattr(tpu_cfg, "warm_cache", True)),
+                device=device)
+        else:
+            config = preset(tpu_cfg.model_preset or "tiny")
+            # Drawn on the card whenever one is present (then moved to
+            # `device`), so that one config gives the same weights on a
+            # machine whatever the engine's device: a host on the card and
+            # one with --device cpu serve the same model. The CUDA and CPU
+            # generators draw different numbers from one seed.
+            draw_on = "cuda" if torch.cuda.is_available() else "cpu"
+            params = init_params(
+                config, torch.Generator(device=draw_on).manual_seed(0),
+                dtype, quantize=quant)
         # The byte fallback must span the MODEL's vocab, or sampled ids
         # stream as silence (tokenizer.py).
         tokenizer = get_tokenizer(tpu_cfg.tokenizer_path,
                                   vocab_size=config.vocab_size)
-        spec = getattr(tpu_cfg, "speculative", None)
         return cls(
             config, params, tokenizer,
             max_slots=tpu_cfg.max_batch_size,
@@ -1088,12 +1177,44 @@ class InferenceEngine:
             prefix_gossip_s=float(
                 2.0 if getattr(tpu_cfg, "prefix_gossip_s", None) is None
                 else tpu_cfg.prefix_gossip_s),
-            speculative=spec if spec not in (None, False) else None,
+            speculative=SpecConfig.from_knob(
+                getattr(tpu_cfg, "speculative", None)),
             fused_dequant=bool(getattr(tpu_cfg, "fused_dequant", False)),
             profile_sample=int(getattr(tpu_cfg, "profile_sample", 0) or 0),
             role=getattr(tpu_cfg, "role", "unified") or "unified",
             device=device,
         )
+
+
+def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
+                  warm: bool, device: torch.device) -> tuple[dict, Any]:
+    """(params, config) from an HF checkpoint directory, through the warm
+    cache when `warm` is on (the JAX engine's from_tpu_config order): the
+    cache first; else a cold load, quantized for int8 serving, after which
+    the cache is written, best effort -- a failure to cache is logged and
+    never fails serving."""
+    if warm:
+        try:
+            loaded = load_warm_cache(path, dtype=dtype, quantize=quantize,
+                                     device=device)
+        except Exception as exc:  # noqa: BLE001 -- the cache is advisory
+            logger.warning(f"warm cache unreadable, cold load: {exc}")
+            loaded = None
+        if loaded is not None:
+            logger.info(f"weights loaded from warm cache ({path})")
+            return loaded
+    params, config = load_checkpoint(path, dtype=dtype, device=device)
+    if quantize:
+        params = quantize_params(params)
+    logger.info(f"weights loaded cold from checkpoint ({path})")
+    if warm:
+        try:
+            save_warm_cache(path, params, config, dtype=dtype,
+                            quantize=quantize)
+            logger.info("warm weight cache written")
+        except Exception as exc:  # noqa: BLE001
+            logger.warning(f"warm cache not written: {exc}")
+    return params, config
 
 
 def _leaves(tree: Any):

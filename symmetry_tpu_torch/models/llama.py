@@ -20,6 +20,9 @@ routes by layout; packed leaves take ops/qmm.py). On CUDA tensors the
 attention routes (the decode step's row write with them) and packed leaves
 launch the package's hand-written kernels.
 
+The HF weight layout map and `config_from_hf` (an HF config.json dict to
+a ModelConfig) serve engine/weights.py.
+
 Not ported in this slice: MoE (ROADMAP Queue 1 item 13) and sequence-
 parallel prefill (item 14).
 """
@@ -27,7 +30,7 @@ parallel prefill (item 14).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -542,3 +545,89 @@ def forward(
     callers index the last valid position."""
     h, cache = forward_hidden(params, config, tokens, cache, seq_lens)
     return logits_from_hidden(params, config, h), cache
+
+
+# ---------------------------------------------------------------------------
+# HF weight layout map (used by engine/weights.py; kept here because it is
+# model knowledge). HF linear weights are [out, in] -- transposed vs ours.
+
+HF_TOP_MAP = {
+    "model.embed_tokens.weight": ("embed", False),
+    "model.norm.weight": ("final_norm", False),
+    "lm_head.weight": ("lm_head", True),  # [V,E] -> [E,V]
+}
+HF_LAYER_MAP = {
+    "input_layernorm.weight": ("attn_norm", False),
+    "post_attention_layernorm.weight": ("mlp_norm", False),
+    "self_attn.q_proj.weight": ("wq", True),
+    "self_attn.k_proj.weight": ("wk", True),
+    "self_attn.v_proj.weight": ("wv", True),
+    # qwen2: QKV projection biases (absent in llama/mistral checkpoints)
+    "self_attn.q_proj.bias": ("bq", False),
+    "self_attn.k_proj.bias": ("bk", False),
+    "self_attn.v_proj.bias": ("bv", False),
+    "self_attn.o_proj.weight": ("wo", True),
+    "mlp.gate_proj.weight": ("wg", True),
+    "mlp.up_proj.weight": ("wu", True),
+    "mlp.down_proj.weight": ("wd", True),
+}
+# Mixtral: the MLP block is `block_sparse_moe` -- a router (`gate`) plus
+# per-expert w1/w2/w3 Linears (w1=gate_proj, w2=down_proj, w3=up_proj).
+# All are HF [out, in] -> transposed; experts stack on our leading dim.
+# Named as in the JAX package; serving them is item 13's (config_from_hf
+# raises on a mixtral config).
+HF_MOE_ROUTER = "block_sparse_moe.gate.weight"            # -> router (T)
+HF_EXPERT_MAP = {"w1": "wg", "w3": "wu", "w2": "wd"}      # all transposed
+
+
+def hf_expert_name(layer: int, expert: int, ours: str) -> str:
+    w = {v: k for k, v in HF_EXPERT_MAP.items()}[ours]
+    return f"model.layers.{layer}.block_sparse_moe.experts.{expert}.{w}.weight"
+
+
+def config_from_hf(hf: dict[str, Any]) -> ModelConfig:
+    """Build a ModelConfig from an HF config.json dict (llama/mistral/
+    qwen2/gemma shapes). A mixtral dict (num_local_experts) raises
+    NotImplementedError: MoE is not ported (ROADMAP Queue 1 item 13)."""
+    arch = (hf.get("architectures") or [""])[0]
+    # Exact match: gemma-2/3 checkpoints (Gemma2ForCausalLM, ...) need
+    # logit softcapping, post-layer norms, and alternating local
+    # attention this decoder does not implement -- loading them with
+    # gemma-1 semantics would silently generate garbage.
+    gemma = arch == "GemmaForCausalLM"
+    if arch.startswith("Gemma") and not gemma:
+        raise ValueError(
+            f"unsupported architecture {arch!r}: only first-generation "
+            f"GemmaForCausalLM semantics are implemented")
+    # qwen2 configs carry a vestigial sliding_window alongside
+    # use_sliding_window: false -- honoring it would silently disable every
+    # fast attention path.
+    sliding = hf.get("sliding_window")
+    if hf.get("use_sliding_window") is False:
+        sliding = None
+    if hf.get("num_local_experts"):
+        raise NotImplementedError(MOE_NOT_PORTED)
+    return ModelConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        intermediate_size=hf["intermediate_size"],
+        head_dim=hf.get("head_dim"),
+        rope_theta=hf.get("rope_theta", 10000.0),
+        rms_eps=hf.get("rms_norm_eps", 1e-5),
+        # gemma ties embeddings BY DEFAULT, so its config.json often omits
+        # the key entirely -- defaulting it False would reject the checkpoint
+        tie_embeddings=hf.get("tie_word_embeddings", gemma),
+        sliding_window=sliding,
+        # older qwen2 configs carry no attention_bias key; the architecture
+        # implies it (HF modeling_qwen2 hardcodes bias=True on q/k/v).
+        attention_bias=hf.get("attention_bias", "Qwen2" in arch),
+        max_position=hf.get("max_position_embeddings", 8192),
+        # gemma: GeGLU + (1+w) norms + scaled embeddings; hidden_activation
+        # ("gelu_pytorch_tanh") appears in newer configs, older ones imply it
+        hidden_act="gelu_tanh" if gemma else "silu",
+        norm_plus_one=gemma,
+        scale_embed=gemma,
+    )

@@ -106,7 +106,9 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """`jax.random.categorical(key, row)` for each row: keys [B, 2], logits
-    [B, n] float32 -> [B] int64, the argmax of logits plus Gumbel noise
-    (first index on a tie, as jnp.argmax)."""
-    return torch.argmax(logits + gumbel(keys, logits.shape[-1]), dim=-1)
+    """`jax.random.categorical(key, logits_b)` for each b: keys [B, 2],
+    logits [B, ..., n] float32 -> [B, ...] int64, the argmax over the last
+    axis of logits plus Gumbel noise drawn over logits_b's whole shape in
+    C order, as JAX draws it (first index on a tie, as jnp.argmax)."""
+    noise = gumbel(keys, logits[0].numel()).reshape(logits.shape)
+    return torch.argmax(logits + noise, dim=-1)

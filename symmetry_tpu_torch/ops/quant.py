@@ -12,8 +12,9 @@ Weights come in three layouts, and the layout is the routing in `qmatmul`:
     the activation dtype -- as XLA computes it outside any Pallas kernel;
   - PackedQuantizedTensor: the hand-written W8A16 kernel (ops/qmm.py).
 
-Rounding is half to even (torch.round, like jnp.round) and the division
-is IEEE, so payloads are bit-equal to the JAX package's on the same input.
+Rounding is half to even (torch.round, like jnp.round) and the divisions
+are IEEE, so payloads are bit-equal to the JAX package's on the same input
+(weights: as its jitted quantize computes them; see `quantize`).
 Meshes are not ported: mesh arguments raise NotImplementedError.
 """
 
@@ -57,10 +58,15 @@ def _div127(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize(w: torch.Tensor, *, contract_axis: int = -2) -> QuantizedTensor:
-    """Quantize a dense weight along its contraction (input) axis."""
+    """Quantize a dense weight along its contraction (input) axis, with the
+    arithmetic of the JAX package's `quantize_jit` (what its
+    quantize_params and int8 init run): under jit XLA folds the division
+    of amax by 127 into a multiply by float32(1 / 127), so the scale is
+    computed so here, and payloads and scales are bit-equal to its."""
     wf = w.to(torch.float32)
     amax = wf.abs().amax(dim=contract_axis, keepdim=True)
-    scale = _div127(torch.clamp_min(amax, 1e-8))
+    amax = torch.clamp_min(amax, 1e-8)
+    scale = amax * torch.full_like(amax, 1 / 127)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return QuantizedTensor(q=q, scale=scale.squeeze(contract_axis))
 

@@ -12,7 +12,8 @@ PyTorch port (CPU, float32).
   exact, partial, sub-prefix, long-suffix (seeded chunked) and coalesced
   hits (tests/test_prefix_cache.py), also where a chunk or a cached suffix
   runs its pad tokens past the bucket's capacity.
-- from_tpu_config on the default TpuConfig, and its refusals.
+- from_tpu_config on the default TpuConfig, its refusals, the
+  speculative knob and a missing checkpoint.
 """
 
 import threading
@@ -40,7 +41,9 @@ from symmetry_tpu_torch.engine.engine import (
     InferenceEngine,
     SamplingParams,
 )
+from symmetry_tpu_torch.engine.safetensors_io import CheckpointError
 from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
+from symmetry_tpu_torch.engine.spec import SpecConfig
 from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
 from symmetry_tpu_torch.models.llama import preset
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor
@@ -464,18 +467,39 @@ class TestFromTpuConfig:
         ({"multihost": {"coordinator": "localhost:1", "num_processes": 2}},
          "item 14"),
         ({"pipeline_microbatches": 2}, "item 14"),
-        ({"speculative": True}, "item 7"),
-        ({"speculative": {"k_draft": 4}}, "item 7"),
         ({"role": "prefill"}, "item 11"),
         ({"role": "decode"}, "item 11"),
         ({"role": "disagg"}, "item 11"),
         ({"profile_sample": 4}, "item 12"),
-        ({"checkpoint_path": "/nonexistent/ckpt"}, "item 10"),
     ])
     def test_refuses_knobs_outside_the_slice(self, raw, item):
         with pytest.raises(EngineError, match=item):
             InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
                                             device="cpu")
+
+    @pytest.mark.parametrize("knob,k_draft", [
+        (True, SpecConfig().k_draft), ({"k_draft": 4}, 4), (3, 3)])
+    def test_speculative_builds_a_verifying_engine(self, knob, k_draft):
+        """tpu.speculative (once refused as item 7) parses through
+        SpecConfig.from_knob into engine.spec, as the JAX engine's."""
+        engine = InferenceEngine.from_tpu_config(TpuConfig.from_dict(
+            {"speculative": knob}), device="cpu")
+        assert engine.spec == SpecConfig.from_knob(knob)
+        assert engine.spec.k_draft == k_draft
+        engine.prefill_and_insert(0, [1, 2, 3], SamplingParams())
+        draft = np.zeros((engine.max_slots, k_draft), np.int64)
+        toks, n_emit = engine.verify_step(draft, np.zeros(
+            (engine.max_slots,), np.int32))
+        assert toks.shape == (1 + k_draft, engine.max_slots)
+        assert (n_emit >= 1).all()
+
+    def test_missing_checkpoint_raises_checkpoint_error(self):
+        """checkpoint_path (once refused as item 10) loads; a directory
+        that is not there raises CheckpointError naming it, never random
+        weights."""
+        with pytest.raises(CheckpointError, match="/nonexistent/ckpt"):
+            InferenceEngine.from_tpu_config(TpuConfig.from_dict(
+                {"checkpoint_path": "/nonexistent/ckpt"}), device="cpu")
 
     def test_card_is_the_default(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -211,7 +211,6 @@ class TestSampling:
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
         ("mesh", object(), "item 14"),
-        ("speculative", object(), "item 7"),
         ("role", "prefill", "item 11"),
         ("role", "decode", "item 11"),
         ("pipeline_microbatches", 2, "item 14"),
@@ -221,6 +220,21 @@ class TestEngineSurface:
         _, params = weights
         with pytest.raises(EngineError, match=item):
             port_engine(params, 1, **{knob: value})
+
+    @pytest.mark.parametrize("k_draft", [1, 4])
+    def test_speculative_sets_engine_spec(self, weights, k_draft):
+        """`speculative` (once refused as item 7) builds an engine with
+        engine.spec set and a verify step; k_draft must fit the context."""
+        from symmetry_tpu_torch.engine.spec import SpecConfig
+
+        _, params = weights
+        engine = port_engine(params, 1, speculative=SpecConfig(k_draft))
+        assert engine.spec.k_draft == k_draft
+        toks, n_emit = engine.verify_step(np.zeros((2, k_draft), np.int64),
+                                          np.zeros((2,), np.int32))
+        assert toks.shape == (1 + k_draft, 2) and n_emit.tolist() == [1, 1]
+        with pytest.raises(EngineError, match="k_draft"):
+            port_engine(params, 1, speculative=SpecConfig(k_draft=64))
 
     def test_fused_dequant_needs_int8_weights(self, weights):
         """The JAX engine's refusal: fused_dequant on dense weights would be
@@ -292,22 +306,26 @@ class TestEngineSurface:
 
 def test_package_imports_nothing_of_jax():
     """Import every module of symmetry_tpu_torch in a fresh interpreter:
-    no jax* module and no symmetry_tpu / symmetry_tpu.* module may load."""
+    no jax* module, no symmetry_tpu / symmetry_tpu.* module and neither
+    safetensors nor transformers (absent on the card's machine) may
+    load."""
     code = """
 import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 29, names
+assert len(names) >= 33, names
 for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
-            "protocol.keys"):
+            "protocol.keys", "engine.weights", "engine.safetensors_io",
+            "engine.spec", "engine.spec.drafter"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "symmetry_tpu" or m.startswith("symmetry_tpu."))
+             or m == "symmetry_tpu" or m.startswith("symmetry_tpu.")
+             or m.split(".")[0] in ("safetensors", "transformers"))
 print(len(names), bad)
 assert not bad, bad
 """

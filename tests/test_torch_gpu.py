@@ -866,3 +866,61 @@ class TestEngineOnCard:
         f_cpu, t_cpu = run("cpu")
         assert f_card == f_cpu
         np.testing.assert_array_equal(t_card, t_cpu)
+
+
+@pytest.mark.gpu
+class TestVerifyOnCard:
+    @pytest.mark.parametrize("int8", [False, True], ids=["dense", "int8"])
+    def test_verify_step_card_equals_cpu(self, int8):
+        """Speculative verify ([B, 1 + k] through the continuation trunk;
+        int8: W8A16 and an int8 KV cache) on the card and on the CPU from
+        the same float32 weights: tokens, n_emit and cache lengths equal
+        at every verify, for true, garbage and no drafts, and a plain
+        decode block after the verifies gives the same ids."""
+        from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                      SamplingParams)
+        from symmetry_tpu_torch.engine.spec import SpecConfig
+        from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+        from symmetry_tpu_torch.models.llama import init_params, preset
+
+        dev = cuda_or_skip()
+        cfg = preset("tiny")
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, quantize=int8)
+        prompts = [[5, 6, 7], list(range(20, 40)), [300] * 9]
+        k = 4
+
+        def run(device):
+            engine = InferenceEngine(cfg, params, ByteTokenizer(512),
+                                     max_slots=4, max_seq_len=64,
+                                     prefill_buckets=(16, 32),
+                                     cache_dtype=torch.float32,
+                                     decode_block=4, kv_quant=int8,
+                                     fused_dequant=int8,
+                                     speculative=SpecConfig(k_draft=k),
+                                     device=device)
+            firsts = engine.prefill_and_insert_many(
+                [(i, p, SamplingParams()) for i, p in enumerate(prompts)])
+            chain = [np.asarray(engine.decode_steps_dispatch())]
+            out = []
+            for i in range(6):
+                draft = np.zeros((4, k), np.int64)
+                n_draft = np.zeros((4,), np.int32)
+                draft[0] = chain[-1][:, 0] if i % 2 == 0 else [1, 2, 3, 4]
+                n_draft[0] = k
+                draft[1, :2] = 7
+                n_draft[1] = 2 * (i % 2)
+                toks, n_emit = engine.verify_step(draft, n_draft)
+                out.append((toks, n_emit, [engine.slot_length(s)
+                                           for s in range(3)]))
+            out.append(np.asarray(engine.decode_steps_dispatch()))
+            return firsts, out
+
+        card = run(dev)
+        cpu = run("cpu")
+        assert card[0] == cpu[0]
+        for a, b in zip(card[1][:-1], cpu[1][:-1]):
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+            assert a[2] == b[2]
+        np.testing.assert_array_equal(card[1][-1][:, :3], cpu[1][-1][:, :3])

@@ -47,7 +47,8 @@ def case(M=64, K=128, N=256, seed=0):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(M, K)).astype(np.float32)
     w = (rng.normal(size=(K, N)) * 0.05).astype(np.float32)
-    return x, w, quantize(torch.from_numpy(w)), jquant.quantize(jnp.asarray(w))
+    return x, w, quantize(torch.from_numpy(w)), jquant.quantize_jit(
+        jnp.asarray(w))
 
 
 class TestQuantizeRows:
