@@ -105,7 +105,24 @@ Phases (any failure raises and exits non-zero):
               params_from_numpy, the warm cache's leaves bit-equal to that
               engine's; load seconds and each host's peak RSS; the
               directory removed;
- 11. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 11. disagg   llama3-8b at full width and depth, bf16 and then int8, the
+              provider's default `tpu:` section plus a 1024 MiB prefix
+              cache and 32-token prefix blocks: (a) a unified engine host
+              serves 3 chats of 60-1880 tokens, a 21-token chat and a
+              repeat, one at a time, 32 new tokens each, twice (from an
+              empty prefix cache, then hitting it); (b) a prefill-role
+              host and two decode-role hosts (probes off, and
+              profile_sample 4), each `handoff` frame piped into both
+              decode hosts' `adopt`: streamed text identical to (a)'s
+              second serve, the short chat routing-only, the repeat's
+              frame manifest only; (c) the probed host's devprof rider
+              (device seconds per dispatch kind, gap_share,
+              device_s_total) beside torch.profiler's reading of one
+              decode block in-process; (d) the `profile` op while the
+              probed host decodes: its trace names the decode-attention
+              kernel; (e) frame
+              bytes per prefix token, serialize and adopt seconds;
+ 12. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3), the nvidia-smi
               line, and last the {"ok": true, ...} line. Each phase
@@ -2103,6 +2120,244 @@ def check_checkpoint(smi: str) -> None:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the prefill and decode tiers, device-time probes
+
+DISAGG_PRESET = "llama3-8b"
+DISAGG_LENS = [60, 700, 1880]
+DISAGG_NEW = 32
+PROFILE_NEW = 160  # ten decode blocks: the capture lands inside decode
+TRACE_KERNEL = "decode_split_kernel"  # csrc/decode_attention.cu
+
+
+def tier_config(base: dict, role: str) -> dict:
+    """The `tpu:` section the JAX provider's broker gives each tier's host
+    (symmetry_tpu/engine/disagg/broker.py derive_role_config): the role
+    pinned, a prefix cache on both tiers (the base sets one), and a prefill
+    tier's pipeline_depth 1 (it never decodes)."""
+    out = {**base, "role": role}
+    if role == "prefill":
+        out.setdefault("pipeline_depth", 1)
+    return out
+
+
+def serve_one_by_one(host: HostProc, prefix: str, contents: list,
+                     max_new: int) -> list[dict]:
+    out = []
+    for i, content in enumerate(contents):
+        submit(host, f"{prefix}{i}", content, max_new)
+        host.wait_done([f"{prefix}{i}"])
+        out.append(stream(host, f"{prefix}{i}"))
+    return out
+
+
+def check_disagg(smi: str, *, int8: bool) -> None:
+    """llama3-8b at full depth, the provider's default `tpu:` section plus
+    a 1024 MiB prefix cache and 32-token prefix blocks (so that a short
+    chat has no whole block and routes without a prefill), bf16 or int8
+    (kv_quant + fused_dequant). (a) a unified host serves 3 chats of
+    60-1880 tokens, a 21-token chat and a repeat of the 700-token one, one
+    at a time, 32 new tokens each, twice: the first serve from an empty
+    prefix cache, the second hitting it, which runs the prompt's last
+    partial block through the cached admission as a decode tier does after
+    adoption; (b) a prefill host and two decode hosts (probes off, and
+    profile_sample 4), each `handoff` frame piped into both decode hosts'
+    `adopt`, as the broker does: the streamed text of both equals (a)'s
+    second serve, the 21-token chat's frame is routing-only and the
+    repeat's ships its manifest only; (c) the probed host's devprof rider
+    beside an in-process torch.profiler reading of one decode block; (d)
+    the `profile` op on the probed host while it decodes a 160-token
+    request returns a trace that names the decode-attention kernel; (e)
+    frame bytes per prefix token, serialize and adopt seconds."""
+    from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                  SamplingParams)
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+    from symmetry_tpu_torch.models.llama import preset
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    tag = "int8" if int8 else "bf16"
+    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+            "prefix_block_tokens": 32,
+            **({"quantization": "int8", "kv_quantization": "int8",
+                "fused_dequant": True} if int8 else {})}
+    tok = get_tokenizer(None, vocab_size=128256)
+    head = len(tok.apply_chat_template([{"role": "user", "content": ""}]))
+    rng = np.random.default_rng(11)
+    chats = [chat_content(rng, n - head) for n in DISAGG_LENS]
+    contents = chats + ["hi", chats[1]]
+    lens = [len(tok.apply_chat_template([{"role": "user", "content": c}]))
+            for c in contents]
+    log(f"  {tag}: prompt tokens {lens}, {DISAGG_NEW} new tokens each, "
+        f"prefix blocks of {base['prefix_block_tokens']}")
+
+    t0 = time.monotonic()
+    unified = HostProc(f"disagg_{tag}_unified", base)
+    try:
+        unified.wait_for(lambda f: f.get("op") == "ready")
+        cold = serve_one_by_one(unified, "c", contents, DISAGG_NEW)
+        warm = serve_one_by_one(unified, "w", contents, DISAGG_NEW)
+        if unified.shutdown() != 0:
+            raise AssertionError("unified host exit code != 0")
+    finally:
+        unified.kill()
+    log(f"  (a) unified host served both passes in "
+        f"{time.monotonic() - t0:.1f} s")
+    same = [a["text"] == b["text"] for a, b in zip(cold, warm)]
+    log(f"  (a) unified host: first serve == second (cached) serve "
+        f"{sum(same)}/{len(same)} {same}; second serve reused "
+        f"{[r['reused'] for r in warm]} ({time.monotonic() - t0:.1f} s)")
+    if not all((r["reused"] or 0) > 0 for i, r in enumerate(warm)
+               if i != len(chats)):
+        raise AssertionError(f"unified second serve missed the cache: "
+                             f"{[r['reused'] for r in warm]}")
+
+    t1 = time.monotonic()
+    decode_tpu = tier_config(base, "decode")
+    pre = HostProc(f"disagg_{tag}_prefill", tier_config(base, "prefill"))
+    decs = [HostProc(f"disagg_{tag}_decode", decode_tpu),
+            HostProc(f"disagg_{tag}_decode_probed",
+                     {**decode_tpu, "profile_sample": 4})]
+    hosts = [pre, *decs]
+    prof_dir = os.path.join(OUT_DIR, f"profiles_{tag}")
+    try:
+        for h in hosts:
+            ready = h.wait_for(lambda f: f.get("op") == "ready")
+            if ready["role"] != h.label.split("_")[2]:
+                raise AssertionError(f"{h.label} ready as {ready['role']}")
+        log(f"  (b) prefill host and two decode hosts ready in "
+            f"{time.monotonic() - t1:.1f} s")
+        handoffs = []
+        for i, content in enumerate(contents):
+            rid = f"d{i}"
+            submit(pre, rid, content, DISAGG_NEW)
+            frame = pre.wait_for(lambda f, rid=rid: f.get("op") == "handoff"
+                                 and f.get("id") == rid)
+            b64 = frame.pop("frame")
+            handoffs.append(frame)
+            for dec in decs:
+                dec.send({"op": "adopt", "id": rid, "frame": b64,
+                          "max_new": DISAGG_NEW,
+                          "sampling": {"temperature": 0.0}})
+            del b64
+            for dec in decs:
+                dec.wait_done([rid])
+        got = [[stream(dec, f"d{i}") for i in range(len(contents))]
+               for dec in decs]
+        # (d) a capture while the probed decode host decodes a request of
+        # PROFILE_NEW tokens (a submit: every host role takes those)
+        submit(decs[1], "p0", "hi", PROFILE_NEW)
+        decs[1].wait_for(lambda f: any(e.get("id") == "p0" for e in (
+            [f] if f.get("op") == "event" else f.get("events", []))))
+        decs[1].send({"op": "profile", "duration_s": 0.5, "dir": prof_dir})
+        reply = decs[1].wait_for(lambda f: f.get("op") == "profile")
+        if "path" not in reply:
+            raise AssertionError(f"profile op: {reply}")
+        trace_path = os.path.join(reply["path"], "trace.json")
+        decs[1].wait_done(["p0"])
+        pstats = pre.stats()
+        dstats = [dec.stats() for dec in decs]
+        for h in hosts:
+            if h.shutdown() != 0:
+                raise AssertionError(f"host {h.label} exit code != 0")
+    finally:
+        for h in hosts:
+            h.kill()
+    for label, rs in zip(("probes off", "probes on"), got):
+        for i, (a, b) in enumerate(zip(rs, warm)):
+            if (a["text"], a["tokens"], a["reason"]) != (
+                    b["text"], b["tokens"], b["reason"]):
+                raise AssertionError(
+                    f"disagg {tag} ({label}) request {i}: decode tier "
+                    f"{a} != unified {b}")
+    cold_same = [a["text"] == b["text"] for a, b in zip(got[0], cold)]
+    log(f"  (b) prefill -> decode tiers: streamed text identical to the "
+        f"unified host's second serve, probes off and on, "
+        f"{len(contents)} requests; equal to its first serve "
+        f"{sum(cold_same)}/{len(cold_same)} ({time.monotonic() - t1:.1f} s)")
+    short, repeat = len(chats), len(chats) + 1
+    if handoffs[short]["p"] != 0 or handoffs[short]["blocks"] != 0:
+        raise AssertionError(f"short chat not routing-only: "
+                             f"{handoffs[short]}")
+    if handoffs[repeat]["shipped"] != 0 or handoffs[repeat]["blocks"] != (
+            handoffs[1]["blocks"]) or handoffs[1]["shipped"] != handoffs[1][
+                "blocks"]:
+        raise AssertionError(f"repeat not manifest-only: {handoffs[1]} "
+                             f"{handoffs[repeat]}")
+    k = pstats["kernels"]
+    if k["decode_attention"] or k["flash_prefill"] <= 0:
+        raise AssertionError(f"prefill host kernels {k}")
+    for st in dstats:
+        k = st["kernels"]
+        if min(k["decode_attention"], k["decode_attention_append"]) <= 0 or (
+                int8 and k["w8a16_matmul"] <= 0):
+            raise AssertionError(f"decode host kernels {k}")
+        # every frame but the routing-only one adopts (the repeat's by
+        # reference)
+        if st["adopt"]["errors"] or st["adopt"]["adopted"] != len(
+                contents) - 1:
+            raise AssertionError(f"decode host adopt {st['adopt']}")
+
+    # (c) the probes' rider, and one decode block under torch.profiler
+    dp = dstats[1]["devprof"]
+    log(f"  (c) devprof (profile_sample 4) on {smi}: probes "
+        f"{dp['probes']}, dispatches {dp['dispatches']}, device_s_total "
+        f"{dp['device_s_total']}, dispatch_gap_s_total "
+        f"{dp['dispatch_gap_s_total']}, gap_share {dp['gap_share']} "
+        f"(pipeline_depth {dp['pipeline_depth']})")
+    for kind, h in sorted(dp["device_s"].items()):
+        log(f"    {kind:12s} n={h['count']} p50 {h['p50']} p90 {h['p90']} "
+            f"max {h['max']} s")
+    log(f"    dispatch gap n={dp['dispatch_gap_s']['count']} p50 "
+        f"{dp['dispatch_gap_s']['p50']} p90 {dp['dispatch_gap_s']['p90']} s")
+    engine = InferenceEngine.from_tpu_config(TpuConfig.from_dict(
+        {**decode_tpu, "profile_sample": 1}))
+    engine.warmup()
+    ids = tok.apply_chat_template([{"role": "user", "content": chats[-1]}])
+    engine.prefill_and_insert_many(
+        [(s, ids[:lens[0] + 40 * s], SamplingParams()) for s in range(4)])
+    rows = profile_dispatch(
+        f"decode block ({engine.decode_block} steps, 4 live slots, {tag})",
+        lambda: np.asarray(engine.decode_steps_dispatch()))
+    probed = [sp["duration_s"] for sp in engine.devprof.component()["spans"]
+              if sp["name"] == "decode_block"][-2:]
+    log(f"    the same engine's probe of those blocks: "
+        f"{[round(d * 1e3, 3) for d in probed]} ms (devprof device "
+        f"duration: dispatch start to completion); its gap_share over "
+        f"back-to-back blocks {engine.devprof.stats()['gap_share']}")
+    if not rows:
+        raise AssertionError("profiler saw no decode kernels")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the profile op's trace
+    with open(trace_path) as fh:
+        trace = fh.read()
+    if TRACE_KERNEL not in trace:
+        raise AssertionError(f"{trace_path} names no {TRACE_KERNEL}")
+    log(f"  (d) profile op: {trace_path} ({len(trace) / 1e6:.1f} MB) names "
+        f"{TRACE_KERNEL} {trace.count(TRACE_KERNEL)} times")
+
+    # (e) frames
+    h = pstats["handoff"]
+    sized = [f for f in handoffs if f["p"] and f["shipped"]]
+    per_tok = [f["nbytes"] / f["p"] for f in sized]
+    a = dstats[0]["adopt"]
+    c = preset(DISAGG_PRESET)
+    kv_token = 2 * c.num_layers * c.num_kv_heads * (
+        c.dim_per_head + 4 if int8 else 2 * c.dim_per_head)
+    log(f"  (e) handoff frames: {h['frames']} ({h['routing_only']} "
+        f"routing-only), {h['bytes'] / 1e6:.3f} MB, prefix tokens "
+        f"{h['prefix_tokens']}, blocks {h['blocks']} shipped "
+        f"{h['blocks_shipped']}; bytes per prefix token "
+        f"{min(per_tok):.1f}-{max(per_tok):.1f} (KV {kv_token} a token); "
+        f"serialize_s "
+        f"{h['serialize_s']} over {h['frames']} frames; decode host adopt "
+        f"{a}; adopt dispatches {dstats[0]['adopt_dispatches']} in "
+        f"{dstats[0]['adopt_s']:.4f} s (p50 "
+        f"{dstats[0]['adopt_dispatch_s']['p50']} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -2200,6 +2455,14 @@ def main() -> int:
         f"layers, through the engine host")
     check_checkpoint(smi)
     phase_done(10)
+
+    log("phase 11: prefill and decode tiers, llama3-8b full width and "
+        "depth, and the device-time probes")
+    for int8_tiers in (False, True):
+        check_disagg(smi, int8=int8_tiers)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done(11)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

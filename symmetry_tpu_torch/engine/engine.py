@@ -40,8 +40,15 @@ verify_tokens) and a rollback of the cache lengths to the first
 rejection. `from_tpu_config` loads an HF checkpoint (engine/weights.py)
 through the warm cache when `checkpoint_path` is set.
 
-Knobs outside this slice (mesh, pipeline microbatches, disaggregated
-roles, device profiling) raise EngineError naming their ROADMAP item.
+Disaggregated tiers (`role`, engine/disagg/): a "prefill" engine builds
+prompt KV that the host cuts into handoff frames from the slot lane
+(`extract_slot_kv`) and never decodes; a "decode" engine adopts those
+frames into its block pool (`adopt_prefix`), so the request admits through
+the ordinary prefix-hit path. Device-time probes (`profile_sample`,
+utils/devprof.py) time 1 in N dispatches of each kind on the card.
+
+Knobs outside this slice (mesh, multihost, pipeline microbatches) raise
+EngineError naming their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -57,6 +64,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from symmetry_tpu_torch.engine.disagg.frames import BFloat16Array, wire_dtype
 from symmetry_tpu_torch.engine.prefix_cache import (
     BlockPool,
     RadixHit,
@@ -83,6 +91,7 @@ from symmetry_tpu_torch.models.llama import (
 from symmetry_tpu_torch.ops import kernels, prng
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
 from symmetry_tpu_torch.ops.sampling import sample_tokens, verify_tokens
+from symmetry_tpu_torch.utils.devprof import DeviceProfiler
 from symmetry_tpu_torch.utils.logging import logger
 from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
 
@@ -182,9 +191,28 @@ _NOT_PORTED = {
     "mesh": "tensor / pipeline parallel meshes (ROADMAP Queue 1 item 14)",
     "multihost": "multi-host meshes (ROADMAP Queue 1 item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
-    "role": "disaggregated prefill/decode roles (ROADMAP Queue 1 item 11)",
-    "profile_sample": "device profiling probes (ROADMAP Queue 1 item 12)",
 }
+
+# KV cache dtype -> the dtype name its handoff planes travel under.
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8"}
+
+
+def to_numpy_plane(t: torch.Tensor) -> np.ndarray:
+    """A KV plane as a host numpy array for a handoff frame: bf16 as its
+    uint16 words (frames.BFloat16Array), which the frame writes under the
+    name "bfloat16"."""
+    if t.dtype == torch.bfloat16:
+        return t.cpu().view(torch.uint16).numpy().view(BFloat16Array)
+    return t.cpu().numpy()
+
+
+def from_numpy_plane(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """The inverse of to_numpy_plane, onto `device`."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if isinstance(a, BFloat16Array):
+        t = t.view(torch.bfloat16)
+    return t.to(device)
 
 
 def _refuse(knob: str) -> EngineError:
@@ -233,12 +261,26 @@ class InferenceEngine:
         refused = {
             "mesh": mesh is not None,
             "pipeline_microbatches": pipeline_microbatches > 1,
-            "role": role != "unified",
-            "profile_sample": profile_sample > 0,
         }
         for knob, on in refused.items():
             if on:
                 raise _refuse(knob)
+        # Disaggregated prefill/decode (engine/disagg/): "unified" prefills
+        # AND decodes; "prefill" builds prompt KV and hands it off (never
+        # decodes; warmup skips the decode side); "decode" adopts handed-off
+        # KV through the prefix store and generates. The role gates which
+        # paths warmup runs and which scheduler paths serve; it changes no
+        # computation.
+        if role not in ("unified", "prefill", "decode"):
+            raise EngineError(
+                f"unknown engine role {role!r}; expected unified, "
+                f"prefill, or decode (disagg is a backend-level role — "
+                f"the broker assigns prefill/decode to its two hosts)")
+        self.role = role
+        # symprof (utils/devprof.py, tpu.profile_sample): sampling
+        # completion probes around every dispatch kind below. Off (0) = one
+        # branch per dispatch: every hook is guarded by `dp.enabled`.
+        self.devprof = DeviceProfiler(profile_sample)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
@@ -322,9 +364,17 @@ class InferenceEngine:
                         f"not): the block gathers and scatters index "
                         f"buckets in whole blocks")
             block_bytes = self.prefix_block * self.kv_bytes_per_token()
+            n_blocks = int(prefix_cache_bytes) // block_bytes
+            if self.role == "decode":
+                # Geometry floor, not a fixed MB knob: adopting a
+                # largest-bucket prompt must never be rejected by a budget
+                # too small for the model at hand. Two largest prefixes'
+                # worth keeps one pinned mid-copy while the next adopts.
+                n_blocks = max(n_blocks, 2 * (self.prefill_buckets[-1]
+                                              // self.prefix_block))
             # The pool must at least hold one smallest-bucket prefix or
             # every insert is a guaranteed rejection.
-            n_blocks = max(int(prefix_cache_bytes) // block_bytes,
+            n_blocks = max(n_blocks,
                            self.prefill_buckets[0] // self.prefix_block)
             self.block_pool = BlockPool(n_blocks, self.prefix_block,
                                         block_bytes)
@@ -334,6 +384,17 @@ class InferenceEngine:
             self._pool_kv = init_cache(config, n_blocks + 1,
                                        self.prefix_block, cache_dtype,
                                        quantized=self.kv_quant, device=dev)
+        if self.role == "decode" and self.prefix_index is None:
+            # Adoption lands handed-off KV through the radix index; without
+            # it every migrated request would re-prefill from scratch.
+            raise EngineError(
+                "role: decode requires the prefix cache "
+                "(tpu.prefix_cache_mb > 0 and a prefill_chunk) — "
+                "handoff frames are adopted through it")
+        if self.role == "prefill" and not self.prefix_align:
+            raise EngineError(
+                "role: prefill requires tpu.prefill_chunk — the decode "
+                "tier's suffix dispatch needs its shape")
 
     def _pack_weights(self) -> None:
         """`fused_dequant`: pack the int8 leaves into the W8A16 kernel's
@@ -616,6 +677,8 @@ class InferenceEngine:
             lens[i] = len(ids)
 
         lens_t = self._dev(lens)
+        dp = self.devprof
+        t_dp = dp.begin() if dp.enabled else 0.0
         toks, prefix = self._prefill(self._dev(padded), lens_t, *rows[:4],
                                      self._prefill_scratch_for(batch,
                                                                bucket))
@@ -623,6 +686,10 @@ class InferenceEngine:
         # the decode keys.
         self._insert_all(prefix, self._dev(slots), lens_t, toks, *rows[:3],
                          rows[4])
+        if dp.enabled:
+            # The probe covers the prefill + insert chain (one stream, so
+            # the event after the insert follows both).
+            dp.probe("prefill", self.state.last_token, t_dp)
         # Populate the prefix cache from this batch before the buffer goes
         # back to the pool (the next same-shape prefill overwrites it).
         if self.prefix_index is not None:
@@ -733,17 +800,26 @@ class InferenceEngine:
                 slots[i] = slot
             rows = self._sampling_rows(assignments, batch)
 
+            dp = self.devprof
+            t_dp = dp.begin() if dp.enabled else 0.0
             scratch = self._insert_from_blocks(
                 self._prefill_scratch_for(batch, bucket),
                 self._bucket_ids(bucket, hit.blocks), p)
+            if dp.enabled:
+                dp.probe("seed_gather", scratch.k, t_dp)
             # The gather out of the pool is queued ahead of any later
             # scatter into a since-freed block: safe to unpin now.
             hit.release()
             sfx_t = self._dev(sfx_lens)
+            t_dp = dp.begin() if dp.enabled else 0.0
             toks, prefix = self._chunk_final(self._dev(suffix), scratch,
                                              sfx_t, sfx_t - 1, *rows[:4])
             self._insert_all(prefix, self._dev(slots), self._dev(full_lens),
                              toks, *rows[:3], rows[4])
+            if dp.enabled:
+                # The cached-hit suffix dispatch is still a prefill on the
+                # device (chunk_final + insert over the seeded rows).
+                dp.probe("prefill", self.state.last_token, t_dp)
             # The rows hold prefix + suffix KV: extend the tree with the new
             # tail blocks before the buffer goes back to the scratch pool,
             # so the next turn of a session hits at its full history.
@@ -765,12 +841,18 @@ class InferenceEngine:
             p = PB * (len(ids) // PB)
             if p < PB:
                 continue
+            dp = self.devprof
+            t_dp = 0.0
             plan = self.prefix_index.plan_insert(ids[:p])
             if plan is None:
                 continue  # fully resident, or rejected even after LRU
             try:
                 # inside the try: a failed dispatch must abort the plan, or
-                # its pinned prefix and allocated blocks leak
+                # its pinned prefix and allocated blocks leak. The probe's
+                # begin() sits here too: only a path that dispatches may
+                # close a pending dispatch gap.
+                if dp.enabled:
+                    t_dp = dp.begin()
                 row_cache = self._extract_prefix_row(prefix, row, p)
                 self._write_blocks(row_cache, self._bucket_ids(
                     row_cache.k.shape[2], plan.new_ids,
@@ -779,6 +861,8 @@ class InferenceEngine:
                 plan.abort()
                 raise
             plan.commit()
+            if dp.enabled:
+                dp.probe("scatter", self._pool_kv.k, t_dp)
             return
 
     def prefix_cache_stats(self) -> dict | None:
@@ -809,6 +893,172 @@ class InferenceEngine:
             return 2 * per_plane * (c.dim_per_head + 4)
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
         return 2 * per_plane * c.dim_per_head * itemsize
+
+    # ------------------------------------------------------------------
+    # Disaggregated prefill/decode (engine side; frames in engine/disagg/)
+
+    def extract_slot_kv(self, slot: int, p: int) -> KVCache:
+        """Batch-1 snapshot of decode-lane `slot`'s KV, lengths pinned to
+        `p` — the device half of a prefill-tier handoff. Every admission
+        path ends by inserting the prompt's KV into the slot lane, so
+        extracting from the lane is uniform across all of them. A view
+        (the prefix-cache row extract), trimmed to the smallest prefill
+        bucket holding `p`, so the host copy the caller makes scales with
+        the prompt, not max_seq_len. The caller copies it to the host
+        before the lane can be reused (the handoff sink runs on the engine
+        thread, ahead of any next admission)."""
+        if not 0 <= slot < self.max_slots:
+            raise EngineError(f"extract_slot_kv: slot {slot} out of range")
+        row = self._extract_prefix_row(self.state.cache, slot, p)
+        cap = self.bucket_for(max(int(p), 1))
+        if cap >= self.max_seq_len:
+            return row
+
+        def cut(arr, axis):
+            return arr.narrow(axis, 0, cap) if arr is not None else None
+
+        return row._replace(k=cut(row.k, 2), v=cut(row.v, 2),
+                            k_scale=cut(row.k_scale, 3),
+                            v_scale=cut(row.v_scale, 3))
+
+    def _upload_row(self, planes: dict[str, np.ndarray], p: int) -> KVCache:
+        """A batch-1 row buffer from host planes (to_numpy_plane layout),
+        on the engine's device, valid through `p` tokens."""
+        def up(key):
+            a = planes.get(key)
+            return from_numpy_plane(a, self.device) if a is not None else None
+
+        return KVCache(k=up("k"), v=up("v"),
+                       lengths=torch.full((1,), p, dtype=torch.int32,
+                                          device=self.device),
+                       k_scale=up("k_scale"), v_scale=up("v_scale"))
+
+    def _host_row(self, capacity: int) -> dict[str, np.ndarray]:
+        """Zeroed host planes of one batch-1 row of `capacity` positions,
+        in this engine's cache dtype (bf16 as frames.BFloat16Array)."""
+        c = self.config
+        shape = (c.num_layers, 1, capacity, c.num_kv_heads, c.dim_per_head)
+        if self.kv_quant:
+            scales = (c.num_layers, 1, c.num_kv_heads, capacity)
+            return {"k": np.zeros(shape, np.int8),
+                    "v": np.zeros(shape, np.int8),
+                    "k_scale": np.zeros(scales, np.float32),
+                    "v_scale": np.zeros(scales, np.float32)}
+        if self.cache_dtype == torch.bfloat16:
+            return {key: np.zeros(shape, np.uint16).view(BFloat16Array)
+                    for key in ("k", "v")}
+        dtype = np.dtype(_WIRE_DTYPES[self.cache_dtype])
+        return {"k": np.zeros(shape, dtype), "v": np.zeros(shape, dtype)}
+
+    def adopt_prefix(self, handoff) -> bool:
+        """Decode-tier adoption: a deserialized KV handoff (engine/disagg/
+        frames.py KVHandoff, block-manifest format) lands in the radix
+        tree, so the migrated request admits through the ordinary cached
+        path — one block gather and one suffix dispatch, as a local prefix
+        hit does.
+
+        Blocks the sender skipped (already shipped once) OR that this tree
+        already holds adopt BY REFERENCE — only new blocks are assembled
+        into one bucket-padded row and scattered into the pool in a single
+        dispatch. The adopted prefix is the longest leading run of
+        resident-or-shipped blocks (a skipped block this tier has since
+        evicted shortens the run; the request re-prefills a longer suffix).
+
+        Returns True when a non-empty prefix is (or already was) resident,
+        False when nothing could be adopted (routing-only frame, pool
+        rejection) — the request then admits through a full prefill.
+        Structural mismatches between the frame and this engine's
+        model/cache geometry raise: adopting wrong-shaped or wrong-dtype KV
+        would stream garbage."""
+        if self.prefix_index is None:
+            raise EngineError("adopt_prefix requires the prefix cache "
+                              "(role: decode builds it by contract)")
+        p = int(handoff.p)
+        if p <= 0:
+            return False  # routing-only handoff: nothing to adopt
+        PB = self.prefix_block
+        bs = int(handoff.block_size)
+        if p % bs:
+            raise EngineError(f"handoff prefix length {p} is not a "
+                              f"multiple of its block size {bs}")
+        if bool(handoff.kv_quant) != bool(self.kv_quant):
+            raise EngineError(
+                f"handoff KV quantization ({handoff.kv_quant}) disagrees "
+                f"with this engine ({self.kv_quant}) — tiers must share "
+                f"the cache layout")
+        c = self.config
+        want = (c.num_layers, 1, bs, c.num_kv_heads, c.dim_per_head)
+        want_dtype = _WIRE_DTYPES[torch.int8 if self.kv_quant
+                                  else self.cache_dtype]
+        for j, planes in handoff.blocks.items():
+            k, v = planes["k"], planes["v"]
+            if k.shape != want or v.shape != want:
+                raise EngineError(
+                    f"handoff block {j} KV shape {k.shape} does not "
+                    f"match this model ({want})")
+            if wire_dtype(k) != want_dtype or wire_dtype(v) != want_dtype:
+                raise EngineError(
+                    f"handoff block {j} KV dtype {wire_dtype(k)} does not "
+                    f"match this engine's cache dtype {want_dtype}")
+        tokens = tuple(int(t) for t in handoff.tokens[:p])
+        # Leading coverage: resident tree blocks first, then contiguous
+        # shipped frame blocks. A hole (skipped-and-evicted) ends it.
+        cov = self.prefix_index.match_len(tokens)
+        for j in range(p // bs):
+            lo, hi = j * bs, (j + 1) * bs
+            if hi <= cov:
+                continue
+            if lo > cov or j not in handoff.blocks:
+                break
+            cov = hi
+        p_eff = PB * (min(cov, p) // PB)
+        if p_eff <= 0:
+            return False
+        dp = self.devprof
+        t_dp = 0.0
+        plan = self.prefix_index.plan_insert(tokens[:p_eff])
+        if plan is None:
+            # Fully resident (adoption by reference), or the pool rejected
+            # the tail even after eviction.
+            return self.prefix_index.match_len(tokens[:p_eff]) >= p_eff
+        # Assemble the new tail into one bucket-padded batch-1 row and
+        # scatter it in ONE dispatch. The whole assembly runs inside the
+        # try: a failure between plan and commit (no bucket fits, a frame
+        # missing its scale planes, a device transfer error) must abort the
+        # plan, or its pinned matched prefix and allocated blocks leak. The
+        # probe's begin() sits inside for the same reasons as in
+        # _maybe_store_prefix.
+        try:
+            if dp.enabled:
+                t_dp = dp.begin()
+            capacity = self.bucket_for(p_eff)
+            m = plan.matched_len
+            rows = self._host_row(capacity)
+            for j, planes in handoff.blocks.items():
+                lo, hi = j * bs, (j + 1) * bs
+                if hi <= m or lo >= p_eff:
+                    continue  # resident already, or past the adopted run
+                # A frame block may straddle p_eff when the sender's block
+                # size is not a multiple of this pool's: clip to the
+                # adopted run (the row is only capacity wide).
+                w = min(hi, p_eff) - lo
+                for key, row in rows.items():
+                    if key.endswith("_scale"):
+                        row[:, :, :, lo:lo + w] = planes[key][:, :, :, :w]
+                    else:
+                        row[:, :, lo:lo + w] = planes[key][:, :, :w]
+            self._write_blocks(self._upload_row(rows, p_eff),
+                               self._bucket_ids(capacity, plan.new_ids,
+                                                at=m // PB))
+        except Exception:
+            plan.abort()
+            raise
+        plan.commit()
+        if dp.enabled:
+            # Adoption's device work: the host-to-device row copy and the
+            # one-dispatch pool scatter.
+            dp.probe("adopt", self._pool_kv.k, t_dp)
+        return True
 
     # ------------------------------------------------------------------
     # Chunked prefill (long prompts, interleaved with decode blocks)
@@ -850,8 +1100,12 @@ class InferenceEngine:
 
             cache = self._new_prefix_cache(bucket)
             if hit is not None:
+                dp = self.devprof
+                t_dp = dp.begin() if dp.enabled else 0.0
                 cache = self._insert_from_blocks(
                     cache, self._bucket_ids(bucket, hit.blocks), start)
+                if dp.enabled:
+                    dp.probe("seed_gather", cache.k, t_dp)
                 hit.release()  # gather queued; blocks free to evict
                 self.prefix_index.note_reuse(1, start)
             elif self.prefix_index is not None:
@@ -875,9 +1129,13 @@ class InferenceEngine:
         chunk = self._dev(job.ids[:, c0:c0 + C])
         valid = torch.tensor([min(C, job.suffix_len - c0)],
                              dtype=torch.int32, device=self.device)
+        dp = self.devprof
+        t_dp = dp.begin() if dp.enabled else 0.0
         if job.done_chunks < job.n_chunks - 1:
             job.cache = self._chunk_step(chunk, job.cache, valid)
             job.done_chunks += 1
+            if dp.enabled:
+                dp.probe("chunk", job.cache.k, t_dp)
             return None
         last_idx = torch.tensor([job.suffix_len - 1 - c0], dtype=torch.int64,
                                 device=self.device)
@@ -892,6 +1150,8 @@ class InferenceEngine:
                                       device=self.device),
                          toks, job.temp, job.top_p, job.top_k,
                          job.decode_key)
+        if dp.enabled:
+            dp.probe("chunk", self.state.last_token, t_dp)
         # The finished buffer holds the FULL prompt's KV: scatter its
         # unresident whole blocks into the pool before it is dropped
         # (blocks the tree already holds, e.g. a seeded job's prefix, stay
@@ -960,10 +1220,18 @@ class InferenceEngine:
         PyTorch runs eagerly. Call before the first insert — warmup advances
         device state with garbage that is only harmless on an empty cache
         (inserts target slot 0 at length 0; pool writes the trash block).
+
+        Role split, as in the JAX engine: a "prefill" engine never decodes,
+        so the decode block and the verify are skipped and the handoff
+        snapshot (the slot-lane extract, trimmed to each bucket, copied to
+        the host) runs instead; a "decode" engine's pool scatters run from
+        host rows, as adoption's do.
         """
+        decode_side = self.role != "prefill"
         if self.device.type == "cuda":
             kernels.build_all()
-        self.decode_steps_dispatch()
+        if decode_side:
+            self.decode_steps_dispatch()
 
         def full(n, value, dtype):
             return torch.full((n,), value, dtype=dtype, device=self.device)
@@ -1001,8 +1269,10 @@ class InferenceEngine:
             for bucket in self.prefill_buckets:
                 # every lane at the trash block: the garbage lands where
                 # nobody reads
-                self._write_blocks(self._new_prefix_cache(bucket),
-                                   self._bucket_ids(bucket))
+                row = (self._upload_row(self._host_row(bucket), 0)
+                       if self.role == "decode"
+                       else self._new_prefix_cache(bucket))
+                self._write_blocks(row, self._bucket_ids(bucket))
                 for batch in self.prefill_batches_for(bucket):
                     scratch = self._insert_from_blocks(
                         self._prefill_scratch_for(batch, bucket),
@@ -1011,7 +1281,13 @@ class InferenceEngine:
                         zeros(batch, A), scratch, full(batch, 1, torch.int32),
                         full(batch, 0, torch.int64), *rows(batch))
                     self._store_prefill_scratch(batch, bucket, prefix)
-        if self.spec is not None:
+        if self.role == "prefill":
+            for bucket in self.prefill_buckets:
+                row = self.extract_slot_kv(0, min(bucket, self.max_seq_len))
+                for plane in (row.k, row.v, row.k_scale, row.v_scale):
+                    if plane is not None:
+                        to_numpy_plane(plane)
+        if self.spec is not None and decode_side:
             # The [B, 1 + k_draft] verify shape: zero drafts advance every
             # lane one garbage token, harmless before the first insert.
             self.verify_step(
@@ -1024,9 +1300,19 @@ class InferenceEngine:
         """Dispatch one decode block WITHOUT syncing: returns the [K, B]
         token tensor as a HostFuture. The caller can enqueue block N+1 and
         only then block on block N's tokens, so host-side work (transfer,
-        detokenize, emit) overlaps block N+1's device execution."""
-        toks = [self._decode_one() for _ in range(self.decode_block)]
-        return HostFuture(torch.stack(toks))
+        detokenize, emit) overlaps block N+1's device execution.
+
+        A firing probe (profile_sample) waits for THIS block's device work
+        before returning — draining the stream is what makes the following
+        dispatch gap a true device-idle sample; the 1-in-N cadence bounds
+        the serialization cost."""
+        dp = self.devprof
+        t_dp = dp.begin() if dp.enabled else 0.0
+        toks = torch.stack([self._decode_one()
+                            for _ in range(self.decode_block)])
+        if dp.enabled:
+            dp.probe("decode_block", toks, t_dp)
+        return HostFuture(toks)
 
     def verify_step_dispatch(self, draft: np.ndarray, n_draft: np.ndarray
                              ) -> tuple[HostFuture, HostFuture]:
@@ -1042,9 +1328,13 @@ class InferenceEngine:
         if draft.shape != (self.max_slots, k):
             raise EngineError(
                 f"draft shape {draft.shape} != {(self.max_slots, k)}")
-        toks, n_emit = self._verify(
-            self._dev(np.asarray(draft, np.int64)),
-            self._dev(np.asarray(n_draft, np.int32)))
+        draft_t = self._dev(np.asarray(draft, np.int64))
+        n_draft_t = self._dev(np.asarray(n_draft, np.int32))
+        dp = self.devprof
+        t_dp = dp.begin() if dp.enabled else 0.0
+        toks, n_emit = self._verify(draft_t, n_draft_t)
+        if dp.enabled:
+            dp.probe("verify", toks, t_dp)
         return HostFuture(toks), HostFuture(n_emit)
 
     def verify_step(self, draft: np.ndarray, n_draft: np.ndarray
@@ -1110,8 +1400,8 @@ class InferenceEngine:
         is present and else the CPU: random weights of the preset's shape,
         NOT the JAX package's jax.random.key(0) weights.
         Knobs outside this slice raise EngineError naming their ROADMAP
-        item: a mesh of more than one device, multihost, pipeline
-        microbatches, a tier role and profile_sample."""
+        item: a mesh of more than one device, multihost and pipeline
+        microbatches."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "

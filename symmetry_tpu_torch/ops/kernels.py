@@ -5,7 +5,9 @@ library with a plain C interface, loaded with ctypes. No PyTorch header is
 included, so a build takes seconds. Libraries land in build/torch_kernels/
 at the repository root, named by a hash of their source, so a changed
 source rebuilds and an unchanged one loads at once. Nothing is built when a
-module is imported: the first launch (or build_all) builds.
+module is imported: the first launch (or build_all) builds. The host moves
+the build to the directory `tpu.compile_cache` names
+(utils/compile_cache.py) before its first build.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
@@ -25,7 +27,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
+                     / "torch_kernels")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 # Library name -> (source file, {C entry point: argtypes}).
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -93,6 +97,14 @@ def _nvcc() -> str:
         raise KernelError("nvcc not found (set CUDA_HOME): the CUDA kernels "
                           "are built from source at first use")
     return found
+
+
+def set_build_dir(path: str | os.PathLike) -> None:
+    """Build into and load from `path` from now on (libraries already
+    loaded stay loaded)."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path)
 
 
 def lib_path(name: str) -> Path:

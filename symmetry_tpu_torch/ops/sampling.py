@@ -54,9 +54,9 @@ def masked_top_logits(
     probs = torch.softmax(top_logits, dim=-1)
     mass_before = torch.cumsum(probs, dim=-1) - probs
     keep = keep & (mass_before < top_p[ctl])
-    return torch.where(keep, top_logits,
-                       torch.tensor(NEG_INF, dtype=top_logits.dtype,
-                                    device=logits.device)), top_idx
+    # NEG_INF as a Python scalar: a tensor made from it on the card would
+    # be a host-to-device copy, which waits for the host.
+    return torch.where(keep, top_logits, NEG_INF), top_idx
 
 
 def sample_tokens(

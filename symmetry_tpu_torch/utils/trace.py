@@ -12,6 +12,9 @@ byte counts on the peer object. Here the equivalents are first-class:
     percentile estimates — p50/p99 TTFT is the BASELINE.json north-star
     metric, so it must be computable from a running provider, not from
     offline logs.
+  - device_trace: on-demand torch.profiler capture for the CUDA engine (the
+    "trace capture endpoint" of SURVEY §5.1); writes a Chrome/Perfetto
+    trace file.
 
 Request-scoped distributed tracing (PR 5) builds on the same rings:
 
@@ -413,3 +416,39 @@ class FlightRecorder:
             json.dump(payload, fh)
         return path
 
+
+def device_trace_activities() -> list:
+    """What device_trace records: with a CUDA card the kernels it runs,
+    which CUPTI records for every thread of the process; without one, the
+    calling thread's PyTorch ops (the profiler records host ops of the
+    thread that started it only)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA if torch.cuda.is_available()
+            else ProfilerActivity.CPU]
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, gate: Any = None) -> Iterator[None]:
+    """Capture a torch.profiler trace of the enclosed block into
+    <log_dir>/trace.json (Chrome trace events, loadable in Perfetto or
+    chrome://tracing): with a CUDA card every kernel it ran in the window,
+    launched from any thread (device_trace_activities). `gate`, a lock,
+    is held around the profiler's start and stop: a caller whose other
+    threads launch CUDA work holds it there, since a stop that races a
+    launch on another thread can crash the process (engine/host.py
+    GatedEngine)."""
+    from torch.profiler import profile
+
+    gate = gate if gate is not None else contextlib.nullcontext()
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=device_trace_activities())
+    with gate:
+        prof.start()
+    try:
+        yield
+    finally:
+        with gate:
+            prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from symmetry_tpu.engine.engine import EngineError as JaxEngineError
 from symmetry_tpu.engine.engine import InferenceEngine as JaxEngine
 from symmetry_tpu.engine.engine import SamplingParams as JaxSampling
 from symmetry_tpu.engine.scheduler import GenRequest as JaxRequest
@@ -467,15 +468,39 @@ class TestFromTpuConfig:
         ({"multihost": {"coordinator": "localhost:1", "num_processes": 2}},
          "item 14"),
         ({"pipeline_microbatches": 2}, "item 14"),
-        ({"role": "prefill"}, "item 11"),
-        ({"role": "decode"}, "item 11"),
-        ({"role": "disagg"}, "item 11"),
-        ({"profile_sample": 4}, "item 12"),
     ])
     def test_refuses_knobs_outside_the_slice(self, raw, item):
         with pytest.raises(EngineError, match=item):
             InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
                                             device="cpu")
+
+    @pytest.mark.parametrize("raw,contract", [
+        ({"role": "prefill"}, None),
+        ({"role": "decode"}, "prefix cache"),
+        ({"role": "decode", "prefix_cache_mb": 1}, None),
+        ({"role": "disagg"}, "unknown engine role"),
+        ({"profile_sample": 4}, None),
+    ])
+    def test_role_and_profile_sample_as_the_jax_engine(self, raw, contract):
+        """tpu.role and tpu.profile_sample (once refused as items 11 and
+        12) pass through from_tpu_config as in the JAX engine: the same
+        sections build or raise the same contract, and a decode tier's
+        pool is the JAX engine's size."""
+        if contract is not None:
+            with pytest.raises(EngineError, match=contract):
+                InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
+                                                device="cpu")
+            with pytest.raises(JaxEngineError, match=contract):
+                JaxEngine.from_tpu_config(JaxTpuConfig.from_dict(raw))
+            return
+        port = InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
+                                               device="cpu")
+        jax_eng = JaxEngine.from_tpu_config(JaxTpuConfig.from_dict(raw))
+        assert port.role == jax_eng.role == raw.get("role", "unified")
+        assert (port.devprof.sample_every == jax_eng.devprof.sample_every
+                == raw.get("profile_sample", 0))
+        if port.block_pool is not None:
+            assert port.block_pool.n_blocks == jax_eng.block_pool.n_blocks
 
     @pytest.mark.parametrize("knob,k_draft", [
         (True, SpecConfig().k_draft), ({"k_draft": 4}, 4), (3, 3)])

@@ -6,9 +6,10 @@ both schedulers serve the same three greedy requests of different prompt
 lengths. A test tokenizer maps every id to its own character, so the
 streamed text carries the exact token ids: they must be identical, and so
 must the finish reasons. Also here: every knob outside the slice raises
-EngineError, fused_dequant refuses dense weights and counts the int8 leaves
-it leaves flat, seeded sampling reproduces, and the package (the int8
-modules included) imports nothing of JAX.
+EngineError, tier roles and the probes build under their contracts,
+fused_dequant refuses dense weights and counts the int8 leaves it leaves
+flat, seeded sampling reproduces, and the package (the int8 modules
+included) imports nothing of JAX.
 """
 
 import dataclasses
@@ -211,15 +212,35 @@ class TestSampling:
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
         ("mesh", object(), "item 14"),
-        ("role", "prefill", "item 11"),
-        ("role", "decode", "item 11"),
         ("pipeline_microbatches", 2, "item 14"),
-        ("profile_sample", 4, "item 12"),
     ])
     def test_knobs_outside_the_slice_raise(self, weights, knob, value, item):
         _, params = weights
         with pytest.raises(EngineError, match=item):
             port_engine(params, 1, **{knob: value})
+
+    @pytest.mark.parametrize("knob,value,contract", [
+        ("role", "prefill", "prefill_chunk"),
+        ("role", "decode", "prefix cache"),
+        ("profile_sample", 4, None),
+    ])
+    def test_items_11_and_12_build_under_their_contracts(
+            self, weights, knob, value, contract):
+        """Tier roles and the probes (once refused as items 11 and 12)
+        build; a tier role without what it needs raises the JAX engine's
+        contract, and builds once given it."""
+        _, params = weights
+        if contract is not None:
+            with pytest.raises(EngineError, match=contract):
+                port_engine(params, 1, **{knob: value})
+        engine = port_engine(params, 1, prefill_chunk=8,
+                             prefix_cache_bytes=2**20,
+                             prefix_block_tokens=8, **{knob: value})
+        if knob == "role":
+            assert engine.role == value and not engine.devprof.enabled
+        else:
+            assert engine.role == "unified"
+            assert engine.devprof.sample_every == value
 
     @pytest.mark.parametrize("k_draft", [1, 4])
     def test_speculative_sets_engine_spec(self, weights, k_draft):
@@ -306,26 +327,28 @@ class TestEngineSurface:
 
 def test_package_imports_nothing_of_jax():
     """Import every module of symmetry_tpu_torch in a fresh interpreter:
-    no jax* module, no symmetry_tpu / symmetry_tpu.* module and neither
-    safetensors nor transformers (absent on the card's machine) may
-    load."""
+    no jax* module, no symmetry_tpu / symmetry_tpu.* module, and none of
+    safetensors, transformers and ml_dtypes (absent on the card's machine)
+    may load."""
     code = """
 import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 33, names
+assert len(names) >= 37, names
 for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
             "protocol.keys", "engine.weights", "engine.safetensors_io",
-            "engine.spec", "engine.spec.drafter"):
+            "engine.spec", "engine.spec.drafter", "engine.disagg",
+            "engine.disagg.frames", "utils.devprof", "utils.compile_cache"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "symmetry_tpu" or m.startswith("symmetry_tpu.")
-             or m.split(".")[0] in ("safetensors", "transformers"))
+             or m.split(".")[0] in ("safetensors", "transformers",
+                                    "ml_dtypes"))
 print(len(names), bad)
 assert not bad, bad
 """

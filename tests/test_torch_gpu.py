@@ -924,3 +924,138 @@ class TestVerifyOnCard:
             np.testing.assert_array_equal(a[1], b[1])
             assert a[2] == b[2]
         np.testing.assert_array_equal(card[1][-1][:, :3], cpu[1][-1][:, :3])
+
+
+def tiny_engine(device, params, **kw):
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+    from symmetry_tpu_torch.models.llama import preset
+
+    return InferenceEngine(preset("tiny"), params, ByteTokenizer(512),
+                           max_slots=4, max_seq_len=64,
+                           prefill_buckets=(16, 32), decode_block=8,
+                           prefill_chunk=8, prefix_cache_bytes=2**20,
+                           prefix_block_tokens=8, device=device, **kw)
+
+
+@pytest.mark.gpu
+class TestProbesOnCard:
+    def test_probed_block_matches_cuda_events(self):
+        """A probed decode block's device duration (utils/devprof.py: host
+        stamp at dispatch start to the completion of an event recorded
+        after its last launch) is within 10% of the CUDA-event time of the
+        same block, events recorded on the stream just before and after
+        it, with the stream idle before each block."""
+        from symmetry_tpu_torch.engine.engine import SamplingParams
+        from symmetry_tpu_torch.models.llama import init_params, preset
+
+        dev = cuda_or_skip()
+        params = init_params(preset("tiny"), torch.Generator().manual_seed(0),
+                             torch.float32)
+        engine = tiny_engine(dev, params, cache_dtype=torch.float32,
+                             profile_sample=1)
+        engine.warmup()
+        engine.prefill_and_insert(0, list(range(5, 25)), SamplingParams())
+        probed, timed = [], []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            engine.decode_steps_dispatch()
+            end.record()
+            end.synchronize()
+            span = engine.devprof.component()["spans"][-1]
+            assert span["name"] == "decode_block"
+            probed.append(span["duration_s"] * 1e3)
+            timed.append(start.elapsed_time(end))
+        p, t = float(np.median(probed[1:])), float(np.median(timed[1:]))
+        assert abs(p - t) <= 0.1 * t, (probed, timed)
+
+    def test_probes_off_add_no_sync(self):
+        """With profile_sample 0 a whole decode block dispatches under
+        torch.cuda.set_sync_debug_mode("error"): the probes' guard costs
+        no event and no sync."""
+        from symmetry_tpu_torch.engine.engine import SamplingParams
+        from symmetry_tpu_torch.models.llama import init_params, preset
+
+        dev = cuda_or_skip()
+        params = init_params(preset("tiny"), torch.Generator().manual_seed(0),
+                             torch.float32)
+        engine = tiny_engine(dev, params, cache_dtype=torch.float32)
+        engine.warmup()
+        engine.prefill_and_insert(0, list(range(5, 25)), SamplingParams())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fut = engine.decode_steps_dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert np.asarray(fut).shape == (8, 4)
+        assert engine.devprof.stats()["dispatches"] == {}
+
+
+@pytest.mark.gpu
+class TestAdoptionOnCard:
+    @pytest.mark.parametrize("kind", ["bf16", "int8"])
+    def test_adopted_frames_card_equals_cpu(self, kind):
+        """Handoff frames cut on the CPU by a prefill-role engine (bf16
+        planes from a bf16 cache; int8 planes and scales from an int8
+        cache over float32 weights) adopted by a decode-role engine on the
+        card and one on the CPU: the pool blocks equal the frame's planes
+        bit for bit, and greedy ids after the cached admission are
+        identical."""
+        from symmetry_tpu_torch.engine.disagg import (decode_kv_handoff,
+                                                      encode_kv_handoff)
+        from symmetry_tpu_torch.engine.engine import (SamplingParams,
+                                                      from_numpy_plane,
+                                                      to_numpy_plane)
+        from symmetry_tpu_torch.models.llama import init_params, preset
+
+        dev = cuda_or_skip()
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        params = init_params(preset("tiny"), torch.Generator().manual_seed(0),
+                             dtype)
+        kw = dict(cache_dtype=dtype, kv_quant=kind == "int8")
+        prompts = [list(range(5, 30)), list(range(100, 118)),
+                   [300] * 9 + list(range(40, 60))]
+        pre = tiny_engine("cpu", params, role="prefill", **kw)
+        frames = []
+        for i, ids in enumerate(prompts):
+            pre.prefill_and_insert(i, ids, SamplingParams())
+            p = 8 * ((len(ids) - 1) // 8)
+            cache = pre.extract_slot_kv(i, p)
+            arrays = {"k": to_numpy_plane(cache.k[:, :, :p]),
+                      "v": to_numpy_plane(cache.v[:, :, :p])}
+            if kind == "int8":
+                arrays["k_scale"] = to_numpy_plane(cache.k_scale[..., :p])
+                arrays["v_scale"] = to_numpy_plane(cache.v_scale[..., :p])
+            frames.append(encode_kv_handoff(f"r{i}", ids, p, arrays,
+                                            kv_quant=kind == "int8",
+                                            block_size=8))
+
+        def run(device):
+            engine = tiny_engine(device, params, role="decode", **kw)
+            engine.warmup()
+            firsts = []
+            for i, (ids, frame) in enumerate(zip(prompts, frames)):
+                h = decode_kv_handoff(frame)
+                assert engine.adopt_prefix(h)
+                hit = engine.prefix_lookup(ids)
+                for j, block in enumerate(hit.blocks):
+                    for key in ("k", "v", "k_scale", "v_scale"):
+                        if key not in h.blocks[j]:
+                            continue
+                        want = from_numpy_plane(h.blocks[j][key], "cpu")
+                        got = getattr(engine._pool_kv, key)[:, block]
+                        assert torch.equal(got.cpu(), want[:, 0]), (j, key)
+                firsts += engine.prefill_and_insert_cached(
+                    [(i, ids, SamplingParams())], hit)
+            blocks = [np.asarray(engine.decode_steps_dispatch())
+                      for _ in range(2)]
+            return firsts, np.concatenate(blocks)[:, :len(prompts)]
+
+        f_card, t_card = run(dev)
+        f_cpu, t_cpu = run("cpu")
+        assert f_card == f_cpu
+        np.testing.assert_array_equal(t_card, t_cpu)

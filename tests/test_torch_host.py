@@ -39,11 +39,7 @@ from symmetry_tpu.provider.backends.tpu_native import TpuNativeBackend
 from symmetry_tpu.provider.config import ConfigManager as JaxConfigManager
 from symmetry_tpu_torch.convert import params_from_numpy
 from symmetry_tpu_torch.engine.engine import InferenceEngine, SamplingParams
-from symmetry_tpu_torch.engine.host import (
-    ADOPT_REFUSED,
-    PROFILE_REFUSED,
-    EngineHost,
-)
+from symmetry_tpu_torch.engine.host import EngineHost
 from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
 from symmetry_tpu_torch.engine.scheduler import TokenEvent
 from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
@@ -215,7 +211,13 @@ class TestHostParity:
         assert stats["emit"]["pipe_event_writes"] <= stats["emit"][
             "pipe_events"]
 
-    def test_refusals_on_the_wire(self):
+    def test_refusals_on_the_wire(self, tmp_path):
+        """A unified host: `profile` (once refused as item 12) captures and
+        replies with a path, a second capture while one runs is refused
+        with an error reply; an `adopt` whose frame is not a frame (once
+        refused as item 11) fails its own request with an error event, as
+        the JAX host's does; clock, trace (two components with the probes
+        off) and metrics answer."""
         stdin, frames = Stdin(), Stdout()
         host = EngineHost(provider_config({"model_preset": "tiny",
                                            "prefix_cache_mb": None}),
@@ -224,13 +226,18 @@ class TestHostParity:
                              daemon=True)
         t.start()
         frames.wait_for(lambda f: f.get("op") == "ready")
-        stdin.send({"op": "profile", "duration_s": 0.1})
-        assert frames.wait_for(lambda f: f.get("op") == "profile") == {
-            "op": "profile", "error": PROFILE_REFUSED}
+        stdin.send({"op": "profile", "duration_s": 0.5, "dir": str(tmp_path)})
+        stdin.send({"op": "profile", "duration_s": 0.1, "dir": str(tmp_path)})
+        refused = frames.wait_for(lambda f: f.get("op") == "profile")
+        assert "already running" in refused["error"]
+        done = frames.wait_for(lambda f: f.get("op") == "profile"
+                               and "path" in f)
+        assert done["duration_s"] == 0.5
+        assert os.path.isfile(os.path.join(done["path"], "trace.json"))
         stdin.send({"op": "adopt", "id": "x", "frame": "AAAA"})
         ev = frames.wait_for(lambda f: f.get("id") == "x")
         assert ev["done"] and ev["finish_reason"] == "error"
-        assert ev["error"] == ADOPT_REFUSED and "item 11" in ev["error"]
+        assert ev["error"].startswith("handoff adoption failed")
         stdin.send({"op": "clock", "t0": 1.5})
         clock = frames.wait_for(lambda f: f.get("op") == "clock")
         assert clock["t0"] == 1.5 and clock["t"] > 0
@@ -245,15 +252,90 @@ class TestHostParity:
         assert not t.is_alive()
 
     @pytest.mark.parametrize("tpu,item", [
-        ({"role": "prefill"}, "item 11"),
-        ({"role": "decode"}, "item 11"),
+        ({"role": "disagg"}, "unknown engine role"),
+        ({"role": "decode", "prefix_cache_mb": None}, "prefix cache"),
         ({"multihost": {"coordinator": "localhost:1", "num_processes": 2}},
          "item 14"),
+        ({"compile_cache": "/proc/no-such-dir"}, "/proc/no-such-dir"),
     ])
     def test_out_of_slice_config_fails_at_start(self, tpu, item):
+        """A config the engine cannot serve fails the host at start: a
+        multihost mesh (item 14), a role that is no tier, a decode tier
+        without its prefix store, and a kernel build directory that cannot
+        be written (named, never replaced in silence)."""
         host = EngineHost(provider_config(tpu), device="cpu", out=Stdout())
         with pytest.raises(Exception, match=item):
             host.start()
+
+
+class TestGatedEngine:
+    def test_calls_and_host_copies_hold_the_gate(self):
+        """The host's engine (GatedEngine): each method call, and the host
+        copy of each HostFuture it returns, runs holding the gate, so the
+        profile capture's start and stop never overlap them; attributes
+        pass through."""
+        from symmetry_tpu_torch.engine.engine import HostFuture
+        from symmetry_tpu_torch.engine.host import GatedEngine
+
+        gate = threading.RLock()
+
+        def free_elsewhere():
+            out = []
+            t = threading.Thread(target=lambda: out.append(
+                gate.acquire(blocking=False) and (gate.release() or True)))
+            t.start()
+            t.join(5)
+            return out[0]
+
+        class Future(HostFuture):
+            def __array__(self, dtype=None, copy=None):
+                assert not free_elsewhere()
+                return super().__array__(dtype, copy)
+
+        class Engine:
+            max_slots = 3
+
+            def dispatch(self):
+                assert not free_elsewhere()
+                return Future(torch.arange(4))
+
+            def pair(self):
+                return Future(torch.ones(2)), Future(torch.zeros(2))
+
+            def prefix_cache_stats(self):
+                return {}
+
+        engine = GatedEngine(Engine(), gate)
+        assert engine.max_slots == 3
+        fut = engine.dispatch()
+        assert free_elsewhere()
+        assert np.asarray(fut).tolist() == [0, 1, 2, 3]
+        a, b = engine.pair()
+        assert np.asarray(a).tolist() == [1, 1] and np.asarray(b).sum() == 0
+        # A stats read (pipe-reader thread) does not wait for a dispatch
+        # that holds the gate on the engine thread.
+        held, release = threading.Event(), threading.Event()
+
+        def dispatching():
+            with gate:
+                held.set()
+                release.wait(10)
+
+        t = threading.Thread(target=dispatching)
+        t.start()
+        assert held.wait(5)
+        try:
+            out = []
+            reader = threading.Thread(
+                target=lambda: out.append(engine.prefix_cache_stats()))
+            reader.start()
+            reader.join(2)
+            assert out == [{}]
+        finally:
+            release.set()
+            t.join(5)
+        with pytest.raises(AttributeError):
+            engine.idle_tick
 
 
 # ---------------------------------------------------------------------------
