@@ -122,7 +122,22 @@ Phases (any failure raises and exits non-zero):
               probed host decodes: its trace names the decode-attention
               kernel; (e) frame
               bytes per prefix token, serialize and adopt seconds;
- 12. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 12. provider the port's server (in this process), provider (`python -m
+              symmetry_tpu_torch.provider -c <yaml>`, whose engine host is
+              a third process) and client, over TCP on 127.0.0.1 with
+              Noise handshakes, at phase 11's configurations: (a) bf16
+              unified: phase 11's chats one at a time twice, text equal to
+              phase 11's unified host, cold for cold and cached for
+              cached; a burst of 8 sessions (60-1880 tokens x 64), client
+              TTFT and tok/s beside the host's; flash and decode launches
+              in the kernels rider read over the wire; the host SIGKILLed
+              mid-stream: the client shed retryable, the supervisor's
+              respawn built no kernel and serves the same text; (b) int8
+              `tpu.role: disagg`: the provider's own broker pipes handoff
+              -> adopt between a prefill and a decode host, text equal to
+              phase 11's int8 decode tiers, W8A16 GEMV launches on the
+              decode host and tensor-core ones on the prefill host;
+ 13. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3), the nvidia-smi
               line, and last the {"ok": true, ...} line. Each phase
@@ -133,6 +148,7 @@ Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 
 from __future__ import annotations
 
+import asyncio
 import gc
 import hashlib
 import json
@@ -1411,10 +1427,12 @@ def submit(host: HostProc, req_id: str, content: str | list,
 def stream(host: HostProc, req_id: str) -> dict:
     evs = host.events(req_id)
     ttft = [e["ttft_s"] for e in evs if "ttft_s" in e]
+    texted = [e["_recv"] for e in evs if e["text"]]
     return dict(text="".join(e["text"] for e in evs),
                 tokens=evs[-1]["tokens"], reason=evs[-1]["finish_reason"],
                 reused=evs[0].get("reused"), ttft_s=ttft[0] if ttft else None,
-                first_at=evs[0]["_recv"], done_at=evs[-1]["_recv"])
+                first_at=evs[0]["_recv"], done_at=evs[-1]["_recv"],
+                first_text_at=texted[0] if texted else None)
 
 
 def check_host_tiny() -> None:
@@ -2145,13 +2163,14 @@ def serve_one_by_one(host: HostProc, prefix: str, contents: list,
                      max_new: int) -> list[dict]:
     out = []
     for i, content in enumerate(contents):
+        sent = time.monotonic()
         submit(host, f"{prefix}{i}", content, max_new)
         host.wait_done([f"{prefix}{i}"])
-        out.append(stream(host, f"{prefix}{i}"))
+        out.append({**stream(host, f"{prefix}{i}"), "sent": sent})
     return out
 
 
-def check_disagg(smi: str, *, int8: bool) -> None:
+def check_disagg(smi: str, *, int8: bool) -> dict:
     """llama3-8b at full depth, the provider's default `tpu:` section plus
     a 1024 MiB prefix cache and 32-token prefix blocks (so that a short
     chat has no whole block and routes without a prefill), bf16 or int8
@@ -2356,6 +2375,364 @@ def check_disagg(smi: str, *, int8: bool) -> None:
         f"{a}; adopt dispatches {dstats[0]['adopt_dispatches']} in "
         f"{dstats[0]['adopt_s']:.4f} s (p50 "
         f"{dstats[0]['adopt_dispatch_s']['p50']} s)")
+    return {"contents": contents, "cold": cold, "warm": warm,
+            "tiers": got[0]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the port's own server, provider and client over TCP
+
+PROVIDER_TIMEOUT = 600.0  # a provider's start: its host builds llama3-8b
+BURST_LENS = [60, 100, 300, 420, 500, 900, 1500, 1880]
+BURST_NEW = 64
+KILL_NEW = 512  # long enough that the kill lands mid-stream
+
+
+def child_pids(pid: int) -> list[int]:
+    """The processes whose parent is `pid` (from /proc/*/stat)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(d))
+    return out
+
+
+def gpu_memory_used() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def kernel_files() -> dict[str, float]:
+    """The kernel build directory's files and their modification times."""
+    from symmetry_tpu_torch.ops import kernels
+
+    root = kernels.DEFAULT_BUILD_DIR
+    return {p.name: p.stat().st_mtime for p in root.iterdir()}
+
+
+class ProviderProc:
+    """`python -m symmetry_tpu_torch.provider -c <yaml>` as a subprocess
+    registering with the script's server over TCP; its log, with its
+    engine hosts' stderr, in build/chip_smoke/provider_<label>.log."""
+
+    def __init__(self, label: str, tpu: dict, server_address: str,
+                 server_key_hex: str):
+        import yaml
+
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self.label = label
+        cfg = {**PROVIDER, "name": f"chip-smoke-{label}", "public": True,
+               "serverKey": server_key_hex, "serverAddress": server_address,
+               "listenHost": "127.0.0.1", "modelName": label,
+               "path": os.path.join(OUT_DIR, f"provider_{label}_state"),
+               "tpu": tpu}
+        cfg_path = os.path.join(OUT_DIR, f"provider_{label}.yaml")
+        with open(cfg_path, "w") as fh:
+            yaml.safe_dump(cfg, fh)
+        self.log_path = os.path.join(OUT_DIR, f"provider_{label}.log")
+        self._log = open(self.log_path, "w")
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "symmetry_tpu_torch.provider", "-c",
+             cfg_path], cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+            stdout=self._log, stderr=subprocess.STDOUT)
+        self.hosts_seen: set[int] = set()
+
+    def host_pids(self) -> list[int]:
+        pids = child_pids(self.proc.pid)
+        self.hosts_seen.update(pids)
+        return pids
+
+    def log_text(self) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()
+
+    def stop(self, timeout: float = 180.0) -> int:
+        """SIGTERM (the provider drains and shuts its hosts down), then
+        make sure that it and every host it ran are gone."""
+        self.host_pids()
+        rc = self.proc.poll()
+        if rc is None:
+            self.proc.terminate()
+            try:
+                rc = self.proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                rc = self.proc.wait()
+        for pid in self.hosts_seen:
+            try:
+                os.kill(pid, 9)
+            except ProcessLookupError:
+                pass
+        self._log.close()
+        return rc
+
+
+async def wait_registered(server, prov: ProviderProc) -> float:
+    t0 = time.monotonic()
+    while not any(row.model_name == prov.label
+                  for row in server.registry.list_providers()):
+        if prov.proc.poll() is not None:
+            raise AssertionError(f"provider {prov.label} exited rc="
+                                 f"{prov.proc.returncode} (log "
+                                 f"{prov.log_path})")
+        if time.monotonic() - t0 > PROVIDER_TIMEOUT:
+            raise AssertionError(f"provider {prov.label} not registered in "
+                                 f"{PROVIDER_TIMEOUT:.0f} s")
+        await asyncio.sleep(0.5)
+    return time.monotonic() - t0
+
+
+async def wire_chat(session, content: str, max_new: int) -> dict:
+    """One greedy chat over the wire: its text, and when the request was
+    sent, its first text arrived and its stream ended (this process's
+    monotonic clock)."""
+    t_send = time.monotonic()
+    t_first = None
+    parts = []
+    async for delta in session.chat([{"role": "user", "content": content}],
+                                    max_tokens=max_new, temperature=0.0):
+        if delta and t_first is None:
+            t_first = time.monotonic()
+        parts.append(delta)
+    return dict(text="".join(parts), sent=t_send, first=t_first,
+                done=time.monotonic())
+
+
+async def provider_unified(server, client, smi: str, contents: list,
+                           ref: dict) -> None:
+    """(a): phase 11's bf16 configuration behind the port's provider."""
+    from symmetry_tpu_torch.client.client import ProviderRestartingError
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+
+    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+            "prefix_block_tokens": 32}
+    label = "llama3-8b-bf16"
+    prov = ProviderProc(label, base, server.address,
+                        server.identity.public_hex)
+    try:
+        t_reg = await wait_registered(server, prov)
+        log(f"  (a) provider up and registered in {t_reg:.1f} s "
+            f"(host pids {prov.host_pids()}); GPU memory used "
+            f"{gpu_memory_used()}")
+        details = await client.request_provider(
+            server.address, server.identity.public_key, label)
+        session = await client.connect(details)
+        # (a)1 phase 11's chats one at a time, twice: cold, then cached
+        got = {}
+        for serve in ("cold", "warm"):
+            got[serve] = [await wire_chat(session, c, DISAGG_NEW)
+                          for c in contents]
+            for i, (a, b) in enumerate(zip(got[serve], ref[serve])):
+                if a["text"] != b["text"]:
+                    raise AssertionError(
+                        f"provider {serve} serve, chat {i}: over the wire "
+                        f"{a['text']!r} != phase 11's unified host "
+                        f"{b['text']!r}")
+        log(f"  (a)1 {len(contents)} chats x {DISAGG_NEW} tokens, twice: "
+            f"text over the wire == phase 11's unified host, cold and "
+            f"cached")
+        # Random weights stream bytes that are often not whole UTF-8
+        # characters, which the host holds back, so the first text can
+        # come a decode block or more after the first token: both sides
+        # are read to their first text, and to the stream's end.
+        for serve in ("cold", "warm"):
+            wire = [(r["first"] - r["sent"], r["done"] - r["sent"])
+                    for r in got[serve]]
+            pipe = [(r["first_text_at"] - r["sent"], r["done_at"] - r["sent"])
+                    for r in ref[serve]]
+            log(f"    {serve}: to first text / to the end, s: over the wire "
+                f"{[(round(a, 4), round(b, 4)) for a, b in wire]}; phase "
+                f"11's host pipe {[(round(a, 4), round(b, 4)) for a, b in pipe]}"
+                f"; the host's ttft_s (first token) "
+                f"{[round(r['ttft_s'], 4) for r in ref[serve]]}; wire minus "
+                f"pipe to first text p50 "
+                f"{statistics.median(w[0] - p[0] for w, p in zip(wire, pipe)):.4f}"
+                f" s, to the end p50 "
+                f"{statistics.median(w[1] - p[1] for w, p in zip(wire, pipe)):.4f}"
+                f" s")
+        st = await session.stats()
+        eng1 = st["engine"]
+        await session.close()
+
+        # (a)2 a burst of 8 sessions at once
+        tok = get_tokenizer(None, vocab_size=128256)
+        head = len(tok.apply_chat_template([{"role": "user", "content": ""}]))
+        rng = np.random.default_rng(12)
+        burst = [chat_content(rng, n - head) for n in BURST_LENS]
+        sessions = [await client.connect(await client.request_provider(
+            server.address, server.identity.public_key, label))
+            for _ in burst]
+        t0 = time.monotonic()
+        res = await asyncio.gather(*[wire_chat(s, c, BURST_NEW)
+                                     for s, c in zip(sessions, burst)])
+        wall = time.monotonic() - t0
+        for s in sessions:
+            await s.close()
+        session = await client.connect(await client.request_provider(
+            server.address, server.identity.public_key, label))
+        st = await session.stats()
+        eng = st["engine"]
+        if any(not r["text"] or r["first"] is None for r in res):
+            raise AssertionError("a burst stream came back empty")
+        ttfts = sorted(r["first"] - r["sent"] for r in res)
+        n_tok = eng["tokens"] - eng1["tokens"]
+        window = max(r["done"] for r in res) - min(r["first"] for r in res)
+        h1, h2 = eng1["engine_ttft_s"], eng["engine_ttft_s"]
+        host_mean = ((h2["mean"] * h2["count"] - h1["mean"] * h1["count"])
+                     / (h2["count"] - h1["count"]))
+        log(f"  (a)2 burst of {len(burst)} sessions ({BURST_LENS} prompt "
+            f"tokens x {BURST_NEW}) on {smi}: all complete in {wall:.3f} s; "
+            f"client TTFT p50 {statistics.median(ttfts):.4f} s, max "
+            f"{ttfts[-1]:.4f} s; aggregate decode {n_tok - len(res)} tokens "
+            f"over {window:.3f} s = {(n_tok - len(res)) / window:.2f} tok/s "
+            f"(tokens from the host's counter); the host's own TTFT over "
+            f"the burst: mean {host_mean:.4f} s (all {h2['count']} requests "
+            f"so far: p50 {h2['p50']} max {h2['max']} s), decode step "
+            f"{eng.get('decode_step_ms')} ms")
+        # (a)3 the kernels rider, read over the wire
+        k = eng["kernels"]
+        if k["flash_prefill"] <= 0 or k["decode_attention_append"] <= 0:
+            raise AssertionError(f"provider host kernels {k}")
+        log(f"  (a)3 kernels rider over the wire: {k}")
+
+        # (a)4 SIGKILL the host mid-stream
+        (host_pid,) = prov.host_pids()
+        files = kernel_files()
+        mem_before = gpu_memory_used()
+        stream = session.chat([{"role": "user", "content": contents[0]}],
+                              max_tokens=KILL_NEW, temperature=0.0)
+        n_parts = 0
+        try:
+            async for _ in stream:
+                n_parts += 1
+                if n_parts == 2:
+                    os.kill(host_pid, 9)
+                    t_kill = time.monotonic()
+            raise AssertionError("the stream outlived its host")
+        except ProviderRestartingError as exc:
+            log(f"  (a)4 host {host_pid} SIGKILLed mid-stream; the client "
+                f"got ProviderRestartingError ({exc}) after "
+                f"{len(exc.emitted_text)} characters")
+        while True:
+            sup = (await session.stats()).get("engine", {}) or {}
+            s = sup.get("supervisor") or {}
+            if s.get("restarts", 0) >= 1 and not s.get("restarting") and (
+                    "tokens" in sup):
+                break
+            if time.monotonic() - t_kill > PROVIDER_TIMEOUT:
+                raise AssertionError(f"host not respawned: {sup}")
+            await asyncio.sleep(0.25)
+        respawn_s = time.monotonic() - t_kill
+        new_pids = prov.host_pids()
+        if new_pids == [host_pid] or len(new_pids) != 1:
+            raise AssertionError(f"host pids after respawn {new_pids}")
+        again = await wire_chat(session, contents[0], DISAGG_NEW)
+        if again["text"] != got["cold"][0]["text"]:
+            raise AssertionError(f"after the respawn: {again['text']!r} != "
+                                 f"{got['cold'][0]['text']!r}")
+        if kernel_files() != files:
+            raise AssertionError("the respawned host built kernels")
+        ready = [ln for ln in prov.log_text().splitlines()
+                 if "engine host ready" in ln]
+        log(f"  (a)4 respawned (pid {new_pids[0]}) and serving in "
+            f"{respawn_s:.3f} s; the kernel build directory unchanged; "
+            f"host start lines: {[ln.split('] ')[-1] for ln in ready]}; "
+            f"the same chat's text equals its cold serve; GPU memory used "
+            f"{mem_before} before the kill, {gpu_memory_used()} after the "
+            f"respawn")
+        await session.close()
+    finally:
+        rc = prov.stop()
+    log(f"  (a) provider stopped (rc {rc})")
+
+
+async def provider_disagg(server, client, contents: list, ref: list) -> None:
+    """(b): phase 11's int8 configuration as a local disagg pair behind
+    the port's provider: its own broker pipes handoff -> adopt."""
+    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+            "prefix_block_tokens": 32, "quantization": "int8",
+            "kv_quantization": "int8", "fused_dequant": True,
+            "role": "disagg"}
+    label = "llama3-8b-int8-disagg"
+    prov = ProviderProc(label, base, server.address,
+                        server.identity.public_hex)
+    try:
+        t_reg = await wait_registered(server, prov)
+        log(f"  (b) disagg provider up and registered in {t_reg:.1f} s "
+            f"(host pids {prov.host_pids()})")
+        session = await client.connect(await client.request_provider(
+            server.address, server.identity.public_key, label))
+        got = [await wire_chat(session, c, DISAGG_NEW) for c in contents]
+        for i, (a, b) in enumerate(zip(got, ref)):
+            if a["text"] != b["text"]:
+                raise AssertionError(
+                    f"disagg provider chat {i}: over the wire {a['text']!r}"
+                    f" != phase 11's int8 decode tier {b['text']!r}")
+        eng = (await session.stats())["engine"]
+        dk = eng["kernels"]
+        pre = eng["disagg"]["prefill_host"]
+        pk = pre["kernels"]
+        if (dk["w8a16_matmul_gemv"] <= 0 or dk["decode_attention"] <= 0
+                or pk["w8a16_matmul_tc"] <= 0 or pk["flash_prefill"] <= 0):
+            raise AssertionError(f"disagg kernels: decode {dk}, prefill "
+                                 f"{pk}")
+        if pre["role"] != "prefill" or eng["role"] != "decode":
+            raise AssertionError(f"roles {pre['role']} {eng['role']}")
+        broker = {k: eng["disagg"][k] for k in (
+            "submitted", "handoff_frames", "routing_only", "warm_frames",
+            "wire_bytes", "dropped")}
+        log(f"  (b) {len(contents)} chats through the provider's broker: "
+            f"text == phase 11's int8 decode tiers; client TTFT "
+            f"{[round(r['first'] - r['sent'], 4) for r in got]} s; decode "
+            f"host kernels {dk}; prefill host kernels {pk}; broker {broker}")
+        await session.close()
+    finally:
+        rc = prov.stop()
+    log(f"  (b) provider stopped (rc {rc})")
+
+
+def check_provider(smi: str, ref_bf16: dict, ref_int8: dict) -> None:
+    """The port's server (in this process), provider (a subprocess running
+    `python -m symmetry_tpu_torch.provider`, whose engine host is a third
+    process) and client (in this process), over TCP on 127.0.0.1 with
+    Noise handshakes: (a) phase 11's bf16 configuration, its chats one at
+    a time twice, text equal to phase 11's unified host cold for cold and
+    cached for cached; a burst of 8 sessions; the kernels rider over the
+    wire; the host SIGKILLed mid-stream, the client shed retryable, the
+    host respawned without a kernel build and serving the same text;
+    (b) phase 11's int8 configuration as `tpu.role: disagg` (the
+    provider's own broker between a prefill and a decode host), text
+    equal to phase 11's int8 decode tiers."""
+    from symmetry_tpu_torch.client.client import SymmetryClient
+    from symmetry_tpu_torch.identity import Identity
+    from symmetry_tpu_torch.server.broker import SymmetryServer
+    from symmetry_tpu_torch.transport.tcp import TcpTransport
+
+    async def run() -> None:
+        server = SymmetryServer(Identity.from_name("chip-smoke-server"),
+                                TcpTransport())
+        await server.start("tcp://127.0.0.1:0")
+        client = SymmetryClient(Identity.from_name("chip-smoke-client"),
+                                TcpTransport())
+        try:
+            await provider_unified(server, client, smi, ref_bf16["contents"],
+                                   ref_bf16)
+            await provider_disagg(server, client, ref_int8["contents"],
+                                  ref_int8["tiers"])
+        finally:
+            await server.stop()
+
+    asyncio.run(run())
 
 
 def main() -> int:
@@ -2458,11 +2835,17 @@ def main() -> int:
 
     log("phase 11: prefill and decode tiers, llama3-8b full width and "
         "depth, and the device-time probes")
+    refs = {}
     for int8_tiers in (False, True):
-        check_disagg(smi, int8=int8_tiers)
+        refs[int8_tiers] = check_disagg(smi, int8=int8_tiers)
         gc.collect()
         torch.cuda.empty_cache()
     phase_done(11)
+
+    log("phase 12: the port's server, provider and client over TCP, "
+        "llama3-8b full width and depth (bf16 unified, int8 disagg pair)")
+    check_provider(smi, refs[False], refs[True])
+    phase_done(12)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

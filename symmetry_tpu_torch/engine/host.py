@@ -479,6 +479,10 @@ class EngineHost:
         # of the decode launches, those that also wrote the step's K/V row
         m["kernels"]["decode_attention_append"] = (
             decode_attention.launches_append)
+        # of the W8A16 launches, each regime's (ops/qmm.py w8a16_regime)
+        for regime in ("gemv", "gemv_f32", "tc"):
+            m["kernels"][f"w8a16_matmul_{regime}"] = getattr(
+                w8a16_matmul, f"launches_{regime}")
         summary = self._engine.prefix_cache_summary()
         if summary is not None:
             m["prefix_summary"] = summary  # pool-gossip rider

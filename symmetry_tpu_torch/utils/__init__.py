@@ -1,2 +1,2 @@
 """Host-side utilities copied from `symmetry_tpu.utils`: logging, faults,
-metrics and tracing. None of them touches the device."""
+metrics, tracing and JSON. None of them touches the device."""

@@ -328,19 +328,33 @@ class TestEngineSurface:
 def test_package_imports_nothing_of_jax():
     """Import every module of symmetry_tpu_torch in a fresh interpreter:
     no jax* module, no symmetry_tpu / symmetry_tpu.* module, and none of
-    safetensors, transformers and ml_dtypes (absent on the card's machine)
-    may load."""
+    safetensors, transformers, ml_dtypes and aiohttp (absent on the card's
+    machine; the proxy backend imports aiohttp when it starts) may load."""
     code = """
 import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 37, names
+assert len(names) >= 76, names
 for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
             "protocol.keys", "engine.weights", "engine.safetensors_io",
             "engine.spec", "engine.spec.drafter", "engine.disagg",
-            "engine.disagg.frames", "utils.devprof", "utils.compile_cache"):
+            "engine.disagg.frames", "utils.devprof", "utils.compile_cache",
+            "utils.json", "protocol.messages", "protocol.framing",
+            "identity", "identity.identity", "identity.noise", "transport",
+            "transport.base", "transport.memory", "transport.tcp",
+            "transport.udp", "network", "network.peer", "network.relay",
+            "network.dht", "network.natpunch", "server", "server.__main__",
+            "server.tokens", "server.registry", "server.broker",
+            "provider", "provider.__main__", "provider.provider",
+            "provider.collect", "provider.backends",
+            "provider.backends.base", "provider.backends.echo",
+            "provider.backends.proxy", "provider.backends.tpu_native",
+            "engine.disagg.broker", "engine.disagg.net",
+            "engine.disagg.pool", "engine.disagg.node",
+            "engine.disagg.autoscale", "client", "client.__main__",
+            "client.client"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)
@@ -348,7 +362,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "symmetry_tpu" or m.startswith("symmetry_tpu.")
              or m.split(".")[0] in ("safetensors", "transformers",
-                                    "ml_dtypes"))
+                                    "ml_dtypes", "aiohttp"))
 print(len(names), bad)
 assert not bad, bad
 """
