@@ -23,15 +23,17 @@ Phases (any failure raises and exits non-zero):
               standalone KV append or index assignment, then decode) and
               within one bf16 step of the plain version; the standalone
               KV append bit for bit; W8A16 within one bf16 step of its
-              largest output (wq, wk, wg, wd, lm_head at 1, 2, 8 and 16
-              bf16 rows, the swap-AB tensor-core GEMV, and at 128, 512 and
+              largest output (wq, wk, wg, wd, lm_head and mixtral-8x7b's
+              [4096, 32000] LM head at 1, 2, 8 and 16 bf16 rows, the swap-AB tensor-core GEMV, and at 128, 512 and
               2048 rows, the tensor-core kernel) and within 1e-5 of it in
               float32 (every leaf at 1, 8, 16, 32, 128 and 2048 rows, the
               float32 GEMV); W8A8 bit for bit (wq, wg, wd, lm_head at 32,
               128 and 2048 rows, K splits included; no serving path routes
               it); kernel, plain and library (a yardstick only) device
               times (kernel durations summed by torch.profiler, decode's
-              split and combine kernels together; the eager call's
+              split and combine kernels together; CUDA events around
+              each call, logged, where three profiler sessions drop the
+              kernels' records; the eager call's
               CUDA-event time is logged beside; GEMV times cold, the L2
               flushed before each call), and each kernel's bound; flash
               also at the coalesced-prefill shape (B=4 S=512, ragged) and
@@ -94,7 +96,7 @@ Phases (any failure raises and exits non-zero):
               sampled stream runs to its budget; the verify dispatch's
               wall, device busy and kernels, acceptance and tok/s on and
               off;
- 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 4 layers
+ 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 8 layers
               written by the port's writer (2 shards and an index json)
               into build/chip_smoke/ckpt; the leaves loaded on the card
               bit-equal to those written; the engine host started on it
@@ -104,8 +106,11 @@ Phases (any failure raises and exits non-zero):
               in-process engine built from the same tensors through
               params_from_numpy, the warm cache's leaves bit-equal to that
               engine's; load seconds and each host's peak RSS; the
-              directory removed;
- 11. disagg   llama3-8b at full width and depth, bf16 and then int8, the
+              directory, with its warm caches, kept for phases 11-12 and
+              removed after them;
+ 11. disagg   phase 10's checkpoint (llama3-8b width, 8 layers: a depth
+              cut from 32 that keeps the script inside its time limit),
+              bf16 and then int8, the
               provider's default `tpu:` section plus a 1024 MiB prefix
               cache and 32-token prefix blocks: (a) a unified engine host
               serves 3 chats of 60-1880 tokens, a 21-token chat and a
@@ -137,11 +142,39 @@ Phases (any failure raises and exits non-zero):
               -> adopt between a prefill and a decode host, text equal to
               phase 11's int8 decode tiers, W8A16 GEMV launches on the
               decode host and tensor-core ones on the prefill host;
- 13. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 13. moe      the mixtral family (models/moe.py): (a) `tiny-moe` in
+              float32, card against CPU: greedy dense, int8 weights +
+              int8 KV, and two prompts of 96 and 70 tokens through the
+              capacity-factor dispatch: token ids identical; (b)
+              mixtral-8x7b at full width and all 32 layers with int8
+              weights (init_params(quantize=True), seed 0; the pack_tree
+              report lists exactly the three expert stacks, which stay on
+              the mixed dot) and an int8 KV cache, phase 5's traffic with
+              32 new tokens: flash, decode attention writing its row and
+              W8A16 (attention projections and the LM head) launch
+              counts, every prefill layer through the dispatch; finish
+              reasons, memory, weight_stream_bytes, a greedy digest and
+              the same requests served again on the same engine with
+              identical token ids, one decode block and one 2048-token
+              prefill profiled; (c) bf16 at full width and 8 of 32
+              layers, the same traffic, launch counts, a digest and the
+              second serve; (d) one layer's dispatch at no-drop
+              capacity against the dense mixture at 2048 tokens within
+              2e-2 of the largest output, no token routed differently;
+              and one layer with int8 experts against the plain mixed-dot
+              mixture within 2e-2 of the largest output, at decode and
+              through the dispatch, each path bit-equal when called again,
+              and the distinct results of the decode step's float32
+              expert products under a second stream's load (logged); (e) a mixtral-8x7b-width bf16 checkpoint at 2 layers served
+              through from_tpu_config with quantization: int8: quantized
+              as it is read (peak memory within the int8 engine's bytes
+              plus 2 GiB, under the dense tree's), leaves bit-equal to
+              quantize_params of the tensors written;
+ 14. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
-              path, and standalone from phase 3), the nvidia-smi
-              line, and last the {"ok": true, ...} line. Each phase
-              prints its seconds.
+              path, and standalone from phase 3; `launches_moe`: each
+              row's launches in phase 13), the nvidia-smi line, and last
+              the {"ok": true, ...} line. Each phase prints its seconds.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -155,6 +188,7 @@ import json
 import os
 import queue
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -173,7 +207,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # The card's L2 holds 50 MB; a GEMV leaf that fits would be timed warm
 # back to back, where a decode step that streams 7.5 GB finds it cold.
-# `cold` writes this many bytes before each call (the write's kernel is
+# `flush_l2` writes this many bytes before each call (the write's kernel is
 # left out of the time by name).
 FLUSH_BYTES = 256 * 2**20
 FLUSH_KERNEL = "FillFunctor"
@@ -195,63 +229,88 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int, name: str = "",
-              exclude: str | None = None, per_call: int = 0) -> float:
+def device_ms(fn, iters: int, name: str = "", per_call: int = 0,
+              before=None) -> float:
     """Device time of one call of fn: the CUDA kernels' durations summed by
     torch.profiler over `iters` calls, after a warm-up. Idle gaps between
     launches (the host's share) are not counted, so a small kernel is not
     measured by its wrapper's Python overhead. With `name`, only the
     kernels whose name contains it (one kernel of a wrapper that launches
-    several); with `exclude`, not those whose name contains that (the L2
-    flush of `cold`); with `per_call`, a session that did not record that
-    many matching kernels a call is taken again."""
+    several); with `per_call`, the profiler must see that many matching
+    kernels a call; `before` runs ahead of each call and its kernels are
+    left out (`cold_ms`'s L2 flush, by FLUSH_KERNEL's name).
+
+    A profiling session now and then records nothing, or drops some of
+    the kernels' records (seen on the card). Then another is taken; after
+    three such sessions the time is taken with CUDA events around each
+    call instead, and a log line says so. More matching kernels than
+    `per_call` a call is a wrapper's fault and fails at once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    def run():
+        if before is not None:
+            before()
         fn()
+
+    for _ in range(3):
+        run()
     torch.cuda.synchronize()
-    # A profiling session now and then records nothing at all (seen once
-    # in a run of many sessions): take another before giving up.
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fn()
+                run()
             torch.cuda.synchronize()
         events = [ev for ev in prof.key_averages()
                   if getattr(ev, "device_type", None) == DeviceType.CUDA
                   and name in ev.key
-                  and not (exclude and exclude in ev.key)]
+                  and not (before is not None and FLUSH_KERNEL in ev.key)]
         busy_us = sum(getattr(ev, "self_device_time_total",
                               getattr(ev, "self_cuda_time_total", 0.0))
                       for ev in events)
-        if busy_us > 0 and (not per_call or sum(
-                ev.count for ev in events) == per_call * iters):
+        count = sum(ev.count for ev in events)
+        if per_call and count > per_call * iters:
+            raise AssertionError(
+                f"{count} kernels {name!r} over {iters} calls, "
+                f"{per_call} a call expected: "
+                f"{sorted({ev.key for ev in events})}")
+        if busy_us > 0 and (not per_call or count == per_call * iters):
             return busy_us / 1e3 / iters
-    raise AssertionError(f"the profiler recorded no device time {name} "
-                         f"(or not {per_call} kernels a call)")
+        seen.append((count, round(busy_us, 3)))
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for start, end in zip(starts, ends):
+        if before is not None:
+            before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    log(f"  (the profiler saw (kernels, busy us) {seen} in three sessions "
+        f"of {iters} calls {name!r}, {per_call or 'any'} kernels a call "
+        f"expected: timed with CUDA events around each call instead, "
+        f"{ms:.4f} ms)")
+    return ms
 
 
 _flush: list[torch.Tensor] = []
 
 
-def cold(fn):
-    """fn after a FLUSH_BYTES write, so it finds its operands in device
-    memory and not in L2; time it with device_ms(..., exclude=
-    FLUSH_KERNEL)."""
+def flush_l2() -> None:
+    """Write FLUSH_BYTES, so the next call finds its operands in device
+    memory and not in L2."""
     if not _flush:
         _flush.append(torch.empty(FLUSH_BYTES, dtype=torch.uint8,
                                   device="cuda"))
-
-    def call():
-        _flush[0].zero_()
-        return fn()
-    return call
+    _flush[0].zero_()
 
 
 def cold_ms(fn, iters: int, name: str = "", per_call: int = 0) -> float:
-    return device_ms(cold(fn), iters, name=name, exclude=FLUSH_KERNEL,
-                     per_call=per_call)
+    """device_ms of fn with L2 flushed before each call."""
+    return device_ms(fn, iters, name=name, per_call=per_call,
+                     before=flush_l2)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -758,7 +817,8 @@ def w8a16_work(m: int, k: int, n: int, x_bytes: int) -> tuple[float, float]:
 
 
 def check_w8a16() -> list[dict]:
-    """llama3-8b projection shapes at decode row counts (1, 2, 8 and 16
+    """llama3-8b projection shapes and mixtral-8x7b's LM head (phase 13)
+    at decode row counts (1, 2, 8 and 16
     bf16 rows: the GEMV regime, swap-AB on the tensor cores) and prefill
     row counts (the 128 and 512 buckets, the 2048-row token budget: the
     tensor-core regime), and float32 rows at every leaf at 1, 8, 16, 32,
@@ -772,14 +832,17 @@ def check_w8a16() -> list[dict]:
     torch.matmul on bf16 rows and the dequantized bf16 weight, or on
     float32 rows and the dequantized float32 weight (TF32 off). GEMV
     times (bf16 up to 16 rows, every float32 row count) are cold, kernel
-    and library alike: L2 flushed before each call (`cold`)."""
+    and library alike: L2 flushed before each call (`cold_ms`)."""
     from symmetry_tpu_torch.ops.qmm import (gemv_capacity, gemv_plan,
                                             w8a16_matmul, w8a16_reference,
                                             w8a16_regime)
     from symmetry_tpu_torch.ops.quant import pack_quantized, quantize
 
     shapes = {"wq": (4096, 4096), "wk": (4096, 1024), "wg": (4096, 14336),
-              "wd": (14336, 4096), "lm_head": (4096, 128256)}
+              "wd": (14336, 4096), "lm_head": (4096, 128256),
+              # phase 13's one new shape: mixtral-8x7b's int8 LM head (its
+              # attention projections are llama3-8b's)
+              "mixtral lm_head": (4096, 32000)}
     # the rows reported, all on `wg`
     reported = {(8, torch.bfloat16): "gemv", (2048, torch.bfloat16): "tc",
                 (8, torch.float32): "gemv_f32"}
@@ -987,7 +1050,8 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
                for n in prompt_lens]
     if on_ready is not None:
         on_ready()
-    return schedule(engine, prompts, max_new, sampling)
+    return {**schedule(engine, prompts, max_new, sampling),
+            "prompts": prompts}
 
 
 def schedule(engine, prompts: list[list[int]], max_new: int,
@@ -1123,6 +1187,24 @@ def check_tiny() -> int:
     return launches
 
 
+def reset_launches() -> None:
+    """Every kernel wrapper's launch counts (per variant and regime too) to
+    0, and the card's peak memory statistics."""
+    from symmetry_tpu_torch.ops.decode_attention import decode_attention
+    from symmetry_tpu_torch.ops.flash import flash_prefill
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    for fn in (flash_prefill, decode_attention, kv_append, w8a16_matmul):
+        fn.launches = 0
+    decode_attention.launches_append = 0
+    w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
+    w8a16_matmul.launches_gemv_f32 = 0
+    for variant in flash_prefill.variant_launches:
+        flash_prefill.variant_launches[variant] = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
 def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     """Serve llama3-8b at full depth; returns the launch count of every
     kernel wrapper, all set to 0 just before the requests and read right
@@ -1136,16 +1218,7 @@ def check_full_width(smi: str, *, int8: bool) -> dict[str, int]:
     wrappers = {"flash_prefill": flash_prefill,
                 "decode_attention": decode_attention,
                 "kv_append": kv_append, "w8a16_matmul": w8a16_matmul}
-
-    def reset():
-        for fn in wrappers.values():
-            fn.launches = 0
-        decode_attention.launches_append = 0
-        w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
-        w8a16_matmul.launches_gemv_f32 = 0
-        for variant in flash_prefill.variant_launches:
-            flash_prefill.variant_launches[variant] = 0
-        torch.cuda.reset_peak_memory_stats()
+    reset = reset_launches
 
     label = "int8 (W8A16 weights, int8 KV)" if int8 else "bf16"
     max_new = 64
@@ -1899,7 +1972,8 @@ def check_speculative(smi: str, *, int8: bool) -> None:
 # ---------------------------------------------------------------------------
 # Phase 10: checkpoint loading
 
-CKPT_LAYERS = 4
+CKPT_LAYERS = 8
+CKPT_DIR = os.path.join(OUT_DIR, "ckpt")
 CKPT_CHATS = ["hello there, how are you today?",
               "please write one short sentence about a harbour at night",
               "list three colours"]
@@ -1924,20 +1998,22 @@ def checkpoint_params():
     return cfg, params
 
 
+def tree_leaves(tree):
+    """Every tensor of a params tree, int8 payloads and scales included, in
+    key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from tree_leaves(tree[key])
+    elif isinstance(tree, tuple):  # (Packed)QuantizedTensor
+        yield from tree
+    else:
+        yield tree
+
+
 def assert_bit_equal(got: dict, want: dict, what: str) -> int:
     """Every leaf (int8 leaves: payload and scales) equal bit for bit;
     returns the number of tensors compared."""
-
-    def leaves(tree):
-        if isinstance(tree, dict):
-            for key in sorted(tree):
-                yield from leaves(tree[key])
-        elif isinstance(tree, tuple):  # (Packed)QuantizedTensor
-            yield from tree
-        else:
-            yield tree
-
-    a, b = list(leaves(got)), list(leaves(want))
+    a, b = list(tree_leaves(got)), list(tree_leaves(want))
     if len(a) != len(b):
         raise AssertionError(f"{what}: {len(a)} leaves, want {len(b)}")
     for x, y in zip(a, b):
@@ -2001,7 +2077,9 @@ def check_checkpoint(smi: str) -> None:
     provider's default `tpu:` section twice (cold: load, warm cache
     written; warm: from the cache), in bf16 and with quantization: int8;
     hold the loaded leaves against the tensors written and the streamed
-    text against an in-process engine built from the same tensors."""
+    text against an in-process engine built from the same tensors. The
+    checkpoint, with its bf16 and int8 warm caches, stays for phases 11
+    and 12 (TIERS_MODEL); main removes it after them."""
     import shutil
 
     from symmetry_tpu_torch.convert import params_from_numpy
@@ -2011,7 +2089,7 @@ def check_checkpoint(smi: str) -> None:
     from symmetry_tpu_torch.models.llama import quantize_params
     from symmetry_tpu_torch.provider.config import TpuConfig
 
-    ckpt = os.path.join(OUT_DIR, "ckpt")
+    ckpt = CKPT_DIR
     shutil.rmtree(ckpt, ignore_errors=True)
     try:
         cfg, params = checkpoint_params()
@@ -2134,14 +2212,20 @@ def check_checkpoint(smi: str) -> None:
                 f"{[t[:24] for t in want_text]} ({smi})")
             gc.collect()
             torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(ckpt, ignore_errors=True)
+        raise
 
 
 # ---------------------------------------------------------------------------
 # Phase 11: the prefill and decode tiers, device-time probes
 
-DISAGG_PRESET = "llama3-8b"
+# Phases 11-12 serve phase 10's checkpoint (llama3-8b widths, CKPT_LAYERS
+# layers, its warm caches): a depth cut from 32 layers that keeps the
+# script inside its time limit on a slow host. Their hosts are host-bound
+# (idle 0.7-0.8 of a decode block), and the host's launches, and so these
+# phases' seconds, grow with the depth.
+TIERS_MODEL = {"checkpoint_path": CKPT_DIR}
 DISAGG_LENS = [60, 700, 1880]
 DISAGG_NEW = 32
 PROFILE_NEW = 160  # ten decode blocks: the capture lands inside decode
@@ -2171,8 +2255,9 @@ def serve_one_by_one(host: HostProc, prefix: str, contents: list,
 
 
 def check_disagg(smi: str, *, int8: bool) -> dict:
-    """llama3-8b at full depth, the provider's default `tpu:` section plus
-    a 1024 MiB prefix cache and 32-token prefix blocks (so that a short
+    """Phase 10's checkpoint (llama3-8b widths, CKPT_LAYERS layers; its warm
+    caches), the provider's default `tpu:` section plus a 1024 MiB prefix
+    cache and 32-token prefix blocks (so that a short
     chat has no whole block and routes without a prefill), bf16 or int8
     (kv_quant + fused_dequant). (a) a unified host serves 3 chats of
     60-1880 tokens, a 21-token chat and a repeat of the 700-token one, one
@@ -2190,12 +2275,12 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     frame bytes per prefix token, serialize and adopt seconds."""
     from symmetry_tpu_torch.engine.engine import (InferenceEngine,
                                                   SamplingParams)
+    from symmetry_tpu_torch.engine import weights
     from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
-    from symmetry_tpu_torch.models.llama import preset
     from symmetry_tpu_torch.provider.config import TpuConfig
 
     tag = "int8" if int8 else "bf16"
-    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+    base = {**TIERS_MODEL, "prefix_cache_mb": 1024,
             "prefix_block_tokens": 32,
             **({"quantization": "int8", "kv_quantization": "int8",
                 "fused_dequant": True} if int8 else {})}
@@ -2362,7 +2447,7 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     sized = [f for f in handoffs if f["p"] and f["shipped"]]
     per_tok = [f["nbytes"] / f["p"] for f in sized]
     a = dstats[0]["adopt"]
-    c = preset(DISAGG_PRESET)
+    c = weights.read_hf_config(CKPT_DIR)
     kv_token = 2 * c.num_layers * c.num_kv_heads * (
         c.dim_per_head + 4 if int8 else 2 * c.dim_per_head)
     log(f"  (e) handoff frames: {h['frames']} ({h['routing_only']} "
@@ -2514,7 +2599,7 @@ async def provider_unified(server, client, smi: str, contents: list,
     from symmetry_tpu_torch.client.client import ProviderRestartingError
     from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
 
-    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+    base = {**TIERS_MODEL, "prefix_cache_mb": 1024,
             "prefix_block_tokens": 32}
     label = "llama3-8b-bf16"
     prov = ProviderProc(label, base, server.address,
@@ -2659,7 +2744,7 @@ async def provider_unified(server, client, smi: str, contents: list,
 async def provider_disagg(server, client, contents: list, ref: list) -> None:
     """(b): phase 11's int8 configuration as a local disagg pair behind
     the port's provider: its own broker pipes handoff -> adopt."""
-    base = {"model_preset": DISAGG_PRESET, "prefix_cache_mb": 1024,
+    base = {**TIERS_MODEL, "prefix_cache_mb": 1024,
             "prefix_block_tokens": 32, "quantization": "int8",
             "kv_quantization": "int8", "fused_dequant": True,
             "role": "disagg"}
@@ -2733,6 +2818,478 @@ def check_provider(smi: str, ref_bf16: dict, ref_int8: dict) -> None:
             await server.stop()
 
     asyncio.run(run())
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the mixtral family (models/moe.py)
+
+MOE_NEW = 32
+# The bf16 run's depth: 8 of mixtral-8x7b's 32 layers (~23.7 GB of bf16
+# weights; all 32 are ~93.4 GB, more than the card holds). The int8 run
+# keeps all 32.
+MOE_BF16_LAYERS = 8
+MOE_EXPERT_LEAVES = [("layers/wd", "expert_stack"),
+                     ("layers/wg", "expert_stack"),
+                     ("layers/wu", "expert_stack")]
+
+
+def read_launches() -> dict[str, int]:
+    """Every kernel wrapper's launch counts since reset_launches."""
+    from symmetry_tpu_torch.ops.decode_attention import decode_attention
+    from symmetry_tpu_torch.ops.flash import flash_prefill
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    return {"flash_prefill": flash_prefill.launches,
+            "flash_tensor_core": flash_prefill.variant_launches[
+                "tensor_core"],
+            "flash_fma": flash_prefill.variant_launches["fma"],
+            "decode_attention": decode_attention.launches,
+            "decode_attention_append": decode_attention.launches_append,
+            "kv_append": kv_append.launches,
+            "w8a16_matmul": w8a16_matmul.launches,
+            "w8a16_gemv": w8a16_matmul.launches_gemv,
+            "w8a16_gemv_f32": w8a16_matmul.launches_gemv_f32,
+            "w8a16_tc": w8a16_matmul.launches_tc}
+
+
+class counting_dispatch:
+    """Within the block, count the calls of models/moe.py's capacity-factor
+    dispatch (each is one layer of one prefill, chunk or verify of 64 or
+    more tokens). A measurement harness; the port has no such counter."""
+
+    def __enter__(self):
+        from symmetry_tpu_torch.models import moe
+
+        self.saved = moe.moe_mlp_dispatch
+        self.calls = 0
+
+        def counted(x, lp, config):
+            self.calls += 1
+            return self.saved(x, lp, config)
+
+        moe.moe_mlp_dispatch = counted
+        return self
+
+    def reset(self) -> None:
+        self.calls = 0
+
+    def __exit__(self, *exc):
+        from symmetry_tpu_torch.models import moe
+
+        moe.moe_mlp_dispatch = self.saved
+        return False
+
+
+def check_moe_tiny() -> dict[str, int]:
+    """(a) `tiny-moe` in float32, card against CPU: greedy dense, greedy
+    with int8 weights (attention and head on the float32 GEMV, experts on
+    the mixed dot) and an int8 KV cache, and two prompts of 96 and 70
+    tokens prefilled together (256 tokens: the dispatch). Token ids must
+    be identical. Returns the card's launch counts over the three runs'
+    requests (each counted from 0 after its warmup)."""
+    from symmetry_tpu_torch.models.llama import init_params, preset
+
+    cfg = preset("tiny-moe")
+    short = dict(prompt_lens=[5, 14, 27], buckets=(16, 32), max_seq_len=64)
+    long = dict(prompt_lens=[96, 70], buckets=(128,), max_seq_len=192)
+    counts: dict[str, int] = {}
+
+    def ready():
+        reset_launches()
+        disp.reset()
+
+    for label, int8, kw in (
+            ("greedy", False, short),
+            ("greedy, int8 weights + int8 KV", True, short),
+            ("96- and 70-token prompts through the dispatch", False, long)):
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, quantize=int8)
+        out, calls = [], []
+        for device in ("cuda", "cpu"):
+            with counting_dispatch() as disp:
+                out.append(serve("tiny-moe", device=device,
+                                 dtype=torch.float32, params=params,
+                                 int8=int8, cfg=cfg, max_new=12, max_slots=2,
+                                 decode_block=4, on_ready=ready,
+                                 **kw)["requests"])
+            calls.append(disp.calls)
+            if device == "cuda":
+                for key, n in read_launches().items():
+                    counts[key] = counts.get(key, 0) + n
+        card, cpu = out
+        for r_card, r_cpu in zip(card, cpu):
+            if (r_card["ids"], r_card["reason"]) != (r_cpu["ids"],
+                                                     r_cpu["reason"]):
+                raise AssertionError(f"tiny-moe {label}: card {r_card} != "
+                                     f"cpu {r_cpu}")
+        if kw is long and not calls[0] == calls[1] > 0:
+            raise AssertionError(f"tiny-moe {label}: dispatch calls card/cpu "
+                                 f"{calls}")
+        log(f"  tiny-moe f32 {label}: {len(card)} requests, token ids "
+            f"identical card vs CPU: {[r['ids'][:6] for r in card]}...; "
+            f"dispatch calls card/cpu {calls}")
+    log(f"  tiny-moe card launches {counts}")
+    if min(counts["flash_prefill"], counts["decode_attention_append"],
+           counts["w8a16_gemv_f32"]) <= 0 or counts["kv_append"]:
+        raise AssertionError(f"tiny-moe launches {counts}")
+    return counts
+
+
+def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
+    """(b) int8: mixtral-8x7b at full width and all 32 layers, int8 weights
+    from init_params(quantize=True) with seed 0 packed for the W8A16 kernel
+    (the expert stacks reported flat, on the mixed dot) and an int8 KV
+    cache; (c) bf16 at full width, depth cut to MOE_BF16_LAYERS. Phase 5's
+    traffic (8 slots, capacity 4096, buckets 128/512/2048) with MOE_NEW
+    new tokens, through serve() and the Scheduler; launch counts checked
+    per kernel and regime, every prefill through the dispatch; the same
+    requests again on the same engine give the same tokens. int8 also
+    profiles one decode block and one 2048-token prefill. Returns the
+    launch counts of the serving run."""
+    import dataclasses
+
+    from symmetry_tpu_torch.engine.engine import SamplingParams
+    from symmetry_tpu_torch.models.llama import (
+        init_params,
+        pack_params,
+        preset,
+    )
+
+    cfg = preset("mixtral-8x7b")
+    if not int8:
+        cfg = dataclasses.replace(cfg, num_layers=MOE_BF16_LAYERS)
+    label = (f"mixtral-8x7b int8 (W8A16 attention + head, int8 KV), "
+             f"{cfg.num_layers} layers" if int8 else
+             f"mixtral-8x7b bf16, {cfg.num_layers} of 32 layers")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16, quantize=int8)
+    torch.cuda.synchronize()
+    log(f"  {label}: weights drawn in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB on the card")
+    if int8:
+        report: list = []
+        pack_params(params, report=report)
+        if sorted(report) != MOE_EXPERT_LEAVES:
+            raise AssertionError(f"pack_tree report {report}: not exactly "
+                                 f"the three expert stacks")
+        log(f"  pack_tree report (leaves left on the mixed dot): {report}")
+
+    def ready():
+        reset_launches()
+        disp.reset()
+
+    with counting_dispatch() as disp:
+        res = serve("mixtral-8x7b", device="cuda", dtype=torch.bfloat16,
+                    prompt_lens=PHASE5_PROMPTS, max_new=MOE_NEW, max_slots=8,
+                    max_seq_len=4096, buckets=(128, 512, 2048),
+                    decode_block=8, params=params, int8=int8, cfg=cfg,
+                    on_ready=ready)
+    del params
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    m = res["metrics"]
+    L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
+    log(f"  {label}: launches {counts}; admit_dispatches={dispatches} "
+        f"steps={steps} tokens={m['tokens']}; dispatch calls {disp.calls}")
+    reasons = [(r["reason"], r["generated"]) for r in res["requests"]]
+    log(f"  {label}: finish reasons {reasons}")
+    for i, r in enumerate(res["requests"]):
+        if r["reason"] != "length" or r["generated"] != MOE_NEW:
+            raise AssertionError(f"request {i}: {r['reason']} after "
+                                 f"{r['generated']} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r["ids"]):
+            raise AssertionError(f"request {i}: token id out of range")
+    want = {"flash_prefill": L * dispatches,
+            "flash_tensor_core": L * dispatches, "flash_fma": 0,
+            "decode_attention": L * steps,
+            "decode_attention_append": L * steps, "kv_append": 0,
+            # wq, wk, wv, wo per layer and the LM head, per forward; the
+            # expert stacks stay on the mixed dot
+            "w8a16_matmul": (4 * L + 1) * (steps + dispatches) if int8 else 0,
+            "w8a16_gemv_f32": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}")
+    if int8 and min(counts["w8a16_gemv"], counts["w8a16_tc"]) <= 0:
+        raise AssertionError(f"W8A16 regimes {counts}: the GEMV at decode "
+                             f"and the tensor-core kernel at prefill")
+    # every prompt is >= 60 tokens in a bucket >= 128: each prefill layer
+    # dispatches; decode takes the dense mixture
+    if disp.calls != L * dispatches:
+        raise AssertionError(f"dispatch calls {disp.calls} != "
+                             f"{L * dispatches}")
+    ids = [r["ids"] for r in res["requests"]]
+    digest = hashlib.sha256(json.dumps(ids).encode()).hexdigest()[:16]
+    engine = res["engine"]
+    # The same requests again on the same engine: a padded prefill batch
+    # (3 prompts in the 512 bucket's batch of 4) replays its last request
+    # into that slot, and under capacity dispatch the pad row differs from
+    # it; the engine installs the last row, never a racing mix.
+    again = [r["ids"] for r in schedule(engine, res["prompts"],
+                                        MOE_NEW)["requests"]]
+    log(f"  {label} greedy streams sha256 {digest}; served again on the "
+        f"same engine: {'identical' if again == ids else 'DIFFERENT'}")
+    if again != ids:
+        raise AssertionError(f"{label}: a second serve of the same requests "
+                             f"gave other tokens")
+    ttft = [r["ttft_s"] for r in res["requests"]]
+    log(f"  {label} on {smi}: {len(ttft)} requests x {MOE_NEW} tokens; "
+        f"TTFT p50 "
+        f"{statistics.median(ttft):.4f} s (max {max(ttft):.4f} s); "
+        f"aggregate decode {res['decode_tok_s']:.2f} tok/s; wall "
+        f"{res['wall_s']:.3f} s; max_memory_allocated {peak / 2**30:.3f} "
+        f"GiB ({peak / 1e9:.3f} GB); weight_stream_bytes "
+        f"{engine.weight_stream_bytes()} ({engine.weight_stream_bytes() / 1e9:.3f} GB)")
+    if int8:
+        rows = profile_dispatch(f"{label} decode block ({engine.decode_block} "
+                                f"steps x 8 slots)", engine.decode_steps)
+        busy = sum(r[0] for r in rows)
+        log(f"  {label} decode step: device busy "
+            f"{busy / engine.decode_block:.3f} ms a step (the block's wall "
+            f"above over {engine.decode_block})")
+        prompt = list(range(1000, 3048))
+        profile_dispatch(f"{label} prefill 2048 tokens (bucket 2048, "
+                         f"batch 1)",
+                         lambda: engine.prefill_and_insert(
+                             0, prompt, SamplingParams()))
+        log(f"  {label}: max_memory_allocated with the profiles "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return counts
+
+
+def check_moe_layer() -> None:
+    """(d) One mixtral-8x7b layer's weights in bf16 on the card, a
+    2048-token input: the dispatch at no-drop capacity (capacity factor
+    X / k: every pair kept) against the dense mixture (the same tokens as
+    2048 single-position rows), within TOL of the largest output; the
+    tokens whose top-2 differs between the two paths' router products
+    (expected 0: one product); each path's device time."""
+    import dataclasses
+
+    from symmetry_tpu_torch.models import moe
+    from symmetry_tpu_torch.models.llama import init_params, preset
+
+    base = preset("mixtral-8x7b")
+    cfg = dataclasses.replace(
+        base, num_layers=1,
+        moe_capacity_factor=base.num_experts / base.num_experts_per_tok)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = init_params(cfg, gen, torch.bfloat16)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    del params
+    T, E = 2048, cfg.hidden_size
+    x = torch.randn((1, T, E), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+
+    def dispatch():
+        return moe.moe_mlp_dispatch(x, lp, cfg)
+
+    def dense():
+        return moe.moe_mlp(x.reshape(T, 1, E), lp, cfg).reshape(1, T, E)
+
+    got, want = dispatch().float(), dense().float()
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    sel_dispatch = moe.top_k(moe.router_logits(x.reshape(T, E),
+                                                lp["router"]), 2)[1]
+    sel_dense = moe.top_k(moe.router_logits(x.reshape(T, 1, E),
+                                             lp["router"]), 2)[1]
+    differ = int((sel_dispatch != sel_dense.reshape(T, 2)).any(-1).sum())
+    ms_dispatch, ms_dense = device_ms(dispatch, 3), device_ms(dense, 3)
+    log(f"  one mixtral layer, {T} tokens bf16: dispatch (no-drop) vs dense "
+        f"mixture max abs err {err:.4g} (largest output {top:.4g}, bound "
+        f"{TOL * top:.4g}); tokens whose top-2 differs {differ}; device ms "
+        f"dispatch {ms_dispatch:.3f}, dense mixture {ms_dense:.3f}")
+    if not (np.isfinite(err) and err <= TOL * top):
+        raise AssertionError(f"dispatch vs dense mixture: {err} > "
+                             f"{TOL * top}")
+    if differ:
+        raise AssertionError(f"{differ} tokens route differently between "
+                             f"the two paths")
+
+
+# Calls of the decode-shaped expert product under load in (d).
+MOE_LOAD_REPEATS = 200
+
+
+def plain_moe_int8(x: torch.Tensor, lp: dict, cfg) -> torch.Tensor:
+    """The mixture written plainly for int8 expert stacks: every expert on
+    every token through ops/quant.py's mixed_dot (the whole float32 copy of
+    the payload, the scale on the float32 product, the cast), the top-k
+    gates from a stable descending sort, the combine summed in float32."""
+    from symmetry_tpu_torch.ops.quant import mixed_dot
+
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    k = cfg.num_experts_per_tok
+    logits = (xf @ lp["router"]).float()
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    probs = torch.softmax(vals[:, :k], dim=-1)
+    gates = torch.zeros_like(logits).scatter_(1, idx[:, :k], probs).to(
+        x.dtype)
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        def proj(a, name):
+            w = lp[name]
+            return mixed_dot(a, w.q[e], w.scale[e])
+        h = torch.nn.functional.silu(proj(xf, "wg")) * proj(xf, "wu")
+        out += proj(h, "wd").float() * gates[:, e:e + 1].float()
+    return out.to(x.dtype).reshape(shape)
+
+
+def check_moe_layer_int8() -> None:
+    """(d) int8: one mixtral-8x7b layer at full width with int8 expert
+    stacks (init_params(quantize=True), seed 2), against plain_moe_int8 on
+    the same inputs within TOL of the largest output: the dense mixture at
+    decode (8 tokens) and the dispatch at no-drop capacity (2048 tokens);
+    each path called again on the same inputs, bit-equal; the number of
+    distinct results of the decode step's float32 expert products when
+    they run under a second stream's load (logged: a diagnosis, not a
+    check)."""
+    import dataclasses
+
+    from symmetry_tpu_torch.models import moe
+    from symmetry_tpu_torch.models.llama import init_params, preset
+
+    base = preset("mixtral-8x7b")
+    cfg = dataclasses.replace(
+        base, num_layers=1,
+        moe_capacity_factor=base.num_experts / base.num_experts_per_tok)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    params = init_params(cfg, gen, torch.bfloat16, quantize=True)
+    lp = {k: type(v)(*(t[0] for t in v)) if isinstance(v, tuple) else v[0]
+          for k, v in params["layers"].items()}
+    del params
+    E = cfg.hidden_size
+    for label, shape in (("decode, dense mixture", (8, 1, E)),
+                         ("2048-token dispatch, no drops", (1, 2048, E))):
+        x = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        got = moe.moe_mlp(x, lp, cfg)
+        again = moe.moe_mlp(x, lp, cfg)
+        want = plain_moe_int8(x, lp, cfg).float()
+        err = (got.float() - want).abs().max().item()
+        top = want.abs().max().item()
+        log(f"  one mixtral layer, int8 experts, {label}: max abs err "
+            f"{err:.4g} against the plain mixed-dot mixture (largest "
+            f"output {top:.4g}, bound {TOL * top:.4g}); called again: "
+            f"{'bit-equal' if torch.equal(got, again) else 'DIFFERS'}")
+        if not (np.isfinite(err) and err <= TOL * top):
+            raise AssertionError(f"int8 layer {label}: {err} > {TOL * top}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8 layer {label}: two calls on the "
+                                 f"same inputs differ")
+    # The decode step's expert products (float32 operands at M = 8: cuBLAS
+    # picks a split-K kernel that zeroes its output first) run again and
+    # again while a second stream keeps the card busy with matmuls of
+    # varied sizes, which changes the order in which the split-K blocks
+    # finish. A kernel that sums its K splits in the order they finish
+    # gives more than one result; one that does not gives one.
+    side = torch.cuda.Stream()
+    load = torch.randn((4096, 4096), generator=gen, device="cuda")
+    x8 = torch.randn((8, E), generator=gen, device="cuda").to(
+        torch.bfloat16).float()
+    for name, a in (("wg", x8),
+                    ("wd", torch.randn((8, cfg.intermediate_size),
+                                       generator=gen, device="cuda").to(
+                        torch.bfloat16).float())):
+        w = lp[name].q[0].float()
+        seen = {torch.matmul(a, w).cpu().numpy().tobytes()}  # idle
+        for i in range(MOE_LOAD_REPEATS):
+            with torch.cuda.stream(side):
+                for _ in range(1 + i % 3):
+                    torch.matmul(load[:256 * (1 + i % 16)], load)
+            seen.add(torch.matmul(a, w).cpu().numpy().tobytes())
+        torch.cuda.synchronize()
+        log(f"  int8 expert product {list(a.shape)} @ [{w.shape[0]}, "
+            f"{w.shape[1]}] float32 (`{name}`, expert 0) under a second "
+            f"stream's load: {len(seen)} distinct results in "
+            f"{MOE_LOAD_REPEATS + 1} calls")
+        del w
+
+
+# The depth of (e)'s mixtral checkpoint: 2 of 32 layers (6.3 GB in bf16).
+MOE_CKPT_LAYERS = 2
+# (e)'s allowance above the int8 engine's own bytes for the load's
+# transients: one tensor read in bf16, its float32 copy and the quantizer's
+# float32 temporaries (the largest is the [32000, 4096] LM head).
+MOE_CKPT_SLACK = 2 * 2**30
+
+
+def check_moe_checkpoint(smi: str) -> None:
+    """(e) A mixtral-8x7b-width checkpoint (MOE_CKPT_LAYERS layers, bf16,
+    random weights, seed 0) written by the port's writer, served through
+    InferenceEngine.from_tpu_config with quantization: int8 and no warm
+    cache: the cold load quantizes each tensor as it is read, so the card
+    never holds the dense tree (mixtral-8x7b's is ~93.4 GB). The peak
+    above what was allocated before must stay within the engine's own
+    bytes plus MOE_CKPT_SLACK, and under the dense tree's size; the int8
+    leaves must equal quantize_params of the tensors written, bit for
+    bit."""
+    import dataclasses
+
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.engine.engine import (InferenceEngine,
+                                                  SamplingParams)
+    from symmetry_tpu_torch.models.llama import (init_params, preset,
+                                                 quantize_params)
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    ckpt = os.path.join(OUT_DIR, "ckpt_mixtral")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        cfg = dataclasses.replace(preset("mixtral-8x7b"),
+                                  num_layers=MOE_CKPT_LAYERS)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), torch.bfloat16)
+        dense = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(params))
+        t0 = time.perf_counter()
+        weights.save_checkpoint(ckpt, params, cfg, dtype=torch.bfloat16,
+                                shards=2)
+        log(f"  (e) wrote a mixtral-8x7b-width checkpoint at "
+            f"{MOE_CKPT_LAYERS} layers, {dense / 1e9:.3f} GB in bf16, in "
+            f"{time.perf_counter() - t0:.3f} s")
+        want = quantize_params(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = InferenceEngine.from_tpu_config(TpuConfig.from_dict({
+            "checkpoint_path": ckpt, "quantization": "int8",
+            "warm_cache": False, "max_batch_size": 1, "max_seq_len": 256,
+            "prefill_buckets": [128]}), device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        tree = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(engine.params))
+        log(f"  (e) from_tpu_config (quantization: int8, cold, no warm "
+            f"cache) in {load_s:.3f} s on {smi}: peak above the start "
+            f"{peak / 1e9:.3f} GB; the engine holds {held / 1e9:.3f} GB "
+            f"(int8 tree {tree / 1e9:.3f} GB); the dense tree would be "
+            f"{dense / 1e9:.3f} GB")
+        if peak > held + MOE_CKPT_SLACK or peak >= dense:
+            raise AssertionError(f"quantize-on-load peak {peak} > the "
+                                 f"engine's {held} + {MOE_CKPT_SLACK}, or "
+                                 f">= the dense tree's {dense}")
+        n = assert_bit_equal(engine.params, want, "int8 load")
+        first = engine.prefill_and_insert(0, list(range(100, 200)),
+                                          SamplingParams())
+        if not 0 <= first < cfg.vocab_size:
+            raise AssertionError(f"first token {first}")
+        log(f"  (e) {n} tensors bit-equal to quantize_params of the "
+            f"tensors written; a 100-token prefill gives token {first}")
+        del engine, want
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2833,8 +3390,9 @@ def main() -> int:
     check_checkpoint(smi)
     phase_done(10)
 
-    log("phase 11: prefill and decode tiers, llama3-8b full width and "
-        "depth, and the device-time probes")
+    log(f"phase 11: prefill and decode tiers, llama3-8b width at "
+        f"{CKPT_LAYERS} layers (phase 10's checkpoint), and the device-time "
+        f"probes")
     refs = {}
     for int8_tiers in (False, True):
         refs[int8_tiers] = check_disagg(smi, int8=int8_tiers)
@@ -2843,13 +3401,54 @@ def main() -> int:
     phase_done(11)
 
     log("phase 12: the port's server, provider and client over TCP, "
-        "llama3-8b full width and depth (bf16 unified, int8 disagg pair)")
+        f"llama3-8b width at {CKPT_LAYERS} layers (bf16 unified, int8 disagg "
+        f"pair)")
     check_provider(smi, refs[False], refs[True])
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     phase_done(12)
+
+    log("phase 13: the mixtral family: tiny-moe card against CPU, "
+        "mixtral-8x7b int8 at full width and depth, bf16 at "
+        f"{MOE_BF16_LAYERS} layers, one layer's dispatch, a checkpoint "
+        "quantized on load")
+    moe_tiny = check_moe_tiny()
+    moe_int8 = check_moe_serve(smi, int8=True)
+    gc.collect()  # frees the int8 engine before the bf16 one is built
+    torch.cuda.empty_cache()
+    moe_bf16 = check_moe_serve(smi, int8=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_moe_layer()
+    check_moe_layer_int8()
+    check_moe_checkpoint(smi)
+    # Each row's launches on the MoE path: (b) and (c) serving, float32
+    # rows from (a).
+    moe_launches = {
+        "flash_prefill": moe_int8["flash_prefill"] + moe_bf16[
+            "flash_prefill"],
+        "decode_attention": moe_bf16["decode_attention"],
+        "decode_attention_int8": moe_int8["decode_attention"],
+        "kv_append_fused": moe_int8["decode_attention_append"],
+        "w8a16_matmul[gemv]": moe_int8["w8a16_gemv"],
+        "w8a16_matmul[gemv_f32]": moe_tiny["w8a16_gemv_f32"],
+        "w8a16_matmul[tc]": moe_int8["w8a16_tc"],
+        "kv_append": sum(c["kv_append"] for c in (moe_tiny, moe_int8,
+                                                  moe_bf16)),
+        "w8a8_matmul": 0}
+    for row in rows:
+        row["launches_moe"] = moe_launches[row["name"]]
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        if on_path and row["launches_moe"] <= 0:
+            raise AssertionError(f"{row['name']} never launched on the MoE "
+                                 f"path")
+        if not on_path and row["launches_moe"]:
+            raise AssertionError(f"{row['name']} launched on the MoE path")
+    phase_done(13)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_moe")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          **({"path": row["path"]} if "path" in row else {})}

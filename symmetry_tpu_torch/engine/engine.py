@@ -86,7 +86,6 @@ from symmetry_tpu_torch.models.llama import (
     logits_from_hidden,
     pack_params,
     preset,
-    quantize_params,
 )
 from symmetry_tpu_torch.ops import kernels, prng
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
@@ -462,26 +461,40 @@ class InferenceEngine:
         return self._sample_at(h, last_idx, temp, top_p, top_k,
                                keys), cache
 
-    def _insert_all(self, prefix: KVCache, slots, true_len, first_token,
-                    temp, top_p, top_k, decode_keys) -> None:
-        """Install EVERY row of a coalesced prefill in place. Pad rows carry
-        the last real request's slot and identical data: re-writing it is
-        idempotent."""
+    def _insert_all(self, prefix: KVCache, slots: np.ndarray, true_len,
+                    first_token, temp, top_p, top_k, decode_keys) -> None:
+        """Install a coalesced prefill in place, each slot from its LAST
+        row. Pad rows replay the last real request into its slot: in a
+        dense model they are bit-identical to it, but in an MoE model they
+        compete with it for expert capacity and can differ, and a CUDA
+        scatter with repeated indices writes them in no fixed order. The
+        last row is what a sequential scatter (the CPU's, the JAX
+        engine's) leaves."""
         st = self.state
+        last = sorted({int(s): i for i, s in enumerate(slots)}.values())
+        rows = None
+        if len(last) < len(slots):
+            rows = self._dev(np.asarray(last, np.int64))
+            slots = slots[last]
+
+        def pick(t, dim=0):
+            return t if rows is None else t.index_select(dim, rows)
+
+        slots = self._dev(slots)
         Sb = prefix.k.shape[2]
-        st.cache.k[:, slots, :Sb] = prefix.k
-        st.cache.v[:, slots, :Sb] = prefix.v
+        st.cache.k[:, slots, :Sb] = pick(prefix.k, 1)
+        st.cache.v[:, slots, :Sb] = pick(prefix.v, 1)
         if self.kv_quant:
-            st.cache.k_scale[:, slots, :, :Sb] = prefix.k_scale
-            st.cache.v_scale[:, slots, :, :Sb] = prefix.v_scale
+            st.cache.k_scale[:, slots, :, :Sb] = pick(prefix.k_scale, 1)
+            st.cache.v_scale[:, slots, :, :Sb] = pick(prefix.v_scale, 1)
         # The first sampled token's KV is not written yet: the next decode
         # step writes it at position true_len.
-        st.cache.lengths[slots] = true_len
-        st.last_token[slots] = first_token
-        st.temperature[slots] = temp
-        st.top_p[slots] = top_p
-        st.top_k[slots] = top_k
-        st.rng[slots] = decode_keys
+        st.cache.lengths[slots] = pick(true_len)
+        st.last_token[slots] = pick(first_token)
+        st.temperature[slots] = pick(temp)
+        st.top_p[slots] = pick(top_p)
+        st.top_k[slots] = pick(top_k)
+        st.rng[slots] = pick(decode_keys)
 
     # Block pool moves (the radix prefix cache's device side).
 
@@ -684,8 +697,7 @@ class InferenceEngine:
                                                                bucket))
         # The prefill drew with the prefill keys; the slots carry on with
         # the decode keys.
-        self._insert_all(prefix, self._dev(slots), lens_t, toks, *rows[:3],
-                         rows[4])
+        self._insert_all(prefix, slots, lens_t, toks, *rows[:3], rows[4])
         if dp.enabled:
             # The probe covers the prefill + insert chain (one stream, so
             # the event after the insert follows both).
@@ -814,8 +826,8 @@ class InferenceEngine:
             t_dp = dp.begin() if dp.enabled else 0.0
             toks, prefix = self._chunk_final(self._dev(suffix), scratch,
                                              sfx_t, sfx_t - 1, *rows[:4])
-            self._insert_all(prefix, self._dev(slots), self._dev(full_lens),
-                             toks, *rows[:3], rows[4])
+            self._insert_all(prefix, slots, self._dev(full_lens), toks,
+                             *rows[:3], rows[4])
             if dp.enabled:
                 # The cached-hit suffix dispatch is still a prefill on the
                 # device (chunk_final + insert over the seeded rows).
@@ -1144,8 +1156,7 @@ class InferenceEngine:
                                         job.prefill_key)
         job.done_chunks += 1
         job.cache = None
-        self._insert_all(cache,
-                         torch.tensor([job.slot], device=self.device),
+        self._insert_all(cache, np.asarray([job.slot], np.int64),
                          torch.tensor([job.true_len], dtype=torch.int32,
                                       device=self.device),
                          toks, job.temp, job.top_p, job.top_k,
@@ -1252,7 +1263,7 @@ class InferenceEngine:
             toks, prefix = self._prefill(
                 zeros(n, bucket), full(n, 1, torch.int32), *rows(n),
                 self._prefill_scratch_for(n, bucket))
-            self._insert_all(prefix, full(n, 0, torch.int64),
+            self._insert_all(prefix, np.zeros(n, np.int64),
                              full(n, 0, torch.int32), toks, *rows(n))
             self._store_prefill_scratch(n, bucket, prefix)
         C = self.prefill_chunk
@@ -1480,9 +1491,10 @@ def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
                   warm: bool, device: torch.device) -> tuple[dict, Any]:
     """(params, config) from an HF checkpoint directory, through the warm
     cache when `warm` is on (the JAX engine's from_tpu_config order): the
-    cache first; else a cold load, quantized for int8 serving, after which
-    the cache is written, best effort -- a failure to cache is logged and
-    never fails serving."""
+    cache first; else a cold load, quantized for int8 serving as each
+    tensor is read (load_checkpoint(quantize=True): the dense tree is never
+    held), after which the cache is written, best effort -- a failure to
+    cache is logged and never fails serving."""
     if warm:
         try:
             loaded = load_warm_cache(path, dtype=dtype, quantize=quantize,
@@ -1493,9 +1505,8 @@ def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
         if loaded is not None:
             logger.info(f"weights loaded from warm cache ({path})")
             return loaded
-    params, config = load_checkpoint(path, dtype=dtype, device=device)
-    if quantize:
-        params = quantize_params(params)
+    params, config = load_checkpoint(path, dtype=dtype, device=device,
+                                     quantize=quantize)
     logger.info(f"weights loaded cold from checkpoint ({path})")
     if warm:
         try:

@@ -14,8 +14,10 @@ directory and tag, a flat int8 layout, bfloat16 stored as uint16 views, the
 same meta.json. Each package reads the other's cache. A restart then reads
 one flat file straight to the device.
 
-Meshes are not ported: mesh and rules arguments raise NotImplementedError
-(ROADMAP Queue 1 item 14). MoE checkpoints raise MOE_NOT_PORTED (item 13).
+Mixtral checkpoints (`block_sparse_moe`) load into the MoE layout: the
+router [L, E, X] and the expert stacks [L, X, in, out], one HF tensor per
+(layer, expert) written into its slot. Meshes are not ported: mesh and
+rules arguments raise NotImplementedError (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -37,16 +39,20 @@ from symmetry_tpu_torch.engine.safetensors_io import (
     save_sharded,
 )
 from symmetry_tpu_torch.models.llama import (
+    HF_EXPERT_MAP,
     HF_LAYER_MAP,
+    HF_MOE_ROUTER,
     HF_TOP_MAP,
-    MOE_NOT_PORTED,
+    QUANT_KEYS,
     ModelConfig,
     MoEConfig,
     config_from_hf,
+    hf_expert_name,
 )
 from symmetry_tpu_torch.ops.quant import (
     PackedQuantizedTensor,
     QuantizedTensor,
+    quantize as quantize_leaf,
     unpack_quantized,
 )
 
@@ -62,9 +68,10 @@ def _refuse_mesh(mesh, rules) -> None:
         raise NotImplementedError(MESH_NOT_PORTED)
 
 
-def _refuse_moe(config: ModelConfig) -> None:
-    if getattr(config, "num_experts", 0):
-        raise NotImplementedError(MOE_NOT_PORTED)
+_EXPERT_LEAVES = ("wg", "wu", "wd")
+# Columns quantized at a time by load_checkpoint(quantize=True): bounds the
+# quantizer's float32 temporaries (a wide LM head's would be ~4x its bf16).
+_QUANT_COLS = 16384
 
 
 # ---------------------------------------------------------------------------
@@ -73,14 +80,22 @@ def _refuse_moe(config: ModelConfig) -> None:
 
 def convert_hf_state_dict(tensors: dict[str, Any], config: ModelConfig
                           ) -> dict:
-    """Convert a full in-memory HF llama-family state dict (numpy arrays or
-    tensors) to our params dict of CPU tensors, dtypes kept."""
-    _refuse_moe(config)
+    """Convert a full in-memory HF llama-family or mixtral state dict
+    (numpy arrays or tensors) to our params dict of CPU tensors, dtypes
+    kept."""
+    n_exp = getattr(config, "num_experts", 0)
     per_layer: dict[str, list] = {
         ours: [None] * config.num_layers
         for ours, _ in HF_LAYER_MAP.values()
         # bias params exist only for attention_bias (qwen2) configs
         if config.attention_bias or ours not in ("bq", "bk", "bv")}
+    if n_exp:
+        # MoE FFN params come per (layer, expert); experts stack inside
+        # each layer. The dense FFN names are absent in mixtral files.
+        for ours in _EXPERT_LEAVES:
+            per_layer[ours] = [[None] * n_exp
+                               for _ in range(config.num_layers)]
+        per_layer["router"] = [None] * config.num_layers
     top: dict[str, torch.Tensor] = {}
     for name, arr in tensors.items():
         t = torch.as_tensor(arr)
@@ -89,17 +104,33 @@ def convert_hf_state_dict(tensors: dict[str, Any], config: ModelConfig
             top[ours] = t.T if transpose else t
         elif name.startswith("model.layers."):
             idx_str, _, sub = name[len("model.layers."):].partition(".")
-            if sub not in HF_LAYER_MAP:
+            layer = int(idx_str)
+            if n_exp and sub == HF_MOE_ROUTER:
+                per_layer["router"][layer] = t.T
+            elif n_exp and sub.startswith("block_sparse_moe.experts."):
+                parts = sub.split(".")       # experts . <e> . w1 . weight
+                expert, w = int(parts[2]), parts[3]
+                if w not in HF_EXPERT_MAP:
+                    raise CheckpointError(f"unmapped HF tensor {name!r}")
+                per_layer[HF_EXPERT_MAP[w]][layer][expert] = t.T
+            elif sub in HF_LAYER_MAP:
+                ours, transpose = HF_LAYER_MAP[sub]
+                if ours not in per_layer:
+                    raise CheckpointError(
+                        f"checkpoint has {name!r} but the config does not "
+                        f"enable attention_bias")
+                per_layer[ours][layer] = t.T if transpose else t
+            else:
                 raise CheckpointError(f"unmapped HF tensor {name!r}")
-            ours, transpose = HF_LAYER_MAP[sub]
-            if ours not in per_layer:
-                raise CheckpointError(
-                    f"checkpoint has {name!r} but the config does not "
-                    f"enable attention_bias")
-            per_layer[ours][int(idx_str)] = t.T if transpose else t
         else:
             raise CheckpointError(f"unmapped HF tensor {name!r}")
 
+    if n_exp:
+        for ours in _EXPERT_LEAVES:
+            per_layer[ours] = [
+                torch.stack(experts)
+                if all(e is not None for e in experts) else None
+                for experts in per_layer[ours]]
     for ours, lst in per_layer.items():
         missing = [i for i, a in enumerate(lst) if a is None]
         if missing:
@@ -123,7 +154,7 @@ def convert_hf_state_dict(tensors: dict[str, Any], config: ModelConfig
 
 def _leaf_shapes(c: ModelConfig) -> tuple[dict, dict]:
     """(top-level, per-layer) leaf shapes of our params, per layer without
-    the leading L."""
+    the leading L (an MoE expert stack keeps its experts dim X)."""
     E, F, V = c.hidden_size, c.intermediate_size, c.vocab_size
     top = {"embed": (V, E), "final_norm": (E,)}
     if not c.tie_embeddings:
@@ -133,6 +164,10 @@ def _leaf_shapes(c: ModelConfig) -> tuple[dict, dict]:
              "wg": (E, F), "wu": (E, F), "wd": (F, E)}
     if c.attention_bias:
         layer.update(bq=(c.q_dim,), bk=(c.kv_dim,), bv=(c.kv_dim,))
+    n_exp = getattr(c, "num_experts", 0)
+    if n_exp:
+        layer.update(wg=(n_exp, E, F), wu=(n_exp, E, F), wd=(n_exp, F, E),
+                     router=(E, n_exp))
     return top, layer
 
 
@@ -155,16 +190,24 @@ def load_checkpoint(
     rules: dict[str, str | None] | None = None,
     dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda",
+    quantize: bool = False,
 ) -> tuple[dict, ModelConfig]:
-    """Load an HF llama-family checkpoint dir onto `device`.
+    """Load an HF llama-family or mixtral checkpoint dir onto `device`.
 
     Returns (params, config). If `config` is None it is derived from the
     checkpoint's config.json. A missing or unreadable checkpoint raises
-    CheckpointError."""
+    CheckpointError.
+
+    quantize=True gives the tree quantize_params would make of the dense
+    one, bit for bit, without ever holding the dense tree: each QUANT_KEYS
+    tensor is cast to `dtype` and quantized as it is read (per-column
+    scales, so one layer's or one expert's [K, N] slab at a time gives the
+    whole leaf's), into int8 leaves allocated up front. mixtral-8x7b's
+    dense tree (~93.4 GB in bf16) does not fit one 80 GB card; its int8
+    tree (~46.9 GB) does."""
     _refuse_mesh(mesh, rules)
     if config is None:
         config = read_hf_config(path)
-    _refuse_moe(config)
     device = torch.device(device)
     store = SafetensorsDir(path)
     tied = config.tie_embeddings or "lm_head.weight" not in store.names()
@@ -181,34 +224,68 @@ def load_checkpoint(
                                   f"{list(shape)}")
         return t
 
+    def leaf(name: str, shape: tuple):
+        """An empty leaf and the function that writes one slab into it."""
+        if not (quantize and name in QUANT_KEYS):
+            t = torch.empty(shape, dtype=dtype, device=device)
+
+            def put(i: tuple, w: torch.Tensor) -> None:
+                t[i].copy_(w)
+            return t, put
+        q = torch.empty(shape, dtype=torch.int8, device=device)
+        s = torch.empty((*shape[:-2], shape[-1]), dtype=torch.float32,
+                        device=device)
+
+        def put(i: tuple, w: torch.Tensor) -> None:
+            for n0 in range(0, shape[-1], _QUANT_COLS):
+                qt = quantize_leaf(w[:, n0:n0 + _QUANT_COLS].to(dtype))
+                q[i][:, n0:n0 + _QUANT_COLS] = qt.q
+                s[i][n0:n0 + _QUANT_COLS] = qt.scale
+        return QuantizedTensor(q=q, scale=s), put
+
     params: dict = {"layers": {}}
     for hf_name, (ours, transpose) in HF_TOP_MAP.items():
         if ours in top_shapes:
             shape = top_shapes[ours]
-            leaf = torch.empty(shape, dtype=dtype, device=device)
-            params[ours] = leaf.copy_(read(hf_name, transpose, shape))
+            params[ours], put = leaf(ours, shape)
+            put((), read(hf_name, transpose, shape))
+    n_exp = getattr(config, "num_experts", 0)
+    L = config.num_layers
     for hf_sub, (ours, transpose) in HF_LAYER_MAP.items():
-        if ours not in layer_shapes:
+        if ours not in layer_shapes or (n_exp and ours in _EXPERT_LEAVES):
             continue
         shape = layer_shapes[ours]
-        leaf = torch.empty((config.num_layers, *shape), dtype=dtype,
-                           device=device)
-        for layer in range(config.num_layers):
-            leaf[layer].copy_(read(f"model.layers.{layer}.{hf_sub}",
-                                   transpose, shape))
-        params["layers"][ours] = leaf
+        params["layers"][ours], put = leaf(ours, (L, *shape))
+        for layer in range(L):
+            put((layer,), read(f"model.layers.{layer}.{hf_sub}", transpose,
+                               shape))
+    if n_exp:
+        shape = layer_shapes["router"]
+        params["layers"]["router"], put = leaf("router", (L, *shape))
+        for layer in range(L):
+            put((layer,), read(f"model.layers.{layer}.{HF_MOE_ROUTER}",
+                               True, shape))
+        # One HF tensor per (layer, expert), straight into its slot.
+        for ours in _EXPERT_LEAVES:
+            shape = layer_shapes[ours][1:]
+            params["layers"][ours], put = leaf(ours, (L, n_exp, *shape))
+            for layer in range(L):
+                for e in range(n_exp):
+                    put((layer, e), read(hf_expert_name(layer, e, ours),
+                                         True, shape))
     return params, config
 
 
 def save_checkpoint(path: str, params: dict, config: ModelConfig, *,
                     dtype: torch.dtype = torch.float32,
                     shards: int = 1) -> None:
-    """Write dense params back out in the HF layout, with the config.json
-    the JAX package's save_checkpoint writes: float32 in one
-    model.safetensors by default, as there; `dtype` and `shards` (> 1: HF's
-    sharded names and index json) for larger fixtures. Tensors move to the
-    host one at a time."""
-    _refuse_moe(config)
+    """Write dense params back out in the HF layout (mixtral's
+    `block_sparse_moe` names for an MoE config), with the config.json the
+    JAX package's save_checkpoint writes: float32 in one model.safetensors
+    by default, as there; `dtype` and `shards` (> 1: HF's sharded names
+    and index json) for larger fixtures. Tensors move to the host one at a
+    time."""
+    n_exp = getattr(config, "num_experts", 0)
     os.makedirs(path, exist_ok=True)
     tensors: dict[str, torch.Tensor] = {}
     for hf_name, (ours, transpose) in HF_TOP_MAP.items():
@@ -216,19 +293,30 @@ def save_checkpoint(path: str, params: dict, config: ModelConfig, *,
             tensors[hf_name] = params[ours].T if transpose else params[ours]
     for hf_sub, (ours, transpose) in HF_LAYER_MAP.items():
         stacked = params["layers"].get(ours)
-        if stacked is None:
+        if stacked is None or (n_exp and ours in _EXPERT_LEAVES):
             continue
         for layer in range(stacked.shape[0]):
             t = stacked[layer]
             tensors[f"model.layers.{layer}.{hf_sub}"] = t.T if transpose else t
+    if n_exp:
+        router = params["layers"]["router"]
+        for layer in range(router.shape[0]):
+            tensors[f"model.layers.{layer}.{HF_MOE_ROUTER}"] = router[layer].T
+        for ours in _EXPERT_LEAVES:
+            stacked = params["layers"][ours]
+            for layer in range(stacked.shape[0]):
+                for e in range(stacked.shape[1]):
+                    tensors[hf_expert_name(layer, e, ours)] = (
+                        stacked[layer, e].T)
     if shards > 1:
         save_sharded(tensors, path, shards, dtype=dtype)
     else:
         save_file(tensors, os.path.join(path, "model.safetensors"),
                   dtype=dtype)
     hf_cfg = {
-        "architectures": ["Qwen2ForCausalLM" if config.attention_bias
-                          else "LlamaForCausalLM"],
+        "architectures": ["MixtralForCausalLM" if n_exp
+                          else ("Qwen2ForCausalLM" if config.attention_bias
+                                else "LlamaForCausalLM")],
         "attention_bias": config.attention_bias,
         "vocab_size": config.vocab_size,
         "hidden_size": config.hidden_size,
@@ -243,6 +331,9 @@ def save_checkpoint(path: str, params: dict, config: ModelConfig, *,
         "sliding_window": config.sliding_window,
         "head_dim": config.head_dim,
     }
+    if n_exp:
+        hf_cfg["num_local_experts"] = n_exp
+        hf_cfg["num_experts_per_tok"] = config.num_experts_per_tok
     with open(os.path.join(path, "config.json"), "w", encoding="utf-8") as fh:
         json.dump(hf_cfg, fh, indent=2)
 

@@ -23,18 +23,24 @@ launch the package's hand-written kernels.
 The HF weight layout map and `config_from_hf` (an HF config.json dict to
 a ModelConfig) serve engine/weights.py.
 
-Not ported in this slice: MoE (ROADMAP Queue 1 item 13) and sequence-
-parallel prefill (item 14).
+MoE (mixtral family, MoEConfig): a layer whose params carry a "router"
+runs models/moe.py's mixture in place of the dense MLP; the expert stacks
+are [L, X, E, F] (wg, wu) and [L, X, F, E] (wd), the router [L, E, X].
+
+Not ported in this slice: sequence-parallel prefill (ROADMAP Queue 1 item
+14).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from symmetry_tpu_torch.models.moe import moe_mlp
 from symmetry_tpu_torch.ops.attention import gqa_attention
 from symmetry_tpu_torch.ops import decode_attention as decode_ops
 from symmetry_tpu_torch.ops import flash as flash_ops
@@ -89,15 +95,15 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class MoEConfig(ModelConfig):
-    """Mixture-of-experts variant (mixtral family). Not served by this
-    package yet: `init_params` and `forward_hidden` raise on it."""
+    """Mixture-of-experts variant (mixtral family): each layer's MLP is
+    models/moe.py's top-k mixture over `num_experts` experts;
+    `moe_capacity_factor` (None: moe.CAPACITY_FACTOR) sizes the prefill
+    dispatch."""
 
     num_experts: int = 8
     num_experts_per_tok: int = 2
     moe_capacity_factor: float | None = None
 
-
-MOE_NOT_PORTED = "MoE models are not ported yet (ROADMAP Queue 1 item 13)"
 
 # Named presets; sizes from the public HF configs of each model family.
 PRESETS: dict[str, ModelConfig] = {
@@ -238,12 +244,15 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     packages the same weights through convert.params_from_numpy.
 
     quantize=True makes the QUANT_KEYS leaves int8 QuantizedTensors as
-    they are drawn: one layer slice (the LM head: one column block) is
-    drawn, scaled and quantized at a time, so neither a dense copy of a
-    whole leaf nor a float32 one is ever held."""
+    they are drawn: one [K, N] slab of a stack (a layer, or one expert of a
+    layer for an MoE expert stack; the LM head: one column block) is drawn,
+    scaled and quantized at a time, so neither a dense copy of a whole leaf
+    nor a float32 one is ever held.
+
+    MoE configs (num_experts > 0) draw the expert stacks [L, X, E, F] (wg,
+    wu) and [L, X, F, E] (wd) and a dense router [L, E, X], as the JAX
+    package lays them out."""
     c = config
-    if getattr(c, "num_experts", 0):
-        raise NotImplementedError(MOE_NOT_PORTED)
     device = generator.device
 
     def draw(shape, scale):
@@ -258,20 +267,23 @@ def init_params(config: ModelConfig, generator: torch.Generator,
         *lead, K, N = shape
         q = torch.empty(shape, dtype=torch.int8, device=device)
         s = torch.empty((*lead, N), dtype=torch.float32, device=device)
-        # one [K, cols] slab per layer (stacks) or column block (2-D)
+        # one [K, cols] slab per leading index (a layer, or a layer's
+        # expert) or per column block of a 2-D leaf
         cols = N if lead else min(N, _QUANT_INIT_COLS)
-        for i in range(lead[0] if lead else 1):
+        for i in itertools.product(*(range(n) for n in lead)):
             for n0 in range(0, N, cols):
                 qt = quantize_leaf(draw((K, min(cols, N - n0)), scale))
-                dst = (q[i], s[i]) if lead else (q, s)
-                dst[0][:, n0:n0 + cols] = qt.q
-                dst[1][n0:n0 + cols] = qt.scale
+                q[i][:, n0:n0 + cols] = qt.q
+                s[i][n0:n0 + cols] = qt.scale
         return QuantizedTensor(q=q, scale=s)
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
     L, E, F = c.num_layers, c.hidden_size, c.intermediate_size
+    n_exp = getattr(c, "num_experts", 0)
+    ffn = (L, n_exp, E, F) if n_exp else (L, E, F)
+    ffn_d = (L, n_exp, F, E) if n_exp else (L, F, E)
     params = {
         "embed": dense((c.vocab_size, E), scale=0.02),
         "layers": {
@@ -281,12 +293,15 @@ def init_params(config: ModelConfig, generator: torch.Generator,
             "wk": dense((L, E, c.kv_dim), name="wk"),
             "wv": dense((L, E, c.kv_dim), name="wv"),
             "wo": dense((L, c.q_dim, E), name="wo"),
-            "wg": dense((L, E, F), name="wg"),
-            "wu": dense((L, E, F), name="wu"),
-            "wd": dense((L, F, E), name="wd"),
+            "wg": dense(ffn, name="wg"),
+            "wu": dense(ffn, name="wu"),
+            "wd": dense(ffn_d, name="wd"),
         },
         "final_norm": ones((E,)),
     }
+    if n_exp:
+        # The router stays dense: it is small, and its logits feed a top-k.
+        params["layers"]["router"] = dense((L, E, n_exp))
     if c.attention_bias:
         # qwen2: biases on q/k/v projections only (not o/mlp)
         for name, width in (("bq", c.q_dim), ("bk", c.kv_dim),
@@ -430,6 +445,8 @@ def _layer(
     h = h + qmatmul(attn.reshape(B, S, nq * D), lp["wo"])
 
     x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)
+    if "router" in lp:
+        return h + moe_mlp(x, lp, config)
     return h + qmatmul(_act(qmatmul(x, lp["wg"]), config)
                        * qmatmul(x, lp["wu"]), lp["wd"])
 
@@ -471,8 +488,6 @@ def forward_hidden(
     position. prefill_flash=True is VALID ONLY when cache.lengths are all
     zero (the engine's prefill): attention then covers this call's own
     K/V, not the cache."""
-    if getattr(config, "num_experts", 0):
-        raise NotImplementedError(MOE_NOT_PORTED)
     if ring_mesh is not None:
         raise NotImplementedError("sequence-parallel prefill (ring_mesh) is "
                                   "not ported yet (ROADMAP Queue 1 item 14)")
@@ -574,8 +589,6 @@ HF_LAYER_MAP = {
 # Mixtral: the MLP block is `block_sparse_moe` -- a router (`gate`) plus
 # per-expert w1/w2/w3 Linears (w1=gate_proj, w2=down_proj, w3=up_proj).
 # All are HF [out, in] -> transposed; experts stack on our leading dim.
-# Named as in the JAX package; serving them is item 13's (config_from_hf
-# raises on a mixtral config).
 HF_MOE_ROUTER = "block_sparse_moe.gate.weight"            # -> router (T)
 HF_EXPERT_MAP = {"w1": "wg", "w3": "wu", "w2": "wd"}      # all transposed
 
@@ -587,8 +600,8 @@ def hf_expert_name(layer: int, expert: int, ours: str) -> str:
 
 def config_from_hf(hf: dict[str, Any]) -> ModelConfig:
     """Build a ModelConfig from an HF config.json dict (llama/mistral/
-    qwen2/gemma shapes). A mixtral dict (num_local_experts) raises
-    NotImplementedError: MoE is not ported (ROADMAP Queue 1 item 13)."""
+    qwen2/gemma/mixtral shapes; mixtral's num_local_experts selects
+    MoEConfig)."""
     arch = (hf.get("architectures") or [""])[0]
     # Exact match: gemma-2/3 checkpoints (Gemma2ForCausalLM, ...) need
     # logit softcapping, post-layer norms, and alternating local
@@ -605,9 +618,7 @@ def config_from_hf(hf: dict[str, Any]) -> ModelConfig:
     sliding = hf.get("sliding_window")
     if hf.get("use_sliding_window") is False:
         sliding = None
-    if hf.get("num_local_experts"):
-        raise NotImplementedError(MOE_NOT_PORTED)
-    return ModelConfig(
+    shape = dict(
         vocab_size=hf["vocab_size"],
         hidden_size=hf["hidden_size"],
         num_layers=hf["num_hidden_layers"],
@@ -617,14 +628,24 @@ def config_from_hf(hf: dict[str, Any]) -> ModelConfig:
         head_dim=hf.get("head_dim"),
         rope_theta=hf.get("rope_theta", 10000.0),
         rms_eps=hf.get("rms_norm_eps", 1e-5),
-        # gemma ties embeddings BY DEFAULT, so its config.json often omits
-        # the key entirely -- defaulting it False would reject the checkpoint
-        tie_embeddings=hf.get("tie_word_embeddings", gemma),
         sliding_window=sliding,
         # older qwen2 configs carry no attention_bias key; the architecture
         # implies it (HF modeling_qwen2 hardcodes bias=True on q/k/v).
         attention_bias=hf.get("attention_bias", "Qwen2" in arch),
         max_position=hf.get("max_position_embeddings", 8192),
+    )
+    if hf.get("num_local_experts"):
+        return MoEConfig(
+            **shape,
+            tie_embeddings=hf.get("tie_word_embeddings", False),
+            num_experts=hf["num_local_experts"],
+            num_experts_per_tok=hf.get("num_experts_per_tok", 2),
+        )
+    return ModelConfig(
+        **shape,
+        # gemma ties embeddings BY DEFAULT, so its config.json often omits
+        # the key entirely -- defaulting it False would reject the checkpoint
+        tie_embeddings=hf.get("tie_word_embeddings", gemma),
         # gemma: GeGLU + (1+w) norms + scaled embeddings; hidden_activation
         # ("gelu_pytorch_tanh") appears in newer configs, older ones imply it
         hidden_act="gelu_tanh" if gemma else "silu",

@@ -1,0 +1,173 @@
+"""Mixture-of-experts MLP, mixtral family (port of symmetry_tpu/models/moe.py).
+
+Two shapes of the same function, chosen by the call's token count as the
+JAX package chooses them:
+
+  - the DENSE mixture (`moe_mlp` at decode and for calls of fewer than
+    MIN_DISPATCH_TOKENS tokens): every expert runs every token, and the
+    top-k router gates (zero outside the selected experts) weight the
+    combine. A decode batch touches nearly every expert anyway, so all
+    expert weights stream regardless.
+  - capacity-factor DISPATCH (`moe_mlp_dispatch`, prefill, chunks and
+    verifies of 64 tokens or more): each (token, choice) pair is ranked
+    within its expert by a one-hot cumsum, pairs past the expert's
+    capacity C are dropped into a trash slot, each expert runs one batched
+    matmul over its [C, embed] rows, and `index_add_` scatters the gated
+    outputs back to token order. Capacity counts the call's padded tokens,
+    pad tokens included, as in the JAX package.
+
+Int8 expert stacks (QuantizedTensor [.., X, K, N] with [.., X, N] scales)
+follow the JAX package's mixed dot: the int8 payload is the operand,
+products and sums are float32, the per-column scale multiplies the float32
+accumulator, and the result is cast to the activation dtype. The float32
+copy of the payload is made one expert at a time, which bounds the
+transient to one [K, N] slab. The W8A16 kernel does not take expert stacks
+(`pack_tree` leaves them flat), as in the JAX package.
+
+Top-k selection is a stable descending sort: `jax.lax.top_k` keeps the
+lower index among tied values, and `torch.topk` does not.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from symmetry_tpu_torch.ops.quant import QuantizedTensor
+
+# Per-expert buffer = ceil(T * top_k / X * CAPACITY_FACTOR) tokens. Pairs
+# past an expert's capacity contribute nothing (switch semantics, no
+# renormalization); `moe_capacity_factor` = num_experts / top_k makes the
+# dispatch lossless.
+CAPACITY_FACTOR = 2.0
+# Below this many tokens the dense mixture is used even at S > 1.
+MIN_DISPATCH_TOKENS = 64
+
+
+def top_k(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values along the last axis and their indices, in
+    `jax.lax.top_k`'s order: descending, ties to the lower index."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis, op for op in x's dtype (a bf16
+    input rounds after the exp, the sum and the division, as there)."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def route_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Router logits [.., X] -> dense gates [.., X]: softmax over the top-k
+    logits (mixtral semantics: normalized AFTER selection), zero elsewhere."""
+    vals, idx = top_k(logits, k)
+    probs = _softmax(vals)
+    return torch.zeros_like(logits, dtype=probs.dtype).scatter_(-1, idx, probs)
+
+
+def _mixed(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """x [.., K] @ q [K, N] in float32 (the int8 payload as the operand)."""
+    return torch.matmul(x.to(torch.float32), q.to(torch.float32))
+
+
+def qmatmul_experts(x: torch.Tensor, w) -> torch.Tensor:
+    """[B, S, D] @ per-expert [X, D, F] -> [B, S, X, F]."""
+    if isinstance(w, QuantizedTensor):
+        y = torch.stack([_mixed(x, w.q[e]) for e in range(w.q.shape[0])],
+                        dim=-2)                            # [B, S, X, F]
+        return (y * w.scale).to(x.dtype)
+    B, S, D = x.shape
+    # One batched product with x broadcast over the experts: the weight is
+    # read in place, never permuted into a copy.
+    y = torch.matmul(x.reshape(1, B * S, D), w)            # [X, B*S, F]
+    return y.permute(1, 0, 2).reshape(B, S, w.shape[0], w.shape[-1])
+
+
+def _expert_matmul(xg: torch.Tensor, w) -> torch.Tensor:
+    """Per-expert batched matmul: [X, C, A] @ [X, A, F] -> [X, C, F]."""
+    if isinstance(w, QuantizedTensor):
+        y = torch.stack([_mixed(xg[e], w.q[e]) for e in range(w.q.shape[0])])
+        return (y * w.scale[:, None, :]).to(xg.dtype)
+    return torch.bmm(xg, w)
+
+
+def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """Router logits in float32: the product in the activation dtype, then
+    the cast, as the JAX package computes them (x is not upcast first)."""
+    return (x @ router).to(torch.float32)
+
+
+def moe_mlp(x: torch.Tensor, lp: dict, config) -> torch.Tensor:
+    """MoE FFN: [B, S, E] -> [B, S, E]. The dense mixture at decode and
+    for small calls, capacity-factor dispatch at prefill."""
+    B, S, _ = x.shape
+    if S > 1 and B * S >= MIN_DISPATCH_TOKENS:
+        return moe_mlp_dispatch(x, lp, config)
+    gates = route_top_k(router_logits(x, lp["router"]),
+                        config.num_experts_per_tok).to(x.dtype)  # [B, S, X]
+    h = F.silu(qmatmul_experts(x, lp["wg"])) * qmatmul_experts(
+        x, lp["wu"])                                            # [B, S, X, F]
+    X = h.shape[2]
+    y = _expert_matmul(h.reshape(B * S, X, -1).transpose(0, 1), lp["wd"])
+    y = y.transpose(0, 1).reshape(B, S, X, -1)                  # [B, S, X, E]
+    return torch.einsum("bsxe,bsx->bse", y, gates)
+
+
+def moe_mlp_dispatch(x: torch.Tensor, lp: dict, config) -> torch.Tensor:
+    """Capacity-factor token dispatch (GShard/Switch shape, static sizes).
+
+    Each (token, choice) pair is ranked within its expert by a one-hot
+    cumsum; pairs past the expert's capacity are dropped. Each expert runs
+    one batched matmul over its gathered tokens, and a scatter-add puts the
+    gated outputs back in token order."""
+    B, S, E = x.shape
+    X = config.num_experts
+    k = config.num_experts_per_tok
+    cf = getattr(config, "moe_capacity_factor", None) or CAPACITY_FACTOR
+    T = B * S
+    C = min(T, math.ceil(T * k / X * cf))
+    dev = x.device
+
+    xf = x.reshape(T, E)
+    vals, idx = top_k(router_logits(xf, lp["router"]), k)    # [T, k]
+    probs = _softmax(vals)                                    # mixtral renorm
+
+    flat_expert = idx.reshape(-1)                             # [T*k]
+    flat_token = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_gate = probs.reshape(-1).to(x.dtype)
+
+    # Rank of each pair within its expert = how many earlier pairs chose
+    # the same expert (one-hot cumsum: static shapes, no sort).
+    onehot = F.one_hot(flat_expert, X)                        # [T*k, X]
+    before = onehot.cumsum(0) - onehot
+    rank = before.gather(1, flat_expert[:, None])[:, 0]
+    keep = rank < C
+    # Slot in the [X * C] dispatch buffer; dropped pairs all target the
+    # trash slot X * C, which is sliced off. Every other slot is written by
+    # at most one pair, so the duplicate writes land only on the trash.
+    slot = torch.where(keep, flat_expert * C + rank,
+                       torch.full_like(rank, X * C))
+    token_for_slot = torch.zeros(X * C + 1, dtype=torch.long, device=dev)
+    token_for_slot[slot] = flat_token
+    gate_for_slot = torch.zeros(X * C + 1, dtype=x.dtype, device=dev)
+    gate_for_slot[slot] = torch.where(keep, flat_gate,
+                                      torch.zeros_like(flat_gate))
+    token_for_slot = token_for_slot[:X * C]
+
+    # An empty slot gathers token 0 with gate 0: it adds +-0 to token 0.
+    xg = xf[token_for_slot].reshape(X, C, E)
+    h = F.silu(_expert_matmul(xg, lp["wg"])) * _expert_matmul(
+        xg, lp["wu"])                                         # [X, C, F]
+    y = _expert_matmul(h, lp["wd"])                           # [X, C, E]
+
+    weighted = y.reshape(X * C, E) * gate_for_slot[:X * C, None]
+    # index_add_ runs on atomics on CUDA, in no fixed order. A token gets at
+    # most k = 2 nonzero terms besides the +-0 of empty slots, and 0 + a + b
+    # rounds the same in either order, so the sum is deterministic and
+    # equal to the JAX scatter-add's. (With k > 2 the order would matter.)
+    out = torch.zeros((T, E), dtype=x.dtype, device=dev)
+    out.index_add_(0, token_for_slot, weighted)
+    return out.reshape(B, S, E)

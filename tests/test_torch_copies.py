@@ -58,7 +58,7 @@ COPIES = [
 PORTED = {
     "__init__.py", "engine/__init__.py", "engine/engine.py",
     "engine/host.py", "engine/weights.py", "models/__init__.py",
-    "models/llama.py", "ops/__init__.py", "ops/attention.py",
+    "models/llama.py", "models/moe.py", "ops/__init__.py", "ops/attention.py",
     "ops/decode_attention.py", "ops/flash.py", "ops/kv_append.py",
     "ops/norm.py", "ops/qmm.py", "ops/quant.py", "ops/rope.py",
     "ops/sampling.py", "utils/__init__.py", "utils/compile_cache.py",

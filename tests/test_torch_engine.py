@@ -335,8 +335,8 @@ import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 76, names
-for new in ("ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
+assert len(names) >= 77, names
+for new in ("models.moe", "ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
             "protocol.keys", "engine.weights", "engine.safetensors_io",
             "engine.spec", "engine.spec.drafter", "engine.disagg",

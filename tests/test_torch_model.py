@@ -184,8 +184,20 @@ class TestModelSurface:
                                       tree["embed"].astype(np.float32))
 
     def test_moe_refused(self):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            init_params(preset("tiny-moe"), torch.Generator())
+        """Once a refusal (MoE was ROADMAP item 13); now `tiny-moe` draws
+        the JAX package's tree: the router and the [L, X, ...] expert
+        stacks, key for key and shape for shape."""
+        params = init_params(preset("tiny-moe"), torch.Generator(),
+                             torch.float32)
+        jtree = jax_init_params(jax_preset("tiny-moe"), jax.random.key(0),
+                                jnp.float32)
+        assert params.keys() == jtree.keys()
+        assert params["layers"].keys() == jtree["layers"].keys()
+        for k, v in params["layers"].items():
+            assert tuple(v.shape) == jtree["layers"][k].shape, k
+        assert params["layers"]["wg"].shape == (2, 4, 64, 128)
+        assert params["layers"]["wd"].shape == (2, 4, 128, 64)
+        assert params["layers"]["router"].shape == (2, 64, 4)
 
     def test_quantized_cache_refused(self):
         """An int8 cache comes in the JAX layout ([L, B, T, K, D] int8 with

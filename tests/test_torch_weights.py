@@ -7,8 +7,8 @@ safetensors_io.py) and loads HF checkpoints onto one device
 - the reader against `safetensors.safe_open` for each dtype, in single
   files and sharded directories; `safe_open` reads the port's writer
   bit-equal;
-- `config_from_hf` equals the JAX one on llama, qwen2, gemma and mistral
-  dicts; a mixtral dict raises item 13;
+- `config_from_hf` equals the JAX one on llama, qwen2, gemma, mistral and
+  mixtral dicts;
 - `convert_hf_state_dict` and `load_checkpoint` (float32 and bf16) give
   trees bit-equal to the JAX functions' on `transformers`-authored tiny
   llama, qwen2 and gemma checkpoints, and int8 quantize-on-load is
@@ -325,11 +325,18 @@ class TestConfigFromHF:
         assert llama.config_from_hf(HF_DICTS["mistral"]).sliding_window == 4096
 
     def test_mixtral_raises_item_13(self):
+        """Once a refusal (item 13, MoE); now a mixtral dict gives the JAX
+        package's MoEConfig, field by field. Gemma2 is still refused."""
         mixtral = dict(HF_DICTS["mistral"], architectures=[
             "MixtralForCausalLM"], num_local_experts=8,
             num_experts_per_tok=2)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            llama.config_from_hf(mixtral)
+        port = llama.config_from_hf(mixtral)
+        ref = jax_llama.config_from_hf(mixtral)
+        assert type(port).__name__ == type(ref).__name__ == "MoEConfig"
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert [f.name for f in dataclasses.fields(port)] == [
+            f.name for f in dataclasses.fields(ref)]
+        assert port.num_experts == 8 and port.num_experts_per_tok == 2
         with pytest.raises(ValueError, match="Gemma2"):
             llama.config_from_hf(dict(HF_DICTS["gemma"],
                                       architectures=["Gemma2ForCausalLM"]))
@@ -380,6 +387,23 @@ class TestLoad:
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
         assert_trees_equal(params, ref)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    @pytest.mark.parametrize("family", FAMILIES)
+    def test_load_checkpoint_quantized(self, checkpoints, family, dtype,
+                                       monkeypatch):
+        """quantize=True quantizes each tensor as it is read, in column
+        blocks (48 here, so that blocks split every leaf, a partial one
+        last): the tree equals the JAX package's quantize_params of its
+        dense load, bit for bit."""
+        monkeypatch.setattr(weights, "_QUANT_COLS", 48)
+        path, _ = checkpoints[family]
+        params, _ = weights.load_checkpoint(path, dtype=dtype, device="cpu",
+                                            quantize=True)
+        ref, _ = jax_weights.load_checkpoint(path, dtype=JAX_DTYPES[dtype])
+        assert_trees_equal(params, jax.tree.map(
+            np.asarray, jax_llama.quantize_params(ref)))
+
     def test_bf16_sharded_checkpoint(self, bf16_checkpoint):
         """A bf16 checkpoint read as uint16 and viewed as bf16 (no float32
         on the host), through the sharded index, into f32 and bf16."""
@@ -423,9 +447,12 @@ class TestLoad:
         with pytest.raises(CheckpointError, match="shape"):
             weights.load_checkpoint(path, dataclasses.replace(
                 cfg, intermediate_size=96), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            weights.load_checkpoint(path, llama.preset("tiny-moe"),
-                                    device="cpu")
+        # a dense checkpoint read under a mixtral config of its widths
+        # lacks the router
+        mixtral = llama.MoEConfig(**dataclasses.asdict(cfg), num_experts=4,
+                                  num_experts_per_tok=2)
+        with pytest.raises(CheckpointError, match="block_sparse_moe.gate"):
+            weights.load_checkpoint(path, mixtral, device="cpu")
         # a checkpoint without a head cannot serve an untied config
         gemma_path, _ = checkpoints["gemma"]
         gemma = weights.read_hf_config(gemma_path)
