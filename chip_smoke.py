@@ -5,6 +5,9 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(`python3 chip_smoke.py --tp` runs phase 14 alone, with its nccl pass where
+the machine has two cards.)
+
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
               limit (nvidia-smi);
@@ -27,7 +30,12 @@ Phases (any failure raises and exits non-zero):
               [4096, 32000] LM head at 1, 2, 8 and 16 bf16 rows, the swap-AB tensor-core GEMV, and at 128, 512 and
               2048 rows, the tensor-core kernel) and within 1e-5 of it in
               float32 (every leaf at 1, 8, 16, 32, 128 and 2048 rows, the
-              float32 GEMV); W8A8 bit for bit (wq, wg, wd, lm_head at 32,
+              float32 GEMV); one rank's blocks at TP=2 (phase 14): flash
+              and decode at 16 query heads over 4 KV heads, W8A16 on the
+              column-parallel N-slices of wq, wk, wg and lm_head and, in
+              the mesh's own mode (apply_scale off, float32 out, within
+              1e-5), the row-parallel K-slices of wo and wd, at GEMV and
+              tensor-core rows; W8A8 bit for bit (wq, wg, wd, lm_head at 32,
               128 and 2048 rows, K splits included; no serving path routes
               it); kernel, plain and library (a yardstick only) device
               times (kernel durations summed by torch.profiler, decode's
@@ -96,7 +104,7 @@ Phases (any failure raises and exits non-zero):
               sampled stream runs to its budget; the verify dispatch's
               wall, device busy and kernels, acceptance and tok/s on and
               off;
- 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 8 layers
+ 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 4 layers
               written by the port's writer (2 shards and an index json)
               into build/chip_smoke/ckpt; the leaves loaded on the card
               bit-equal to those written; the engine host started on it
@@ -106,9 +114,9 @@ Phases (any failure raises and exits non-zero):
               in-process engine built from the same tensors through
               params_from_numpy, the warm cache's leaves bit-equal to that
               engine's; load seconds and each host's peak RSS; the
-              directory, with its warm caches, kept for phases 11-12 and
+              directory, with its warm caches, kept for phases 11-14 and
               removed after them;
- 11. disagg   phase 10's checkpoint (llama3-8b width, 8 layers: a depth
+ 11. disagg   phase 10's checkpoint (llama3-8b width, 4 layers: a depth
               cut from 32 that keeps the script inside its time limit),
               bf16 and then int8, the
               provider's default `tpu:` section plus a 1024 MiB prefix
@@ -170,11 +178,32 @@ Phases (any failure raises and exits non-zero):
               as it is read (peak memory within the int8 engine's bytes
               plus 2 GiB, under the dense tree's), leaves bit-equal to
               quantize_params of the tensors written;
- 14. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 14. tp       tensor parallelism over the model axis (parallel/), two
+              ranks (processes) laid out on the one card over gloo, each
+              holding half of every sharded leaf: (a) `tiny` in float32,
+              dense then int8 weights + int8 KV, text equal to one CPU
+              rank's and first-step logits within 1e-4; (b) phase 10's
+              checkpoint loaded sharded from its warm caches, bf16 then
+              int8 + kv_quant + fused_dequant, phase 11's three distinct
+              chats one at a time (8 new tokens, decode block 8) through
+              rank 0's Scheduler and the command loop, twice:
+              tokens equal on every rank, the repeat equal, first-step
+              logits within LOGIT_TOL of one rank's on the same
+              checkpoint, each rank's weights and streamed bytes half the
+              model's, its peak memory under the whole model's weights,
+              every on-path kernel launched on every rank; (c) the
+              provider as rank 0 (`tpu.multihost`, its engine host joins
+              the job) and `python -m symmetry_tpu_torch.provider
+              --worker` as rank 1, the same chats over TCP, text equal
+              to (b)'s; an nccl pass of (b) where the machine has two
+              cards (logged when not run);
+ 15. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3; `launches_moe`: each
-              row's launches in phase 13), the nvidia-smi line, and last
-              the {"ok": true, ...} line. Each phase prints its seconds.
+              row's launches in phase 13; `launches_tp`: rank 0's in
+              phase 14, equal on both ranks), the nvidia-smi line, and
+              last the {"ok": true, ...} line. Each phase prints its
+              seconds.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -341,9 +370,9 @@ def bound(nbytes: float, flops: float,
 # Phase 3: kernels against their plain versions
 
 
-def flash_case(B, S, seq_lens, window, seed, D=128, dtype=torch.bfloat16):
+def flash_case(B, S, seq_lens, window, seed, D=128, dtype=torch.bfloat16,
+               H=32, K=8):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    H, K = 32, 8
 
     def rnd(*shape):
         return torch.randn(shape, generator=g, device="cuda", dtype=dtype)
@@ -415,6 +444,20 @@ def check_flash() -> dict:
                                      f"{err} > {tol}")
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
+    # One rank's heads of llama3-8b at tensor-parallel degree 2 (phase 14):
+    # 16 query heads over 4 KV heads.
+    lens = [2048, 1900, 700, 64]
+    q, k, v, seq_lens = flash_case(4, 2048, lens, None, seed=12, H=16, K=4)
+    got = flash_prefill(q, k, v, seq_lens)
+    torch.cuda.synchronize()
+    want = flash_prefill_reference(q, k, v, seq_lens)
+    err = max(float((got[b, :n].float() - want[b, :n].float()).abs().max())
+              for b, n in enumerate(lens))
+    log(f"  flash TP=2 shard H=16 K=4 B=4 S=2048 lens={lens}: "
+        f"max_abs_err={err:.3e}")
+    if not torch.isfinite(got).all() or err > TOL:
+        raise AssertionError(f"flash H=16 K=4: error {err} > {TOL}")
+    worst = max(worst, err)
 
     # Timing at the largest bucket's prefill shape (batch 1 at 2048 by the
     # engine's token budget), full length, so SDPA's causal mode computes
@@ -502,12 +545,17 @@ def check_decode(int8: bool) -> dict:
     q, k_cache, v_cache, ks, vs, lengths = decode_case(
         L, B, T, nq, K, D, [0, 1, T, 1024, 777, 3000, 2048, 64], 20, int8)
     worst = 0.0
-    # llama3-8b heads (32 over 8), then qwen2-7b's group of 7 (28 over 4)
-    for layer, window in ((1, None), (0, None), (1, 1000), (1, "qwen2")):
+    # llama3-8b heads (32 over 8), then qwen2-7b's group of 7 (28 over 4),
+    # then one rank's heads of llama3-8b at TP=2 (16 over 4, phase 14)
+    for layer, window in ((1, None), (0, None), (1, 1000), (1, "qwen2"),
+                          (1, "tp2")):
         args = (q, k_cache, v_cache, layer, lengths, ks, vs)
-        if window == "qwen2":
-            args = decode_case(2, 4, 512, 28, 4, 128, [512, 300, 1, 77], 21,
-                               int8)
+        if window in ("qwen2", "tp2"):
+            args = (decode_case(2, 4, 512, 28, 4, 128, [512, 300, 1, 77], 21,
+                                int8) if window == "qwen2" else
+                    decode_case(2, 8, 2048, 16, 4, 128,
+                                [0, 1, 2048, 1024, 777, 1500, 60, 64], 22,
+                                int8))
             args = args[:3] + (layer, args[5]) + args[3:5]
             window = None
         got = decode_attention(*args, window=window)
@@ -935,6 +983,46 @@ def check_w8a16() -> list[dict]:
                 f"{err:.3e} (tol {tol:.3e}); device ms (cold): kernel "
                 f"{ms:.4f}, bound {bound_ms:.4f}; {ms / bound_ms:.2f}x bound")
         del pt, x, got, want
+        torch.cuda.empty_cache()
+    # One rank's blocks of llama3-8b's leaves at TP=2 (phase 14): column-
+    # parallel N-slices, and the row-parallel K-slices of wo and wd in the
+    # mode only a mesh uses, apply_scale=False into float32 (the partials
+    # the all-reduce sums before the scale), at GEMV and tensor-core rows.
+    tp_shapes = {"wq": (4096, 2048, True), "wk": (4096, 512, True),
+                 "wg": (4096, 7168, True), "lm_head": (4096, 64128, True),
+                 "wo": (2048, 4096, False), "wd": (7168, 4096, False)}
+    for name, (K, N, scaled) in tp_shapes.items():
+        pt = pack_quantized(quantize(torch.randn(
+            (K, N), generator=g, device="cuda",
+            dtype=torch.bfloat16).mul_(K ** -0.5)))
+        out_dtype = None if scaled else torch.float32
+        for M, dtype in ((1, torch.bfloat16), (8, torch.bfloat16),
+                         (16, torch.bfloat16), (512, torch.bfloat16),
+                         (8, torch.float32)):
+            regime = w8a16_regime(M, dtype)
+            x = torch.randn((M, K), generator=g, device="cuda", dtype=dtype)
+            got = w8a16_matmul(x, pt.q, pt.scale, out_dtype=out_dtype,
+                               apply_scale=scaled)
+            torch.cuda.synchronize()
+            want = w8a16_reference(x, pt.q, pt.scale, out_dtype=out_dtype,
+                                   apply_scale=scaled)
+            err = float((got.float() - want.float()).abs().max())
+            # float32 output: the sums in another order (1e-5); bf16: one
+            # step at the largest output
+            tol = (2.0 ** -7 if scaled and dtype == torch.bfloat16
+                   else 1e-5) * float(want.float().abs().max())
+            if (got.dtype != (out_dtype or dtype)
+                    or not torch.isfinite(got).all() or err > tol):
+                raise AssertionError(
+                    f"w8a16 TP=2 {name} [{K}, {N}] M={M} {dtype} "
+                    f"apply_scale={scaled}: error {err} > {tol}")
+            if scaled:
+                worst[regime] = max(worst[regime], err)
+            log(f"  w8a16 TP=2 {name} [{K}, {N}] M={M} {str(dtype)[6:]} "
+                f"({regime}, {'scaled' if scaled else 'unscaled, float32 out'}"
+                f"): max_abs_err={err:.3e} (tol {tol:.3e})")
+            del x, got, want
+        del pt
         torch.cuda.empty_cache()
     log(f"  w8a16 worst error by regime: {worst}")
     return [dict(name=f"w8a16_matmul[{regime}]", route="cuda",
@@ -1972,7 +2060,10 @@ def check_speculative(smi: str, *, int8: bool) -> None:
 # ---------------------------------------------------------------------------
 # Phase 10: checkpoint loading
 
-CKPT_LAYERS = 8
+# 4 of llama3-8b's 32 layers: phases 10-12 and 14 serve this checkpoint,
+# and their seconds grow with its depth (at 8 a run with phase 14 read
+# 1,230.6 s of the script's 1,200).
+CKPT_LAYERS = 4
 CKPT_DIR = os.path.join(OUT_DIR, "ckpt")
 CKPT_CHATS = ["hello there, how are you today?",
               "please write one short sentence about a harbour at night",
@@ -2509,7 +2600,7 @@ class ProviderProc:
     engine hosts' stderr, in build/chip_smoke/provider_<label>.log."""
 
     def __init__(self, label: str, tpu: dict, server_address: str,
-                 server_key_hex: str):
+                 server_key_hex: str, device: str | None = None):
         import yaml
 
         os.makedirs(OUT_DIR, exist_ok=True)
@@ -2528,7 +2619,8 @@ class ProviderProc:
             [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "symmetry_tpu_torch.provider", "-c",
-             cfg_path], cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
+             cfg_path] + (["--device", device] if device else []),
+            cwd=ROOT, env=env, stdin=subprocess.DEVNULL,
             stdout=self._log, stderr=subprocess.STDOUT)
         self.hosts_seen: set[int] = set()
 
@@ -3292,6 +3384,532 @@ def check_moe_checkpoint(smi: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: tensor parallelism (parallel/), two ranks on the one card
+
+TP = 2
+# Both ranks on the one card, named exactly: init_distributed lays ranks
+# out on a shared card only when each names it, and then chooses gloo (NCCL
+# refuses two ranks on one device). Gloo's collectives on CUDA tensors go
+# through host memory, so phase 14's times are not times of TP on NVLink.
+TP_DEVICES = ["cuda:0", "cuda:0"]
+TP_TIMEOUT = 900.0
+TP_F32_TOL = 1e-4    # float32 logits, TP=2 on the card against one CPU rank
+# New tokens a chat in (b)-(c), one decode block of 8 steps, and the chats:
+# phase 11's three distinct ones. Two ranks time-slice one card and every
+# decode step pays its collectives through host memory (~175 ms a step at
+# 8 layers), so phase 11's 32 tokens over five chats would not fit the
+# phase's time budget.
+TP_NEW = 8
+TP_DECODE_BLOCK = 8
+# (a): tiny in float32, phase 4's geometry and prompts.
+TP_TINY = dict(max_slots=2, max_seq_len=64, prefill_buckets=(16, 32),
+               decode_block=4, cache_dtype=torch.float32)
+TP_TINY_LENS = [5, 14, 27]
+
+
+def tp_section(int8: bool) -> dict:
+    """Phase 14's `tpu:` section: the provider's defaults, phase 10's
+    checkpoint, the model axis at 2, and no prefix cache, so that a repeat
+    serve runs the same path as the first (a cached serve takes another
+    path, where bf16 logits tie differently: phase 11)."""
+    return {**TIERS_MODEL, "mesh": {"model": TP},
+            "decode_block": TP_DECODE_BLOCK,
+            **({"quantization": "int8", "kv_quantization": "int8",
+                "fused_dequant": True} if int8 else {})}
+
+
+def tp_contents() -> list[str]:
+    """Phase 11's three distinct chats (60, 700 and 1880 tokens), its seed
+    and lengths."""
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(None, vocab_size=128256)
+    head = len(tok.apply_chat_template([{"role": "user", "content": ""}]))
+    rng = np.random.default_rng(11)
+    return [chat_content(rng, n - head) for n in DISAGG_LENS]
+
+
+def tp_counts() -> dict[str, int]:
+    from symmetry_tpu_torch.ops.decode_attention import decode_attention
+    from symmetry_tpu_torch.ops.flash import flash_prefill
+    from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.qmm import w8a16_matmul
+
+    return {"flash_prefill": flash_prefill.launches,
+            "decode_attention": decode_attention.launches,
+            "decode_attention_append": decode_attention.launches_append,
+            "kv_append": kv_append.launches,
+            "w8a16_gemv": w8a16_matmul.launches_gemv,
+            "w8a16_gemv_f32": w8a16_matmul.launches_gemv_f32,
+            "w8a16_tc": w8a16_matmul.launches_tc}
+
+
+def tp_job(mesh, rank: int, job: dict) -> dict:
+    """One engine on this rank: the first step's logits (a prefill of the
+    first prompt, run directly by every rank), then warmup and two serves
+    of the prompts one at a time, led by rank 0's Scheduler through the
+    command loop. Every rank records what its own engine produced at each
+    command; the launch counts are set to 0 after warmup and read after
+    the serves, on every rank."""
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
+                                                 init_params,
+                                                 logits_from_hidden, preset)
+    from symmetry_tpu_torch.parallel.multihost import (
+        CMD_CHUNK_ADVANCE, CMD_DECODE, CMD_PREFILL, CMD_PREFILL_MANY,
+        CMD_WARMUP, CommandLoop, MultihostEngine)
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    t0 = time.monotonic()
+    if job["model"] == "tiny":
+        cfg = preset("tiny")
+        params = init_params(cfg, torch.Generator(
+            device=mesh.device).manual_seed(0), torch.float32,
+            quantize=job["int8"], mesh=mesh)
+        engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
+                                 mesh=mesh, device=mesh.device,
+                                 kv_quant=job["int8"],
+                                 fused_dequant=job["int8"], **TP_TINY)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in TP_TINY_LENS]
+        depth = 2
+    else:
+        tpu = TpuConfig.from_dict(job["tpu"])
+        engine = InferenceEngine.from_tpu_config(tpu, device=mesh.device)
+        cfg = engine.config
+        prompts = [engine.tokenizer.apply_chat_template(
+            [{"role": "user", "content": c}]) for c in job["contents"]]
+        depth = tpu.pipeline_depth
+    t_build = time.monotonic() - t0
+    ids = torch.tensor([prompts[0]], device=mesh.device)
+    cache = init_cache(cfg, 1, ids.shape[1], engine.cache_dtype,
+                       quantized=engine.kv_quant, device=mesh.device,
+                       mesh=mesh)
+    h, _ = forward_hidden(engine.params, cfg, ids, cache, prefill_flash=True,
+                          mesh=mesh)
+    logits = logits_from_hidden(engine.params, cfg, h[:, -1:], mesh)[0, 0]
+    del h, cache
+    if rank == 0:
+        np.save(os.path.join(OUT_DIR, f"tp_{job['name']}_logits.npy"),
+                logits.float().cpu().numpy())
+
+    loop = CommandLoop(engine, is_coordinator=rank == 0)
+    recorded: list = []
+    run = loop._execute
+
+    def execute(cmd):
+        out = run(cmd)
+        if cmd.kind == CMD_WARMUP:
+            torch.cuda.synchronize()
+            reset_launches()
+        elif cmd.kind in (CMD_PREFILL, CMD_PREFILL_MANY) or (
+                cmd.kind == CMD_CHUNK_ADVANCE and out is not None):
+            recorded.append(np.atleast_1d(out).tolist())
+        elif cmd.kind == CMD_DECODE:
+            recorded.append(np.asarray(out).ravel().tolist())
+        return out
+
+    loop._execute = execute
+    out = {"build_s": t_build, "backend": mesh.backend,
+           "device": str(mesh.device)}
+    if rank == 0:
+        facade = MultihostEngine(loop)
+        t1 = time.monotonic()
+        facade.warmup()
+        out["warmup_s"] = time.monotonic() - t1
+        out["texts"], out["serve_s"] = [], []
+        for _ in range(2):
+            t1 = time.monotonic()
+            out["texts"].append(serve_in_turn(facade, prompts, job["new"],
+                                              depth))
+            out["serve_s"].append(time.monotonic() - t1)
+        torch.cuda.synchronize()
+        out["counts"] = tp_counts()
+        loop.stop()
+    else:
+        loop.follow_forever()
+        torch.cuda.synchronize()
+        out["counts"] = tp_counts()
+    out["recorded"] = recorded
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(engine.params))
+    out["stream_bytes"] = engine.weight_stream_bytes()
+    out["stream_bytes_per_device"] = engine.weight_stream_bytes_per_device()
+    out["prompt_lens"] = [len(p) for p in prompts]
+    return out
+
+
+def tp_rank_main(spec_path: str, rank: int) -> int:
+    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14."""
+    from symmetry_tpu_torch.parallel.mesh import MeshSpec
+    from symmetry_tpu_torch.parallel.multihost import (build_multihost_mesh,
+                                                       init_distributed)
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = len(spec["devices"])
+    init_distributed(f"127.0.0.1:{spec['port']}", world, rank,
+                     device=spec["devices"][rank])
+    mesh = build_multihost_mesh(MeshSpec(model=world))
+    log(f"rank {rank}: mesh {mesh.describe()}")
+    results = {}
+    for job in spec["jobs"]:
+        results[job["name"]] = tp_job(mesh, rank, job)
+        # the job's engine (the loop and its recorder hold a cycle) goes
+        # before the next one is built
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(OUT_DIR, f"{spec['tag']}.{rank}.json"),
+              "w") as fh:
+        json.dump(results, fh)
+    return 0
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free a moment ago."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def tp_spawn(tag: str, devices: list[str], jobs: list[dict]) -> list[dict]:
+    """Run `jobs` on len(devices) rank processes; every rank's results.
+    A rank that fails fails the phase, its log named."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    port = free_port()
+    spec_path = os.path.join(OUT_DIR, f"{tag}.json")
+    with open(spec_path, "w") as fh:
+        json.dump({"tag": tag, "port": port, "devices": devices,
+                   "jobs": jobs}, fh)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    procs, logs = [], []
+    for rank in range(len(devices)):
+        logs.append(open(os.path.join(OUT_DIR, f"{tag}.{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-rank",
+             str(rank), spec_path], cwd=ROOT, env=env,
+            stdin=subprocess.DEVNULL, stdout=logs[-1],
+            stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        for rank, proc in enumerate(procs):
+            rc = proc.wait(max(1.0, deadline - time.monotonic()))
+            if rc != 0:
+                raise AssertionError(f"{tag} rank {rank} exited rc={rc} "
+                                     f"(log {logs[rank].name})")
+    finally:
+        for proc, fh in zip(procs, logs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+    out = []
+    for rank in range(len(devices)):
+        with open(os.path.join(OUT_DIR, f"{tag}.{rank}.json")) as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def tp_check_ranks(tag: str, name: str, ranks: list[dict]) -> None:
+    """Every rank produced the same tokens at every command, the repeat
+    serve streamed the first's text, and each rank launched every kernel
+    the same number of times."""
+    rec = [r[name]["recorded"] for r in ranks]
+    if not rec[0] or any(r != rec[0] for r in rec):
+        raise AssertionError(f"{tag} {name}: ranks recorded different "
+                             f"tokens")
+    texts = ranks[0][name]["texts"]
+    if texts[0] != texts[1]:
+        raise AssertionError(f"{tag} {name}: the repeat serve's text "
+                             f"differs from the first's")
+    counts = [r[name]["counts"] for r in ranks]
+    if any(c != counts[0] for c in counts):
+        raise AssertionError(f"{tag} {name}: launch counts differ by rank "
+                             f"{counts}")
+    log(f"  {tag} {name}: {len(rec[0])} commands, tokens equal on "
+        f"{len(ranks)} ranks; repeat serve equal; launches per rank "
+        f"{counts[0]}")
+
+
+def tp_reference_logits(int8: bool, prompt: list[int]) -> torch.Tensor:
+    """One rank's (the whole model's) first-step logits on phase 10's
+    checkpoint, as the serving engine holds it: the warm cache, int8
+    leaves packed for fused_dequant."""
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
+                                                 logits_from_hidden,
+                                                 pack_params)
+
+    params, cfg = weights.load_warm_cache(CKPT_DIR, dtype=torch.bfloat16,
+                                          quantize=int8, device="cuda")
+    if int8:
+        pack_params(params)
+    ids = torch.tensor([prompt], device="cuda")
+    cache = init_cache(cfg, 1, ids.shape[1], torch.bfloat16, quantized=int8,
+                       device="cuda")
+    h, _ = forward_hidden(params, cfg, ids, cache, prefill_flash=True)
+    out = logits_from_hidden(params, cfg, h[:, -1:])[0, 0].float().cpu()
+    ref_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    del params, h, cache
+    torch.cuda.empty_cache()
+    return out, ref_bytes
+
+
+def tp_tiny_reference(int8: bool) -> tuple[list[str], torch.Tensor]:
+    """`tiny` on one CPU rank from the same draws: the texts of a serve of
+    the TP prompts one at a time, and the first step's logits."""
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
+                                                 init_params,
+                                                 logits_from_hidden, preset)
+
+    cfg = preset("tiny")
+    # drawn on the card, as the ranks draw them; the engine moves them
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.float32, quantize=int8)
+    engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
+                             device="cpu", kv_quant=int8, fused_dequant=int8,
+                             **TP_TINY)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in TP_TINY_LENS]
+    ids = torch.tensor([prompts[0]])
+    cache = init_cache(cfg, 1, ids.shape[1], torch.float32, quantized=int8,
+                       device="cpu")
+    h, _ = forward_hidden(engine.params, cfg, ids, cache, prefill_flash=True)
+    logits = logits_from_hidden(engine.params, cfg, h[:, -1:])[0, 0]
+    engine.warmup()
+    return serve_in_turn(engine, prompts, 12, 2), logits
+
+
+async def tp_provider(contents: list[str], want: list[str]) -> dict:
+    """(c): the port's provider as rank 0 (its engine host joins a
+    `tpu.multihost` job of 2 processes) and `python -m
+    symmetry_tpu_torch.provider --worker` as rank 1, both on the one card,
+    serving (b)'s chats one at a time over TCP to the port's client;
+    text equal to (b)'s bf16 serve."""
+    import yaml
+
+    from symmetry_tpu_torch.client.client import SymmetryClient
+    from symmetry_tpu_torch.identity import Identity
+    from symmetry_tpu_torch.server.broker import SymmetryServer
+    from symmetry_tpu_torch.transport.tcp import TcpTransport
+
+    mh = {"coordinator": f"127.0.0.1:{free_port()}", "num_processes": TP}
+    section = tp_section(int8=False)
+    label = "llama3-8b-tp2"
+    wpath = os.path.join(OUT_DIR, "tp_worker.yaml")
+    with open(wpath, "w") as fh:
+        yaml.safe_dump({**PROVIDER, "modelName": label, "tpu": {
+            **section, "multihost": {**mh, "process_id": 1}}}, fh)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    wlog = open(os.path.join(OUT_DIR, "tp_worker.log"), "w")
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "symmetry_tpu_torch.provider", "-c", wpath,
+         "--worker", "--device", TP_DEVICES[1]], cwd=ROOT, env=env,
+        stdin=subprocess.DEVNULL, stdout=wlog, stderr=subprocess.STDOUT)
+    server = SymmetryServer(Identity.from_name("chip-smoke-tp-server"),
+                            TcpTransport())
+    await server.start("tcp://127.0.0.1:0")
+    client = SymmetryClient(Identity.from_name("chip-smoke-tp-client"),
+                            TcpTransport())
+    prov = ProviderProc(label, {**section, "multihost": {
+        **mh, "process_id": 0}}, server.address,
+        server.identity.public_hex, device=TP_DEVICES[0])
+    try:
+        t_reg = await wait_registered(server, prov)
+        details = await client.request_provider(
+            server.address, server.identity.public_key, label)
+        session = await client.connect(details)
+        got = [await wire_chat(session, c, TP_NEW) for c in contents]
+        stats = await session.stats()
+        await session.close()
+    finally:
+        rc = prov.stop()
+        await server.stop()
+        try:
+            wrc = worker.wait(120)
+        finally:
+            if worker.poll() is None:
+                worker.kill()
+                worker.wait()
+            wlog.close()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g["text"] != w:
+            raise AssertionError(f"(c) chat {i}: over the wire "
+                                 f"{g['text']!r} != (b) {w!r}")
+    if rc != 0 or wrc != 0:
+        raise AssertionError(f"(c) provider rc={rc}, worker rc={wrc} (logs "
+                             f"{prov.log_path}, {wlog.name})")
+    mesh = (stats.get("engine") or {}).get("mesh")
+    if not mesh or mesh.get("shape") != {"model": TP}:
+        raise AssertionError(f"(c) the engine's stats show no mesh: {mesh}")
+    return {"registered_s": t_reg, "mesh": mesh,
+            "first_text_s": [round(g["first"] - g["sent"], 4) for g in got]}
+
+
+def check_tp(smi: str) -> dict[str, int]:
+    """Phase 14. (a) `tiny` in float32 at TP=2, two ranks on the card,
+    dense then int8 weights + int8 KV (the float32 GEMV row- and column-
+    parallel): text equal to one CPU rank's, first-step logits within
+    TP_F32_TOL. (b) llama3-8b's widths at CKPT_LAYERS layers from phase
+    10's checkpoint, loaded sharded (warm caches), bf16 then int8 +
+    kv_quant + fused_dequant, phase 11's three distinct chats one at a
+    time through rank 0's Scheduler, twice: every rank's tokens equal, the
+    repeat's text equal, the first step's logits within LOGIT_TOL of one
+    rank's, each rank holding about half the weights, its peak memory
+    under the whole model's weights. (c) the provider as rank 0 and `--worker` as rank 1,
+    text equal to (b). Returns each kernel row's launches on rank 0 in
+    (a)-(b), equal on every rank."""
+    contents = tp_contents()
+    jobs = [dict(name=f"tiny_{'int8' if i8 else 'f32'}", model="tiny",
+                 int8=i8, new=12) for i8 in (False, True)]
+    jobs += [dict(name=f"ckpt_{'int8' if i8 else 'bf16'}", model="ckpt",
+                  tpu=tp_section(i8), contents=contents, new=TP_NEW)
+             for i8 in (False, True)]
+    t0 = time.monotonic()
+    ranks = tp_spawn("tp_gloo", TP_DEVICES, jobs)
+    log(f"  two ranks on {TP_DEVICES} ran (a)-(b) in "
+        f"{time.monotonic() - t0:.1f} s (backend "
+        f"{ranks[0]['ckpt_bf16']['backend']})")
+    if any(r[j["name"]]["backend"] != "gloo" for r in ranks for j in jobs):
+        raise AssertionError("two ranks on one card must run over gloo")
+    for job in jobs:
+        tp_check_ranks("gloo", job["name"], ranks)
+    # (a) against one CPU rank
+    for i8 in (False, True):
+        name = f"tiny_{'int8' if i8 else 'f32'}"
+        texts, logits = tp_tiny_reference(i8)
+        got = ranks[0][name]
+        if got["texts"][0] != texts:
+            raise AssertionError(f"(a) {name}: TP=2 on the card "
+                                 f"{got['texts'][0]} != one CPU rank "
+                                 f"{texts}")
+        tp_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((tp_logits - logits).abs().max())
+        log(f"  (a) {name}: text equal to one CPU rank's; first-step "
+            f"logits max_abs_err {err:.3e} (tol {TP_F32_TOL:.0e})")
+        if err > TP_F32_TOL:
+            raise AssertionError(f"(a) {name}: logits error {err}")
+    if ranks[0]["tiny_int8"]["counts"]["w8a16_gemv_f32"] <= 0:
+        raise AssertionError("(a) the float32 GEMV never launched at TP=2")
+    # (b) against one rank on the same checkpoint
+    from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
+
+    prompt = get_tokenizer(None, vocab_size=128256).apply_chat_template(
+        [{"role": "user", "content": contents[0]}])
+    for i8 in (False, True):
+        name = f"ckpt_{'int8' if i8 else 'bf16'}"
+        got = [r[name] for r in ranks]
+        ref, ref_bytes = tp_reference_logits(i8, prompt)
+        tp_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((tp_logits - ref).abs().max())
+        half = [g["param_bytes"] / ref_bytes for g in got]
+        stream = [g["stream_bytes_per_device"] / g["stream_bytes"]
+                  for g in got]
+        mem = [g["max_memory_allocated"] for g in got]
+        g0 = got[0]
+        log(f"  (b) {name}: prompt tokens {g0['prompt_lens']}; first-step "
+            f"logits max_abs_err {err:.4f} (tol {LOGIT_TOL}); weights per "
+            f"rank {[g['param_bytes'] / 1e9 for g in got]} GB of "
+            f"{ref_bytes / 1e9:.3f} (shares {[round(h, 4) for h in half]}); "
+            f"streamed per step per rank {g0['stream_bytes_per_device'] / 1e9:.3f} "
+            f"GB of {g0['stream_bytes'] / 1e9:.3f}; max_memory_allocated per "
+            f"rank {[round(m / 2**30, 3) for m in mem]} GiB; build "
+            f"{g0['build_s']:.1f} s, warmup {g0['warmup_s']:.1f} s, serves "
+            f"{[round(t, 1) for t in g0['serve_s']]} s (gloo through host "
+            f"memory: not a speed of TP)")
+        if err > LOGIT_TOL:
+            raise AssertionError(f"(b) {name}: logits error {err}")
+        if not all(0.49 < h < 0.51 for h in half + stream):
+            raise AssertionError(f"(b) {name}: a rank holds {half} / "
+                                 f"streams {stream} of the weights")
+        if max(mem) >= ref_bytes:
+            raise AssertionError(f"(b) {name}: a rank's peak {mem} is not "
+                                 f"under the whole model's weights "
+                                 f"{ref_bytes}")
+    if torch.cuda.device_count() >= 2:
+        nccl = tp_spawn("tp_nccl", ["cuda:0", "cuda:1"], [jobs[2]])
+        if nccl[0]["ckpt_bf16"]["backend"] != "nccl":
+            raise AssertionError("two cards must run over nccl")
+        tp_check_ranks("nccl", "ckpt_bf16", nccl)
+        log(f"  nccl pass on cuda:0, cuda:1: tokens equal on both ranks; "
+            f"serves {[round(t, 1) for t in nccl[0]['ckpt_bf16']['serve_s']]}"
+            f" s (gloo on one card: "
+            f"{[round(t, 1) for t in ranks[0]['ckpt_bf16']['serve_s']]} s); "
+            f"text equal to gloo's: "
+            f"{nccl[0]['ckpt_bf16']['texts'] == ranks[0]['ckpt_bf16']['texts']}")
+    else:
+        log(f"  nccl pass not run: {torch.cuda.device_count()} card(s) on "
+            f"this machine")
+    # (c)
+    t0 = time.monotonic()
+    prov = asyncio.run(tp_provider(contents, ranks[0]["ckpt_bf16"]["texts"][0]))
+    log(f"  (c) provider (rank 0) + --worker (rank 1): {len(contents)} chats "
+        f"over TCP, text equal to (b); registered in "
+        f"{prov['registered_s']:.1f} s; seconds to first text "
+        f"{prov['first_text_s']}; engine stats mesh {prov['mesh']}; "
+        f"{time.monotonic() - t0:.1f} s")
+    c = {name: ranks[0][name]["counts"] for name in
+         ("tiny_int8", "ckpt_bf16", "ckpt_int8")}
+    return {"flash_prefill": c["ckpt_bf16"]["flash_prefill"]
+            + c["ckpt_int8"]["flash_prefill"],
+            "decode_attention": c["ckpt_bf16"]["decode_attention"],
+            "decode_attention_int8": c["ckpt_int8"]["decode_attention"],
+            "kv_append_fused": c["ckpt_int8"]["decode_attention_append"],
+            "w8a16_matmul[gemv]": c["ckpt_int8"]["w8a16_gemv"],
+            "w8a16_matmul[gemv_f32]": c["tiny_int8"]["w8a16_gemv_f32"],
+            "w8a16_matmul[tc]": c["ckpt_int8"]["w8a16_tc"],
+            "kv_append": sum(r["kv_append"] for r in c.values()),
+            "w8a8_matmul": 0}
+
+
+def tp_main() -> int:
+    """`python3 chip_smoke.py --tp`: phase 14 alone, where the machine has
+    the cards for its nccl pass too: the device, the build, phase 10's
+    checkpoint and warm caches written in process (without its hosts),
+    then phase 14."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to check",
+              file=sys.stderr)
+        return 2
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    log(f"{torch.cuda.device_count()} x {smi}; kernels built in "
+        f"{kernels.build_all():.3f} s")
+    cfg, params = checkpoint_params()
+    weights.save_checkpoint(CKPT_DIR, params, cfg, dtype=torch.bfloat16,
+                            shards=2)
+    del params
+    for quantize in (False, True):
+        tree, got = weights.load_checkpoint(CKPT_DIR, dtype=torch.bfloat16,
+                                            quantize=quantize, device="cuda")
+        weights.save_warm_cache(CKPT_DIR, tree, got, dtype=torch.bfloat16,
+                                quantize=quantize)
+        del tree
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    log(f"checkpoint and warm caches written in {t1 - t0:.1f} s")
+    launches = check_tp(smi)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log(f"phase 14 took {time.perf_counter() - t1:.1f} s; launches_tp "
+        f"{launches}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
@@ -3404,7 +4022,6 @@ def main() -> int:
         f"llama3-8b width at {CKPT_LAYERS} layers (bf16 unified, int8 disagg "
         f"pair)")
     check_provider(smi, refs[False], refs[True])
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     phase_done(12)
 
     log("phase 13: the mixtral family: tiny-moe card against CPU, "
@@ -3443,12 +4060,28 @@ def main() -> int:
                                  f"path")
         if not on_path and row["launches_moe"]:
             raise AssertionError(f"{row['name']} launched on the MoE path")
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_done(13)
+
+    log(f"phase 14: tensor parallelism, two ranks on one card: tiny "
+        f"float32, llama3-8b width at {CKPT_LAYERS} layers (phase 10's "
+        f"checkpoint) bf16 and int8, the provider with a --worker rank")
+    tp_launches = check_tp(smi)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for row in rows:
+        row["launches_tp"] = tp_launches[row["name"]]
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        if on_path and row["launches_tp"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at TP=2")
+        if not on_path and row["launches_tp"]:
+            raise AssertionError(f"{row['name']} launched at TP=2")
+    phase_done(14)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_moe")
+            "launches_moe", "launches_tp")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          **({"path": row["path"]} if "path" in row else {})}
@@ -3461,4 +4094,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":
+        sys.exit(tp_rank_main(sys.argv[3], int(sys.argv[2])))
+    if sys.argv[1:] == ["--tp"]:
+        sys.exit(tp_main())
     sys.exit(main())

@@ -47,8 +47,15 @@ frames into its block pool (`adopt_prefix`), so the request admits through
 the ordinary prefix-hit path. Device-time probes (`profile_sample`,
 utils/devprof.py) time 1 in N dispatches of each kind on the card.
 
-Knobs outside this slice (mesh, multihost, pipeline microbatches) raise
-EngineError naming their ROADMAP item.
+Tensor parallelism (`mesh`, parallel/): a mesh whose `model` axis is N
+runs N engines, one per rank (process), each holding its block of the
+params (models/llama.py shard_params: `params` passed with a mesh are
+this rank's blocks) and of the KV cache and prefix pool (its kv heads,
+cache_logical_axes). Every rank's host state -- slot lengths, keys, the
+radix tree -- is the same: rank 0's scheduler drives all of them through
+parallel/multihost.py's command loop. Knobs outside this slice (any other
+mesh axis, dcn_data, MoE on a mesh, pipeline microbatches, ring_mesh)
+raise EngineError naming their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -63,6 +70,7 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from symmetry_tpu_torch.engine.disagg.frames import BFloat16Array, wire_dtype
 from symmetry_tpu_torch.engine.prefix_cache import (
@@ -73,9 +81,12 @@ from symmetry_tpu_torch.engine.prefix_cache import (
 from symmetry_tpu_torch.engine.spec import SpecConfig
 from symmetry_tpu_torch.engine.tokenizer import Tokenizer, get_tokenizer
 from symmetry_tpu_torch.engine.weights import (
+    CheckpointError,
     load_checkpoint,
     load_warm_cache,
+    read_hf_config,
     save_warm_cache,
+    warm_cache_current,
 )
 from symmetry_tpu_torch.models.llama import (
     KVCache,
@@ -85,11 +96,19 @@ from symmetry_tpu_torch.models.llama import (
     init_params,
     logits_from_hidden,
     pack_params,
+    param_logical_axes,
     preset,
+    scale_axes,
 )
 from symmetry_tpu_torch.ops import kernels, prng
 from symmetry_tpu_torch.ops.quant import PackedQuantizedTensor, QuantizedTensor
 from symmetry_tpu_torch.ops.sampling import sample_tokens, verify_tokens
+from symmetry_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+from symmetry_tpu_torch.parallel.multihost import (
+    build_multihost_mesh,
+    init_distributed,
+)
+from symmetry_tpu_torch.parallel.sharding import Sharding, logical_to_spec
 from symmetry_tpu_torch.utils.devprof import DeviceProfiler
 from symmetry_tpu_torch.utils.logging import logger
 from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
@@ -187,8 +206,11 @@ class HostFuture:
 
 # Knobs outside this slice -> the ROADMAP item that brings them.
 _NOT_PORTED = {
-    "mesh": "tensor / pipeline parallel meshes (ROADMAP Queue 1 item 14)",
-    "multihost": "multi-host meshes (ROADMAP Queue 1 item 14)",
+    "mesh": "a mesh axis other than `model` (data, context, stage, "
+            "expert: ROADMAP Queue 1 item 14)",
+    "dcn_data": "a data axis across hosts (dcn_data > 1: ROADMAP Queue 1 "
+                "item 14)",
+    "moe_mesh": "MoE on a mesh (ROADMAP Queue 1 item 14)",
     "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
 }
 
@@ -217,6 +239,27 @@ def from_numpy_plane(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _refuse(knob: str) -> EngineError:
     return EngineError(f"{knob}: {_NOT_PORTED[knob]} is not ported to the "
                        f"PyTorch engine yet")
+
+
+def check_mesh(shape: dict[str, int], config: ModelConfig | None = None
+               ) -> None:
+    """Refuse a mesh this slice does not serve: any axis but `model` above
+    1, MoE on a mesh, or a model axis that does not divide the heads, kv
+    heads, MLP width and vocabulary (each rank holds an equal block)."""
+    if any(n > 1 for axis, n in shape.items() if axis != "model"):
+        raise _refuse("mesh")
+    tp = int(shape.get("model", 1))
+    if tp == 1 or config is None:
+        return
+    if getattr(config, "num_experts", 0):
+        raise _refuse("moe_mesh")
+    for what, n in (("num_heads", config.num_heads),
+                    ("num_kv_heads", config.num_kv_heads),
+                    ("intermediate_size", config.intermediate_size),
+                    ("vocab_size", config.vocab_size)):
+        if n % tp:
+            raise EngineError(f"mesh model={tp} does not divide {what} "
+                              f"{n}: every rank holds an equal block")
 
 
 class InferenceEngine:
@@ -257,13 +300,24 @@ class InferenceEngine:
         profile_sample: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
-        refused = {
-            "mesh": mesh is not None,
-            "pipeline_microbatches": pipeline_microbatches > 1,
-        }
-        for knob, on in refused.items():
-            if on:
-                raise _refuse(knob)
+        if pipeline_microbatches > 1:
+            raise _refuse("pipeline_microbatches")
+        if mesh is not None:
+            check_mesh(mesh.shape, config)
+            if role != "unified":
+                # Handoff frames are host-side snapshots of the whole
+                # cache; a rank holds only its kv heads (the JAX engine's
+                # refusal, for its own reason).
+                raise EngineError(
+                    f"tpu.role {role!r} supports single-device engines "
+                    f"only (KV handoff snapshots the cache host-side); "
+                    f"drop the role or the mesh")
+            if mesh.size == 1:
+                mesh = None
+            elif torch.device(device) != mesh.device:
+                raise EngineError(f"engine device {device} is not this "
+                                  f"rank's mesh device {mesh.device}")
+        self.mesh = mesh
         # Disaggregated prefill/decode (engine/disagg/): "unified" prefills
         # AND decodes; "prefill" builds prompt KV and hands it off (never
         # decodes; warmup skips the decode side); "decode" adopts handed-off
@@ -321,7 +375,8 @@ class InferenceEngine:
         dev = self.device
         self.state = DecodeState(
             cache=init_cache(config, max_slots, max_seq_len, cache_dtype,
-                             quantized=self.kv_quant, device=dev),
+                             quantized=self.kv_quant, device=dev,
+                             mesh=self.mesh),
             last_token=torch.zeros(max_slots, dtype=torch.int64, device=dev),
             temperature=torch.zeros(max_slots, dtype=torch.float32,
                                     device=dev),
@@ -382,7 +437,8 @@ class InferenceEngine:
             # D] (+1: id 0 is the trash block that pad lanes write to).
             self._pool_kv = init_cache(config, n_blocks + 1,
                                        self.prefix_block, cache_dtype,
-                                       quantized=self.kv_quant, device=dev)
+                                       quantized=self.kv_quant, device=dev,
+                                       mesh=self.mesh)
         if self.role == "decode" and self.prefix_index is None:
             # Adoption lands handed-off KV through the radix index; without
             # it every migrated request would re-prefill from scratch.
@@ -409,7 +465,8 @@ class InferenceEngine:
             MetricName.QMM_FALLBACK,
             "int8 leaves kept on the mixed dot at load", labels=("reason",))
         degrades: list[tuple[str, str]] = []
-        self.params = pack_params(self.params, report=degrades)
+        self.params = pack_params(self.params, config=self.config,
+                                  mesh=self.mesh, report=degrades)
         for path, reason in degrades:
             logger.warning(f"fused_dequant: {path} stays on the mixed dot "
                            f"(reason: {reason})")
@@ -431,7 +488,8 @@ class InferenceEngine:
         lengths are reset to the empty-cache contract."""
         cache = scratch._replace(lengths=torch.zeros_like(scratch.lengths))
         h, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=true_len, prefill_flash=True)
+                                  seq_lens=true_len, prefill_flash=True,
+                                  mesh=self.mesh)
         return self._sample_at(h, true_len - 1, temp, top_p, top_k,
                                keys), cache
 
@@ -440,7 +498,8 @@ class InferenceEngine:
         and sample the first tokens [N]."""
         rows = torch.arange(h.shape[0], device=self.device)
         h_last = h[rows, last_idx.long()][:, None]               # [N, 1, E]
-        last = logits_from_hidden(self.params, self.config, h_last)[:, 0]
+        last = logits_from_hidden(self.params, self.config, h_last,
+                                  self.mesh)[:, 0]
         return sample_tokens(last, keys, temp, top_p, top_k)
 
     def _chunk_step(self, tokens, cache: KVCache, seq_len) -> KVCache:
@@ -449,7 +508,7 @@ class InferenceEngine:
         earlier chunks wrote; the flash path's empty-cache contract does
         not hold past chunk 0)."""
         _, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=seq_len)
+                                  seq_lens=seq_len, mesh=self.mesh)
         return cache
 
     def _chunk_final(self, tokens, cache: KVCache, seq_len, last_idx, temp,
@@ -457,7 +516,7 @@ class InferenceEngine:
         """Last chunk (or a cached hit's suffix): also sample the first
         token at last_idx, as `_prefill` does."""
         h, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=seq_len)
+                                  seq_lens=seq_len, mesh=self.mesh)
         return self._sample_at(h, last_idx, temp, top_p, top_k,
                                keys), cache
 
@@ -564,8 +623,10 @@ class InferenceEngine:
         """Advance every slot one token."""
         st = self.state
         h, cache = forward_hidden(self.params, self.config,
-                                  st.last_token[:, None], st.cache)
-        logits = logits_from_hidden(self.params, self.config, h)[:, 0]
+                                  st.last_token[:, None], st.cache,
+                                  mesh=self.mesh)
+        logits = logits_from_hidden(self.params, self.config, h,
+                                    self.mesh)[:, 0]
         # Each slot's key splits into its next key and this step's draw.
         keys = prng.split(st.rng)
         toks = sample_tokens(logits, keys[:, 1], st.temperature,
@@ -591,9 +652,9 @@ class InferenceEngine:
         tokens = torch.cat([st.last_token[:, None], draft], dim=1)
         old_lengths = st.cache.lengths
         h, cache = forward_hidden(self.params, self.config, tokens, st.cache,
-                                  seq_lens=1 + n_draft)
+                                  seq_lens=1 + n_draft, mesh=self.mesh)
         # The head over all 1 + k positions: every lane is a candidate.
-        logits = logits_from_hidden(self.params, self.config, h)
+        logits = logits_from_hidden(self.params, self.config, h, self.mesh)
         # One split of each slot's key per verify, as a decode step takes.
         keys = prng.split(st.rng)
         out, n_emit = verify_tokens(logits, draft, n_draft, keys[:, 1],
@@ -1188,7 +1249,8 @@ class InferenceEngine:
         continuation attention multiplies unwritten positions' values by an
         exactly-zero probability, and uninitialized memory may hold NaN."""
         return init_cache(self.config, batch, capacity, self.cache_dtype,
-                          quantized=self.kv_quant, device=self.device)
+                          quantized=self.kv_quant, device=self.device,
+                          mesh=self.mesh)
 
     def _prefill_scratch_for(self, batch: int, bucket: int) -> KVCache:
         """The persistent prefix buffer for this (batch, bucket) prefill
@@ -1376,13 +1438,40 @@ class InferenceEngine:
         """Bytes of parameter data one decode step must stream from device
         memory: every weight (int8 payload + float32 scales, or dense),
         except the input embedding unless it is tied (it is gathered, not
-        contracted; tied models re-read it as the LM head). Metadata-only,
-        safe from any thread."""
-        total = sum(t.numel() * t.element_size()
-                    for t in _leaves(self.params))
+        contracted; tied models re-read it as the LM head). On a mesh, the
+        whole model's: each leaf's block times the blocks it is cut into.
+        Metadata-only, safe from any thread."""
+        return self._stream_bytes(per_device=False)
+
+    def weight_stream_bytes_per_device(self) -> int:
+        """This rank's slice of weight_stream_bytes: each leaf counts its
+        local block, so sharded leaves divide by the axis size while
+        replicated ones count in full on every rank -- the bytes one decode
+        step streams from this card (the JAX engine's, from
+        sharding.shard_shape). On a single device it equals
+        weight_stream_bytes."""
+        return self._stream_bytes(per_device=True)
+
+    def _stream_bytes(self, *, per_device: bool) -> int:
+        def parts(axes) -> int:
+            if per_device or self.mesh is None:
+                return 1
+            return Sharding(self.mesh, logical_to_spec(axes)).parts()
+
+        def nbytes(leaf, axes) -> int:
+            if isinstance(leaf, (QuantizedTensor, PackedQuantizedTensor)):
+                return (leaf.q.numel() * leaf.q.element_size() * parts(axes)
+                        + leaf.scale.numel() * 4 * parts(scale_axes(axes)))
+            return leaf.numel() * leaf.element_size() * parts(axes)
+
+        def visit(node, axes) -> int:
+            return sum(visit(v, axes[k]) if isinstance(v, dict)
+                       else nbytes(v, axes[k]) for k, v in node.items())
+
+        axes = param_logical_axes(self.config)
+        total = visit(self.params, axes)
         if not self.config.tie_embeddings:
-            embed = self.params["embed"]
-            total -= embed.numel() * embed.element_size()
+            total -= nbytes(self.params["embed"], axes["embed"])
         return total
 
     def compile_cache_sizes(self) -> dict[str, int]:
@@ -1410,18 +1499,45 @@ class InferenceEngine:
         drawn from torch.Generator(d).manual_seed(0), d the card when one
         is present and else the CPU: random weights of the preset's shape,
         NOT the JAX package's jax.random.key(0) weights.
-        Knobs outside this slice raise EngineError naming their ROADMAP
-        item: a mesh of more than one device, multihost and pipeline
-        microbatches."""
+        A `tpu.mesh` of N > 1 ranks (the `model` axis) builds this rank's
+        engine of an N-rank job: with `tpu.multihost`, this joins the job
+        first (parallel/multihost.py init_distributed, from its
+        coordinator, num_processes and process_id); without it, the caller
+        has joined it (the engine host spawns and joins its ranks itself).
+        Every rank loads only its block of the weights. Knobs outside this
+        slice raise EngineError naming their ROADMAP item: any other mesh
+        axis, dcn_data > 1, MoE on a mesh and pipeline microbatches."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
                               "device='cpu' to run the plain versions")
-        if tpu_cfg.multihost:
-            raise _refuse("multihost")
-        mesh = dict(tpu_cfg.mesh or {})
-        if int(np.prod([int(v) for v in mesh.values()] or [1])) > 1:
-            raise _refuse("mesh")
+        spec = MeshSpec.from_dict(dict(tpu_cfg.mesh or {}))
+        if spec.size > 1:
+            # Refuse before joining a job: the model's shapes decide too.
+            check_mesh(spec.shape(), read_hf_config(tpu_cfg.checkpoint_path)
+                       if tpu_cfg.checkpoint_path
+                       else preset(tpu_cfg.model_preset or "tiny"))
+        mh = tpu_cfg.multihost
+        if mh and int(mh.get("dcn_data", 1)) > 1:
+            raise _refuse("dcn_data")
+        if tpu_cfg.pipeline_microbatches > 1:
+            raise _refuse("pipeline_microbatches")
+        mesh = None
+        if mh:
+            init_distributed(mh["coordinator"], int(mh["num_processes"]),
+                             int(mh.get("process_id", 0)), device=device)
+            mesh = build_multihost_mesh(spec)
+        elif spec.size > 1:
+            if not dist.is_initialized():
+                raise EngineError(
+                    f"tpu.mesh {spec.shape()} runs {spec.size} ranks, one "
+                    f"process each: serve it through the engine host "
+                    f"(which starts the other ranks) or tpu.multihost, or "
+                    f"join the job first (parallel/multihost.py "
+                    f"init_distributed)")
+            mesh = build_mesh(spec)
+        if mesh is not None:
+            device = mesh.device
         dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                   "float16": torch.float16}
         if tpu_cfg.dtype not in dtypes:
@@ -1439,24 +1555,26 @@ class InferenceEngine:
             params, config = _load_weights(
                 tpu_cfg.checkpoint_path, dtype=dtype, quantize=quant,
                 warm=bool(getattr(tpu_cfg, "warm_cache", True)),
-                device=device)
+                device=device, mesh=mesh)
         else:
             config = preset(tpu_cfg.model_preset or "tiny")
             # Drawn on the card whenever one is present (then moved to
             # `device`), so that one config gives the same weights on a
             # machine whatever the engine's device: a host on the card and
             # one with --device cpu serve the same model. The CUDA and CPU
-            # generators draw different numbers from one seed.
-            draw_on = "cuda" if torch.cuda.is_available() else "cpu"
+            # generators draw different numbers from one seed. On a mesh
+            # each rank keeps its block of the same draws.
+            draw_on = ("cuda" if torch.cuda.is_available() else "cpu"
+                       ) if device.type == "cpu" else device
             params = init_params(
                 config, torch.Generator(device=draw_on).manual_seed(0),
-                dtype, quantize=quant)
+                dtype, quantize=quant, mesh=mesh)
         # The byte fallback must span the MODEL's vocab, or sampled ids
         # stream as silence (tokenizer.py).
         tokenizer = get_tokenizer(tpu_cfg.tokenizer_path,
                                   vocab_size=config.vocab_size)
         return cls(
-            config, params, tokenizer,
+            config, params, tokenizer, mesh=mesh,
             max_slots=tpu_cfg.max_batch_size,
             max_seq_len=tpu_cfg.max_seq_len,
             prefill_buckets=tpu_cfg.prefill_buckets,
@@ -1488,14 +1606,36 @@ class InferenceEngine:
 
 
 def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
-                  warm: bool, device: torch.device) -> tuple[dict, Any]:
+                  warm: bool, device: torch.device, mesh=None
+                  ) -> tuple[dict, Any]:
     """(params, config) from an HF checkpoint directory, through the warm
     cache when `warm` is on (the JAX engine's from_tpu_config order): the
     cache first; else a cold load, quantized for int8 serving as each
     tensor is read (load_checkpoint(quantize=True): the dense tree is never
     held), after which the cache is written, best effort -- a failure to
-    cache is logged and never fails serving."""
-    if warm:
+    cache is logged and never fails serving.
+
+    On a mesh each rank reads its blocks only. The ranks take one path:
+    the cache only when every rank finds it current (a cold int8 load
+    takes collectives, which a rank on the warm path would never enter),
+    and a cache that then fails to read raises. A sharded load writes no
+    cache (no rank holds the whole tree); a single-device load of the same
+    checkpoint does."""
+    if warm and mesh is not None:
+        missing = torch.tensor([0 if warm_cache_current(
+            path, dtype=dtype, quantize=quantize) else 1], dtype=torch.int32)
+        dist.all_reduce(missing, group=mesh.control)
+        if int(missing) == 0:
+            loaded = load_warm_cache(path, dtype=dtype, quantize=quantize,
+                                     device=device, mesh=mesh)
+            if loaded is None:
+                raise CheckpointError(f"warm cache under {path} became "
+                                      f"unreadable on rank {mesh.rank}")
+            logger.info(f"weights loaded from warm cache ({path}), this "
+                        f"rank's blocks")
+            return loaded
+        warm = False
+    elif warm:
         try:
             loaded = load_warm_cache(path, dtype=dtype, quantize=quantize,
                                      device=device)
@@ -1506,8 +1646,9 @@ def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
             logger.info(f"weights loaded from warm cache ({path})")
             return loaded
     params, config = load_checkpoint(path, dtype=dtype, device=device,
-                                     quantize=quantize)
-    logger.info(f"weights loaded cold from checkpoint ({path})")
+                                     quantize=quantize, mesh=mesh)
+    logger.info(f"weights loaded cold from checkpoint ({path})"
+                + ("" if mesh is None else ", this rank's blocks"))
     if warm:
         try:
             save_warm_cache(path, params, config, dtype=dtype,
@@ -1516,18 +1657,6 @@ def _load_weights(path: str, *, dtype: torch.dtype, quantize: bool,
         except Exception as exc:  # noqa: BLE001
             logger.warning(f"warm cache not written: {exc}")
     return params, config
-
-
-def _leaves(tree: Any):
-    """Every tensor of a params tree, the payload and scales of int8 leaves
-    included."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (QuantizedTensor, PackedQuantizedTensor)):
-        yield from tree
-    else:
-        yield tree
 
 
 def _has_int8(tree: Any) -> bool:
@@ -1540,5 +1669,5 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (QuantizedTensor, PackedQuantizedTensor)):
-        return type(tree)(*(t.to(device) for t in tree))
+        return tree._replace(q=tree.q.to(device), scale=tree.scale.to(device))
     return tree.to(device)

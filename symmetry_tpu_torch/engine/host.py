@@ -50,8 +50,20 @@ Protocol: JSON lines, as in the JAX package's host.
             ran on the kernels; the prefill role adds `handoff`, the
             decode role `adopt`, and probes a `devprof` block)
 
-A config with `multihost` or a mesh fails at start (from_tpu_config names
-item 14). `tpu.compile_cache` names where the kernels are built
+Tensor parallelism (`tpu.mesh: {model: N}`, parallel/): this host is rank
+0 and its scheduler drives every rank through the command loop
+(parallel/multihost.py), as the JAX host does for a multihost job. With
+`tpu.multihost`, the other ranks are started by the operator
+(`python -m symmetry_tpu_torch.provider --worker`). Without it, the host
+starts ranks 1..N-1 itself, as followers on this machine (a named
+deviation: a JAX process drives a one-host mesh alone, a PyTorch rank is a
+process): `python -m symmetry_tpu_torch.engine.host cfg --follow R
+--coordinator ADDR --parent PID`. A follower dies with the host (the
+kernel's parent-death signal), so a respawned host never finds an orphan
+rank holding the card; `--device` names each rank's card, and ranks share
+one only when it names the card exactly (e.g. cuda:0). Other mesh axes,
+dcn_data and MoE on a mesh fail at start (from_tpu_config names item 14).
+`tpu.compile_cache` names where the kernels are built
 (utils/compile_cache.py); PyTorch runs eagerly.
 
 Logs go to stderr; frames go to stdout, one line each. `main` moves the
@@ -67,9 +79,13 @@ from __future__ import annotations
 
 import argparse
 import base64
+import ctypes
 import inspect
 import json
 import os
+import signal
+import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -94,6 +110,12 @@ from symmetry_tpu_torch.ops.decode_attention import decode_attention
 from symmetry_tpu_torch.ops.flash import flash_prefill
 from symmetry_tpu_torch.ops.kv_append import kv_append
 from symmetry_tpu_torch.ops.qmm import w8a8_matmul, w8a16_matmul
+from symmetry_tpu_torch.parallel.mesh import MeshSpec
+from symmetry_tpu_torch.parallel.multihost import (
+    CommandLoop,
+    MultihostEngine,
+    init_distributed,
+)
 from symmetry_tpu_torch.protocol.keys import HostOp
 from symmetry_tpu_torch.provider.config import ConfigManager
 from symmetry_tpu_torch.utils.compile_cache import enable_compile_cache
@@ -136,7 +158,8 @@ class GatedEngine:
     whole decode block."""
 
     HOST_ONLY = frozenset({"prefix_cache_stats", "prefix_cache_summary",
-                           "weight_stream_bytes"})
+                           "weight_stream_bytes",
+                           "weight_stream_bytes_per_device"})
 
     def __init__(self, engine: InferenceEngine, gate: Any) -> None:
         self._engine = engine
@@ -190,6 +213,10 @@ class EngineHost:
             FAULTS.load(config.get("faults"))
         self._engine: GatedEngine | None = None
         self._scheduler: Scheduler | None = None
+        # A mesh: rank 0's command loop, and the follower ranks this host
+        # started (a one-host mesh without tpu.multihost).
+        self._command_loop = None
+        self._followers: list[subprocess.Popen] = []
         self._wlock = threading.Lock()
         # Held by every engine call and the profile capture's start/stop
         # (GatedEngine).
@@ -334,9 +361,26 @@ class EngineHost:
         # Before the first kernel build (the engine's warmup).
         cache_dir = enable_compile_cache(tpu)
         t0 = time.perf_counter()
-        self._engine = GatedEngine(
-            InferenceEngine.from_tpu_config(tpu, device=self._device),
-            self._device_gate)
+        spec = MeshSpec.from_dict(dict(tpu.mesh or {}))
+        try:
+            if spec.size > 1 and not tpu.multihost:
+                addr = self._start_followers(spec.size)
+                init_distributed(addr, spec.size, 0, device=self._device)
+            engine = InferenceEngine.from_tpu_config(tpu,
+                                                     device=self._device)
+        except BaseException:
+            for proc in self._followers:
+                proc.kill()
+                proc.wait()
+            raise
+        if engine.mesh is None:
+            self._engine = GatedEngine(engine, self._device_gate)
+        else:
+            # Rank 0's scheduler leads every rank; the loop executes through
+            # the gate, as GatedEngine does.
+            self._command_loop = CommandLoop(engine, is_coordinator=True,
+                                             gate=self._device_gate)
+            self._engine = MultihostEngine(self._command_loop)
         t_build = time.perf_counter() - t0
         t1 = time.perf_counter()
         self._engine.warmup()  # the kernels build here, before `ready`
@@ -415,12 +459,46 @@ class EngineHost:
             elif op == HostOp.SHUTDOWN:
                 break
         self._scheduler.stop()
+        self._stop_ranks()
         if self._engine.device.type == "cuda":
             import torch
 
             logger.info(f"engine host stopped: max_memory_allocated="
                         f"{torch.cuda.max_memory_allocated() / 2**30:.3f}GiB")
         return 0
+
+    def _start_followers(self, world: int) -> str:
+        """Start ranks 1..world-1 of a one-host mesh as follower processes
+        of this host; returns the coordinator address rank 0 serves."""
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            addr = f"127.0.0.1:{sock.getsockname()[1]}"
+        fd, cfg_path = tempfile.mkstemp(prefix="symmetry_mesh_",
+                                        suffix=".json")
+        with os.fdopen(fd, "w", encoding="utf-8") as fh:
+            json.dump(self._config.get_all(), fh)
+        for rank in range(1, world):
+            self._followers.append(subprocess.Popen(
+                [sys.executable, "-m", "symmetry_tpu_torch.engine.host",
+                 cfg_path, "--device", self._device, "--follow", str(rank),
+                 "--coordinator", addr, "--parent", str(os.getpid())],
+                stdin=subprocess.DEVNULL, stdout=sys.stderr.fileno()))
+        logger.info(f"mesh of {world} ranks: started followers "
+                    f"{[p.pid for p in self._followers]} (coordinator "
+                    f"{addr})")
+        return addr
+
+    def _stop_ranks(self) -> None:
+        """Release the other ranks (the loop's stop command) and reap the
+        followers this host started."""
+        if self._command_loop is not None:
+            self._command_loop.stop()
+        for proc in self._followers:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
 
     def _handle_trace(self) -> None:
         """Span-ring snapshot: the host and scheduler rings, plus the
@@ -486,6 +564,8 @@ class EngineHost:
         summary = self._engine.prefix_cache_summary()
         if summary is not None:
             m["prefix_summary"] = summary  # pool-gossip rider
+        if self._engine.mesh is not None:
+            m["mesh"] = self._engine.mesh.describe()
         # Under _wlock: the engine thread's sink and adopt thunk and the
         # pipe reader's fast path write these.
         with self._wlock:
@@ -815,6 +895,36 @@ class EngineHost:
                            trace_id=trace_id, frame_b64_len=len(frame_b64))
 
 
+def _die_with_parent(parent: int) -> None:
+    """Have the kernel kill this process when its parent exits (Linux
+    PR_SET_PDEATHSIG), and exit now if the parent is already gone."""
+    pr_set_pdeathsig = 1
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(pr_set_pdeathsig, signal.SIGKILL, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG)")
+    if os.getppid() != parent:
+        sys.exit("follower: the host that started it has exited")
+
+
+def follow(config_path: str, device: str, rank: int, coordinator: str,
+           parent: int) -> int:
+    """Rank `rank` of a one-host mesh, started by its host: the same engine
+    on this rank's blocks, mirroring the host's engine calls until it
+    stops them or exits."""
+    _die_with_parent(parent)
+    config = ConfigManager(config_path=config_path)
+    tpu = config.tpu
+    set_component(f"rank{rank}")
+    enable_compile_cache(tpu)
+    init_distributed(coordinator, MeshSpec.from_dict(dict(tpu.mesh)).size,
+                     rank, device=device)
+    engine = InferenceEngine.from_tpu_config(tpu, device=device)
+    logger.info(f"rank {rank} following the host ({engine.mesh.describe()})")
+    CommandLoop(engine, is_coordinator=False).follow_forever()
+    logger.info(f"rank {rank} stopped")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m symmetry_tpu_torch.engine.host",
@@ -823,7 +933,17 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="torch device of the engine (default: cuda; "
                              "cpu runs the kernels' plain versions)")
+    parser.add_argument("--follow", type=int, metavar="RANK",
+                        help="run as follower rank RANK of the host that "
+                             "started this process (a one-host mesh)")
+    parser.add_argument("--coordinator", help="with --follow: rank 0's "
+                        "host:port")
+    parser.add_argument("--parent", type=int, help="with --follow: the "
+                        "host's pid")
     args = parser.parse_args(argv)
+    if args.follow is not None:
+        return follow(args.config, args.device, args.follow,
+                      args.coordinator, args.parent)
     # Frames get a private copy of fd 1; fd 1 itself (and sys.stdout) go to
     # stderr, so nothing else can write into the pipe.
     sys.stdout.flush()

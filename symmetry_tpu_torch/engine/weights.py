@@ -1,5 +1,5 @@
-"""Weight loading: an HF safetensors checkpoint to this package's params on
-one device (port of symmetry_tpu/engine/weights.py, single device).
+"""Weight loading: an HF safetensors checkpoint to this package's params
+(port of symmetry_tpu/engine/weights.py).
 
 The constraint is host RAM: an 8B model must not be materialized on the
 host. Each HF tensor is read from the memory-mapped files
@@ -16,8 +16,16 @@ one flat file straight to the device.
 
 Mixtral checkpoints (`block_sparse_moe`) load into the MoE layout: the
 router [L, E, X] and the expert stacks [L, X, in, out], one HF tensor per
-(layer, expert) written into its slot. Meshes are not ported: mesh and
-rules arguments raise NotImplementedError (ROADMAP Queue 1 item 14).
+(layer, expert) written into its slot.
+
+On a mesh (`mesh`, parallel/), each rank reads only its block of each
+tensor (models/llama.py param_logical_axes under the sharding rules): the
+mapped tensor is sliced before anything is copied, so no rank holds a
+whole tensor. The block equals slicing the single-device tree, int8
+included: a rank quantizing its K-slice of a row-parallel leaf takes each
+column's amax over the whole K (a max over the mesh axis) before its
+scale, as quantizing the full leaf does. MoE checkpoints do not load on a
+mesh (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -48,6 +56,8 @@ from symmetry_tpu_torch.models.llama import (
     MoEConfig,
     config_from_hf,
     hf_expert_name,
+    param_logical_axes,
+    scale_axes,
 )
 from symmetry_tpu_torch.ops.quant import (
     PackedQuantizedTensor,
@@ -57,15 +67,23 @@ from symmetry_tpu_torch.ops.quant import (
 )
 
 __all__ = ["CheckpointError", "convert_hf_state_dict", "load_checkpoint",
-           "save_checkpoint", "save_warm_cache", "load_warm_cache"]
-
-MESH_NOT_PORTED = ("sharded weight loading is not ported yet (ROADMAP Queue "
-                   "1 item 14)")
+           "save_checkpoint", "save_warm_cache", "load_warm_cache",
+           "warm_cache_current"]
 
 
-def _refuse_mesh(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+def _block(mesh, rules, axes: tuple):
+    """The function cutting this rank's block out of a full tensor laid out
+    by logical `axes` (identity without a mesh), and whether its
+    contraction (second-last) dim is split: a row-parallel leaf, whose
+    int8 scales need the amax over every rank's rows."""
+    from symmetry_tpu_torch.parallel.sharding import (Sharding,
+                                                      logical_to_spec)
+
+    if mesh is None:
+        return (lambda t: t), False
+    spec = logical_to_spec(axes, rules)
+    return Sharding(mesh, spec), (len(spec) >= 2
+                                  and mesh.axis_size(spec[-2]) > 1)
 
 
 _EXPERT_LEAVES = ("wg", "wu", "wd")
@@ -204,27 +222,35 @@ def load_checkpoint(
     scales, so one layer's or one expert's [K, N] slab at a time gives the
     whole leaf's), into int8 leaves allocated up front. mixtral-8x7b's
     dense tree (~93.4 GB in bf16) does not fit one 80 GB card; its int8
-    tree (~46.9 GB) does."""
-    _refuse_mesh(mesh, rules)
+    tree (~46.9 GB) does.
+
+    With `mesh`, this rank's blocks only (see the module docstring);
+    every rank of the mesh calls it, in the same order (an int8 load of a
+    row-parallel leaf takes a max over the mesh axis per column block)."""
     if config is None:
         config = read_hf_config(path)
+    if mesh is not None and getattr(config, "num_experts", 0):
+        raise NotImplementedError("MoE checkpoints on a mesh are not "
+                                  "ported yet (ROADMAP Queue 1 item 14)")
     device = torch.device(device)
     store = SafetensorsDir(path)
     tied = config.tie_embeddings or "lm_head.weight" not in store.names()
     if tied and not config.tie_embeddings:
         raise CheckpointError("checkpoint ties embeddings but config does not")
     top_shapes, layer_shapes = _leaf_shapes(config)
+    axes = param_logical_axes(config)
 
-    def read(hf_name: str, transpose: bool, shape: tuple) -> torch.Tensor:
-        t = store.get(hf_name).to(device)
+    def read(hf_name: str, transpose: bool, shape: tuple,
+             block=lambda t: t) -> torch.Tensor:
+        t = store.get(hf_name)
         t = t.T if transpose else t
         if tuple(t.shape) != shape:
             raise CheckpointError(f"tensor {hf_name!r} has shape "
                                   f"{list(t.shape)}; the config needs "
                                   f"{list(shape)}")
-        return t
+        return block(t).to(device)
 
-    def leaf(name: str, shape: tuple):
+    def leaf(name: str, shape: tuple, row_parallel: bool = False):
         """An empty leaf and the function that writes one slab into it."""
         if not (quantize and name in QUANT_KEYS):
             t = torch.empty(shape, dtype=dtype, device=device)
@@ -235,30 +261,41 @@ def load_checkpoint(
         q = torch.empty(shape, dtype=torch.int8, device=device)
         s = torch.empty((*shape[:-2], shape[-1]), dtype=torch.float32,
                         device=device)
+        reduce = ((lambda amax: mesh.all_reduce(amax, "model", "max"))
+                  if row_parallel else None)
 
         def put(i: tuple, w: torch.Tensor) -> None:
             for n0 in range(0, shape[-1], _QUANT_COLS):
-                qt = quantize_leaf(w[:, n0:n0 + _QUANT_COLS].to(dtype))
+                qt = quantize_leaf(w[:, n0:n0 + _QUANT_COLS].to(dtype),
+                                   amax_reduce=reduce)
                 q[i][:, n0:n0 + _QUANT_COLS] = qt.q
                 s[i][n0:n0 + _QUANT_COLS] = qt.scale
         return QuantizedTensor(q=q, scale=s), put
+
+    def local_shape(block, shape: tuple) -> tuple:
+        return block.shard_shape(shape) if mesh is not None else shape
 
     params: dict = {"layers": {}}
     for hf_name, (ours, transpose) in HF_TOP_MAP.items():
         if ours in top_shapes:
             shape = top_shapes[ours]
-            params[ours], put = leaf(ours, shape)
-            put((), read(hf_name, transpose, shape))
+            block, row_par = _block(mesh, rules, axes[ours])
+            params[ours], put = leaf(ours, local_shape(block, shape),
+                                     row_par)
+            put((), read(hf_name, transpose, shape, block))
     n_exp = getattr(config, "num_experts", 0)
     L = config.num_layers
     for hf_sub, (ours, transpose) in HF_LAYER_MAP.items():
         if ours not in layer_shapes or (n_exp and ours in _EXPERT_LEAVES):
             continue
         shape = layer_shapes[ours]
-        params["layers"][ours], put = leaf(ours, (L, *shape))
+        # one layer's block: the leaf's axes without the stacked "layers"
+        block, row_par = _block(mesh, rules, axes["layers"][ours][1:])
+        params["layers"][ours], put = leaf(
+            ours, (L, *local_shape(block, shape)), row_par)
         for layer in range(L):
             put((layer,), read(f"model.layers.{layer}.{hf_sub}", transpose,
-                               shape))
+                               shape, block))
     if n_exp:
         shape = layer_shapes["router"]
         params["layers"]["router"], put = leaf("router", (L, *shape))
@@ -442,33 +479,58 @@ def save_warm_cache(checkpoint_path: str, params: dict, config: ModelConfig,
         raise
 
 
+def _warm_meta(checkpoint_path: str, dtype: torch.dtype, quantize: bool
+               ) -> dict | None:
+    """The warm cache's meta.json when the cache is present and current
+    (its version, and the checkpoint files it was made from), else None."""
+    out_dir = _warm_path(checkpoint_path, dtype, quantize)
+    meta_path = os.path.join(out_dir, "meta.json")
+    if not (os.path.exists(meta_path) and os.path.exists(
+            os.path.join(out_dir, "params.safetensors"))):
+        return None
+    try:
+        with open(meta_path, "r", encoding="utf-8") as fh:
+            meta = json.load(fh)
+    except (ValueError, OSError):
+        return None
+    if not isinstance(meta, dict) or meta.get("version") != _WARM_VERSION:
+        return None
+    if meta.get("fingerprint") != _checkpoint_fingerprint(checkpoint_path):
+        return None  # checkpoint changed since the cache was written
+    return meta
+
+
+def warm_cache_current(checkpoint_path: str, *, dtype: torch.dtype,
+                       quantize: bool) -> bool:
+    """True when load_warm_cache would find a current cache to read."""
+    return _warm_meta(checkpoint_path, dtype, quantize) is not None
+
+
 def load_warm_cache(checkpoint_path: str, *, dtype: torch.dtype,
                     quantize: bool, mesh=None, rules=None,
                     device: str | torch.device = "cuda"
                     ) -> tuple[dict, ModelConfig] | None:
     """Load a warm cache written by save_warm_cache (by either package)
     onto `device`; None when absent, stale or unreadable (callers fall back
-    to the full checkpoint load)."""
-    _refuse_mesh(mesh, rules)
-    out_dir = _warm_path(checkpoint_path, dtype, quantize)
-    meta_path = os.path.join(out_dir, "meta.json")
-    st_path = os.path.join(out_dir, "params.safetensors")
-    if not (os.path.exists(meta_path) and os.path.exists(st_path)):
+    to the full checkpoint load). With `mesh`, this rank's block of each
+    leaf, sliced from the mapped file (the cache holds the whole tree,
+    int8 scales taken over the whole contraction)."""
+    meta = _warm_meta(checkpoint_path, dtype, quantize)
+    if meta is None:
         return None
     try:
-        with open(meta_path, "r", encoding="utf-8") as fh:
-            meta = json.load(fh)
-        if meta.get("version") != _WARM_VERSION:
-            return None
-        if meta.get("fingerprint") != _checkpoint_fingerprint(
-                checkpoint_path):
-            return None  # checkpoint changed since the cache was written
         cls = MoEConfig if meta["config_class"] == "MoEConfig" else ModelConfig
         config = cls(**meta["config"])
         dtypes = meta["dtypes"]
-        handle = SafetensorsFile(st_path)
+        handle = SafetensorsFile(os.path.join(
+            _warm_path(checkpoint_path, dtype, quantize),
+            "params.safetensors"))
     except (ValueError, TypeError, KeyError, OSError, CheckpointError):
         return None
+    if mesh is not None and getattr(config, "num_experts", 0):
+        raise NotImplementedError("MoE checkpoints on a mesh are not "
+                                  "ported yet (ROADMAP Queue 1 item 14)")
+    axes = param_logical_axes(config)
 
     device = torch.device(device)
     params: dict = {}
@@ -480,7 +542,14 @@ def load_warm_cache(checkpoint_path: str, *, dtype: torch.dtype,
             t = t.view(torch.bfloat16)
         if _dtype_name(t.dtype) != want:
             return None
-        arr = t.to(device, copy=True)
+        if mesh is not None:
+            base, _, part = name.partition(":")
+            leaf_axes = axes
+            for key in base.split("/"):
+                leaf_axes = leaf_axes[key]
+            t = _block(mesh, rules, scale_axes(leaf_axes) if part == "scale"
+                       else leaf_axes)[0](t)
+        arr = t.to(device, copy=True).contiguous()
         if ":" in name:
             base, _, part = name.partition(":")
             pending_quant.setdefault(base, {})[part] = arr

@@ -27,8 +27,23 @@ MoE (mixtral family, MoEConfig): a layer whose params carry a "router"
 runs models/moe.py's mixture in place of the dense MLP; the expert stacks
 are [L, X, E, F] (wg, wu) and [L, X, F, E] (wd), the router [L, E, X].
 
-Not ported in this slice: sequence-parallel prefill (ROADMAP Queue 1 item
-14).
+Tensor parallelism (`mesh`, parallel/): megatron over the mesh's `model`
+axis, from `param_logical_axes` and parallel/sharding.py DEFAULT_RULES.
+Each rank holds its block of every leaf (`shard_params`) and of the KV
+cache (its kv heads), runs the attention kernels on its num_heads / N and
+num_kv_heads / N heads, and sums over the axis once after wo and once
+after wd (`_row_parallel`). The embedding is vocab-parallel (a masked
+local gather, then a sum); the LM head is vocab-parallel and its logits
+are gathered before sampling, so every rank samples the same token. A
+dense row-parallel product sums in float32 and rounds to the activation
+dtype once, after the sum: GSPMD lowers the JAX package's sharded bf16
+dot to a dot with a float32 result, an all-reduce in float32 and one
+convert (the compiled HLO on its CPU mesh). An int8 one is summed in
+float32 before its per-column scale (ops/qmm.py w8a16_apply_sharded, and
+the mixed dot below in the same order).
+
+Not ported in this slice: sequence-parallel prefill, MoE on a mesh
+(ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ from symmetry_tpu_torch.ops.norm import norm_weight, rms_norm
 from symmetry_tpu_torch.ops.quant import (
     PackedQuantizedTensor,
     QuantizedTensor,
+    mixed_dot,
     pack_tree,
     qmatmul,
     quantize_kv,
@@ -57,6 +73,7 @@ from symmetry_tpu_torch.ops.quant import (
 )
 from symmetry_tpu_torch.ops.quant import quantize as quantize_leaf
 from symmetry_tpu_torch.ops.rope import apply_rope
+from symmetry_tpu_torch.parallel.sharding import DEFAULT_RULES, shard_leaf
 
 
 @dataclass(frozen=True)
@@ -206,13 +223,15 @@ class KVCache(NamedTuple):
 def init_cache(
     config: ModelConfig, batch: int, capacity: int,
     dtype: torch.dtype = torch.bfloat16, *, quantized: bool = False,
-    device: str | torch.device = "cuda",
+    device: str | torch.device = "cuda", mesh=None,
 ) -> KVCache:
-    shape = (config.num_layers, batch, capacity, config.num_kv_heads,
+    """A zeroed cache; on a mesh, this rank's block: its kv heads
+    (cache_logical_axes)."""
+    kv_heads = config.num_kv_heads // _tp(mesh)
+    shape = (config.num_layers, batch, capacity, kv_heads,
              config.dim_per_head)
     if quantized:
-        scale_shape = (config.num_layers, batch, config.num_kv_heads,
-                       capacity)
+        scale_shape = (config.num_layers, batch, kv_heads, capacity)
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -235,7 +254,7 @@ def init_cache(
 
 def init_params(config: ModelConfig, generator: torch.Generator,
                 dtype: torch.dtype = torch.bfloat16, *,
-                quantize: bool = False) -> dict:
+                quantize: bool = False, mesh=None) -> dict:
     """Random init on the generator's device: normal draws scaled by
     1/sqrt(fan-in) (0.02 for the embedding and LM head). Real serving
     loads HF weights instead. Each leaf is drawn in its own dtype and
@@ -251,9 +270,17 @@ def init_params(config: ModelConfig, generator: torch.Generator,
 
     MoE configs (num_experts > 0) draw the expert stacks [L, X, E, F] (wg,
     wu) and [L, X, F, E] (wd) and a dense router [L, E, X], as the JAX
-    package lays them out."""
+    package lays them out.
+
+    With `mesh`, each leaf is drawn whole, as above, and only this rank's
+    block of it is kept (shard_param), so every rank's tree is the
+    single-device tree's, sliced."""
     c = config
     device = generator.device
+    axes = param_logical_axes(c)
+
+    def local(leaf, leaf_axes):
+        return leaf if mesh is None else shard_param(leaf, leaf_axes, mesh)
 
     def draw(shape, scale):
         w = torch.randn(shape, generator=generator, dtype=dtype,
@@ -284,34 +311,111 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     n_exp = getattr(c, "num_experts", 0)
     ffn = (L, n_exp, E, F) if n_exp else (L, E, F)
     ffn_d = (L, n_exp, F, E) if n_exp else (L, F, E)
+    la = axes["layers"]
     params = {
-        "embed": dense((c.vocab_size, E), scale=0.02),
+        "embed": local(dense((c.vocab_size, E), scale=0.02), axes["embed"]),
         "layers": {
-            "attn_norm": ones((L, E)),
-            "mlp_norm": ones((L, E)),
-            "wq": dense((L, E, c.q_dim), name="wq"),
-            "wk": dense((L, E, c.kv_dim), name="wk"),
-            "wv": dense((L, E, c.kv_dim), name="wv"),
-            "wo": dense((L, c.q_dim, E), name="wo"),
-            "wg": dense(ffn, name="wg"),
-            "wu": dense(ffn, name="wu"),
-            "wd": dense(ffn_d, name="wd"),
+            "attn_norm": local(ones((L, E)), la["attn_norm"]),
+            "mlp_norm": local(ones((L, E)), la["mlp_norm"]),
+            "wq": local(dense((L, E, c.q_dim), name="wq"), la["wq"]),
+            "wk": local(dense((L, E, c.kv_dim), name="wk"), la["wk"]),
+            "wv": local(dense((L, E, c.kv_dim), name="wv"), la["wv"]),
+            "wo": local(dense((L, c.q_dim, E), name="wo"), la["wo"]),
+            "wg": local(dense(ffn, name="wg"), la["wg"]),
+            "wu": local(dense(ffn, name="wu"), la["wu"]),
+            "wd": local(dense(ffn_d, name="wd"), la["wd"]),
         },
-        "final_norm": ones((E,)),
+        "final_norm": local(ones((E,)), axes["final_norm"]),
     }
     if n_exp:
         # The router stays dense: it is small, and its logits feed a top-k.
-        params["layers"]["router"] = dense((L, E, n_exp))
+        params["layers"]["router"] = local(dense((L, E, n_exp)),
+                                           la["router"])
     if c.attention_bias:
         # qwen2: biases on q/k/v projections only (not o/mlp)
         for name, width in (("bq", c.q_dim), ("bk", c.kv_dim),
                             ("bv", c.kv_dim)):
-            params["layers"][name] = torch.zeros((L, width), dtype=dtype,
-                                                 device=device)
+            params["layers"][name] = local(
+                torch.zeros((L, width), dtype=dtype, device=device),
+                la[name])
     if not c.tie_embeddings:
-        params["lm_head"] = dense((E, c.vocab_size), scale=0.02,
-                                  name="lm_head")
+        params["lm_head"] = local(dense((E, c.vocab_size), scale=0.02,
+                                        name="lm_head"), axes["lm_head"])
     return params
+
+
+def param_logical_axes(config: ModelConfig) -> dict:
+    """Tree of logical-axis tuples, same structure as init_params output
+    (the JAX package's, for parallel/sharding.py)."""
+    moe = bool(getattr(config, "num_experts", 0))
+    ffn = (("layers", "experts", "embed", "mlp") if moe
+           else ("layers", "embed", "mlp"))
+    ffn_d = (("layers", "experts", "mlp", "embed") if moe
+             else ("layers", "mlp", "embed"))
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "wg": ffn,
+            "wu": ffn,
+            "wd": ffn_d,
+        },
+        "final_norm": ("embed",),
+    }
+    if moe:
+        axes["layers"]["router"] = ("layers", "embed", None)
+    if config.attention_bias:
+        axes["layers"]["bq"] = ("layers", "heads")
+        axes["layers"]["bk"] = ("layers", "kv_heads")
+        axes["layers"]["bv"] = ("layers", "kv_heads")
+    if not config.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def cache_logical_axes(*, quantized: bool = False) -> KVCache:
+    kv = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+    sc = ("layers", "batch", "kv_heads", "cache_seq") if quantized else None
+    return KVCache(k=kv, v=kv, lengths=("batch",), k_scale=sc, v_scale=sc)
+
+
+def scale_axes(axes: tuple) -> tuple:
+    """A QuantizedTensor's scale axes: its weight's minus the contraction
+    (second-last) dim."""
+    return axes[:-2] + axes[-1:]
+
+
+def shard_param(leaf, axes: tuple, mesh):
+    """This rank's block of one full leaf (a tensor or a QuantizedTensor),
+    as a copy: the full leaf is not kept alive by a view."""
+    if isinstance(leaf, QuantizedTensor):
+        return QuantizedTensor(
+            q=shard_leaf(leaf.q, axes, mesh).clone(),
+            scale=shard_leaf(leaf.scale, scale_axes(axes), mesh).clone())
+    if isinstance(leaf, PackedQuantizedTensor):
+        raise TypeError("shard a flat leaf, then pack its block "
+                        "(pack_params(mesh=...))")
+    return shard_leaf(leaf, axes, mesh).clone()
+
+
+def shard_params(params: dict, config: ModelConfig, mesh) -> dict:
+    """This rank's blocks of a full params tree (dense or flat int8)."""
+
+    def visit(node, axes):
+        return {k: visit(v, axes[k]) if isinstance(v, dict)
+                else shard_param(v, axes[k], mesh) for k, v in node.items()}
+
+    return visit(params, param_logical_axes(config))
+
+
+def _tp(mesh) -> int:
+    """Tensor-parallel degree: the mesh's `model` axis (1 without one)."""
+    return 1 if mesh is None else mesh.axis_size("model")
 
 
 # Weights eligible for int8 quantization (all the large matmuls; the
@@ -326,23 +430,57 @@ def quantize_params(params: dict) -> dict:
     return quantize_tree(params, QUANT_KEYS)
 
 
-def pack_params(params: dict, *, mesh=None,
-                report: list | None = None) -> dict:
+def pack_params(params: dict, *, config: ModelConfig | None = None,
+                mesh=None, report: list | None = None) -> dict:
     """In-place packing of the quantized QUANT_KEYS leaves into the W8A16
     kernel's panel layout (`fused_dequant`; ops/quant.py pack_tree). The
     layout is the routing: qmatmul sends PackedQuantizedTensor leaves
     through the kernel and keeps every other int8 leaf on the mixed dot.
     Pass `report` to collect the (path, reason) of leaves that stay flat.
-    Single device only: a mesh raises NotImplementedError (ROADMAP Queue 1
-    item 14)."""
-    return pack_tree(params, QUANT_KEYS, mesh=mesh, report=report)
+
+    With `mesh` (+ `config`, to resolve each leaf's logical axes), `params`
+    holds this rank's blocks and each packs on its own, carrying the mesh
+    axes it is sharded over (packed_shard_axes), as the JAX package's
+    pack after the sharding decision does."""
+    axes = None
+    if mesh is not None:
+        if config is None:
+            raise ValueError("pack_params needs `config` to resolve "
+                             "per-leaf shard axes when packing on a mesh")
+        axes = packed_shard_axes(config, mesh)
+    return pack_tree(params, QUANT_KEYS, axes=axes, mesh=mesh, report=report)
+
+
+def packed_shard_axes(config: ModelConfig, mesh,
+                      rules: dict | None = None) -> dict:
+    """leaf name -> (k_mesh_axis, n_mesh_axis) for every QUANT_KEYS leaf,
+    resolved from param_logical_axes + the sharding rules (megatron TP:
+    wq/wk/wv/wg/wu/lm_head column-parallel over the output dim, wo/wd
+    row-parallel over the contraction dim). Mesh axes of size 1 resolve to
+    None (nothing to shard)."""
+    rules = DEFAULT_RULES if rules is None else rules
+    out: dict = {}
+
+    def resolve(logical):
+        ax = rules.get(logical) if logical is not None else None
+        return ax if ax is not None and mesh.axis_size(ax) > 1 else None
+
+    def visit(node):
+        for name, child in node.items():
+            if isinstance(child, dict):
+                visit(child)
+            elif name in QUANT_KEYS:
+                out[name] = (resolve(child[-2]), resolve(child[-1]))
+
+    visit(param_logical_axes(config))
+    return out
 
 
 def layer_slice(w, i: int):
     """Layer i of a stacked leaf: a tensor, or a (Packed)QuantizedTensor
     whose payload and scales both drop the leading layer dim."""
     if isinstance(w, (QuantizedTensor, PackedQuantizedTensor)):
-        return type(w)(w.q[i], w.scale[i])
+        return w._replace(q=w.q[i], scale=w.scale[i])
     return w[i]
 
 
@@ -373,9 +511,12 @@ def _layer(
     seq_lens: torch.Tensor,      # [B] valid tokens in this call's input
     config: ModelConfig,
     prefill_flash: bool,         # flash self-attention (fresh cache)
+    mesh=None,                   # tensor parallel over its `model` axis
 ) -> torch.Tensor:
     B, S, E = h.shape
-    D, nq, nkv = config.dim_per_head, config.num_heads, config.num_kv_heads
+    tp = _tp(mesh)
+    D = config.dim_per_head
+    nq, nkv = config.num_heads // tp, config.num_kv_heads // tp
     plus_one = config.norm_plus_one
 
     x = rms_norm(h, norm_weight(lp["attn_norm"], plus_one), config.rms_eps)
@@ -442,13 +583,66 @@ def _layer(
                 sliding_window=config.sliding_window,
                 k_scale=cache.k_scale[layer] if cache.quantized else None,
                 v_scale=cache.v_scale[layer] if cache.quantized else None)
-    h = h + qmatmul(attn.reshape(B, S, nq * D), lp["wo"])
+    h = h + _row_parallel(attn.reshape(B, S, nq * D), lp["wo"], mesh)
 
     x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)
     if "router" in lp:
+        if tp > 1:
+            raise NotImplementedError("MoE on a mesh is not ported yet "
+                                      "(ROADMAP Queue 1 item 14)")
         return h + moe_mlp(x, lp, config)
-    return h + qmatmul(_act(qmatmul(x, lp["wg"]), config)
-                       * qmatmul(x, lp["wu"]), lp["wd"])
+    return h + _row_parallel(_act(qmatmul(x, lp["wg"]), config)
+                             * qmatmul(x, lp["wu"]), lp["wd"], mesh)
+
+
+def _row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """x @ w for a row-parallel leaf (wo, wd): this rank's K-slice of the
+    product, summed over the `model` axis in float32 and rounded to the
+    activation dtype once. A flat int8 leaf sums its float32 partials
+    before the per-column scale, as a sharded packed leaf does inside
+    qmatmul (ops/qmm.py w8a16_apply_sharded)."""
+    if _tp(mesh) == 1:
+        return qmatmul(x, w)
+    if isinstance(w, PackedQuantizedTensor):
+        if w.k_axis is None:
+            raise ValueError("a row-parallel packed leaf on a mesh must "
+                             "carry its k_axis (pack_params(mesh=...))")
+        return qmatmul(x, w)
+    if isinstance(w, QuantizedTensor):
+        part = mixed_dot(x, w.q, w.scale, out_dtype=torch.float32,
+                         apply_scale=False)
+        return (mesh.all_reduce(part, "model") * w.scale).to(x.dtype)
+    return mesh.all_reduce(_float32_product(x, w), "model").to(x.dtype)
+
+
+def _float32_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with a float32 result: products of the activation dtype summed
+    in float32 and not rounded back (cuBLAS's bf16 product with a float32
+    output on the card; float32 operands, exact for bf16 values, on the
+    CPU)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda":
+        *lead, k = x.shape
+        return torch.mm(x.reshape(-1, k), w, out_dtype=torch.float32
+                        ).reshape(*lead, w.shape[-1])
+    return x.float() @ w.float()
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Rows of the embedding for `tokens`. Vocab-parallel on a mesh: each
+    rank gathers the rows its vocab block holds, zeros elsewhere, and the
+    sum over the axis (one nonzero term per row: exact) is the full
+    lookup."""
+    if _tp(mesh) == 1:
+        return embed[tokens.long()]
+    rows = embed.shape[0]
+    local = tokens.long() - mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    h = torch.where(inside[..., None], embed[local.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=embed.dtype, device=embed.device))
+    return mesh.all_reduce(h, "model")
 
 
 def run_layers(
@@ -461,6 +655,7 @@ def run_layers(
     config: ModelConfig,
     *,
     use_flash: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Run the stack of decoder layers over `h` (a Python loop over the
     stacked layer dim; the cache is written in place)."""
@@ -468,7 +663,7 @@ def run_layers(
     for i in range(n_layers):
         lp = {name: layer_slice(w, i) for name, w in layers_params.items()}
         h = _layer(h, lp, cache, i, positions, kv_valid, seq_lens, config,
-                   use_flash)
+                   use_flash, mesh)
     return h
 
 
@@ -481,13 +676,15 @@ def forward_hidden(
     *,
     prefill_flash: bool = False,  # caller guarantees the cache is empty
     ring_mesh=None,               # sequence-parallel prefill: not ported
+    mesh=None,                    # tensor parallel (this rank's blocks)
 ) -> tuple[torch.Tensor, KVCache]:
     """Decoder trunk: returns (final-norm hidden states [B, S, E], cache).
 
     Split from the LM head so prefill can project only the last valid
     position. prefill_flash=True is VALID ONLY when cache.lengths are all
     zero (the engine's prefill): attention then covers this call's own
-    K/V, not the cache."""
+    K/V, not the cache. With `mesh`, params and cache are this rank's
+    blocks and the hidden states come out whole on every rank."""
     if ring_mesh is not None:
         raise NotImplementedError("sequence-parallel prefill (ring_mesh) is "
                                   "not ported yet (ROADMAP Queue 1 item 14)")
@@ -506,33 +703,36 @@ def forward_hidden(
         # The cache is sized by config: a depth mismatch must fail loudly.
         raise ValueError(f"params carry {n_stacked} stacked layers but "
                          f"config.num_layers = {config.num_layers}")
-    h = params["embed"][tokens.long()]
+    h = embed_tokens(params["embed"], tokens, mesh)
     if h.device.type == "cuda":
         check_attention_kernels(config, h.dtype, flash=use_flash,
-                                decode=S == 1)
+                                decode=S == 1, tp=_tp(mesh))
     if config.scale_embed:
         # gemma: embeddings scaled by sqrt(hidden) at lookup, normalizer
         # cast to the activation dtype (HF modeling_gemma semantics)
         h = h * torch.tensor(config.hidden_size ** 0.5, dtype=h.dtype)
     h = run_layers(params["layers"], h, cache, positions, kv_valid,
-                   seq_lens, config, use_flash=use_flash)
+                   seq_lens, config, use_flash=use_flash, mesh=mesh)
     h = rms_norm(h, norm_weight(params["final_norm"], config.norm_plus_one),
                  config.rms_eps)
     return h, cache._replace(lengths=kv_valid)
 
 
 def check_attention_kernels(config: ModelConfig, dtype: torch.dtype,
-                            *, flash: bool, decode: bool) -> None:
+                            *, flash: bool, decode: bool, tp: int = 1
+                            ) -> None:
     """On the card, every prefill from empty runs the flash kernel and
     every single-position step the decode kernel, with no plain path:
     refuse, before any layer runs, a head dim or group the kernels' gates
-    (`flash.kernel_supports`, `decode_attention.kernel_supports`) refuse."""
+    (`flash.kernel_supports`, `decode_attention.kernel_supports`) refuse.
+    At tensor-parallel degree `tp` the kernels see num_heads / tp and
+    num_kv_heads / tp heads."""
     D = config.dim_per_head
     if flash and not flash_ops.kernel_supports(dtype, D):
         raise ValueError(f"flash.kernel_supports({dtype}, {D}) is false: "
                          f"the flash kernels take float32 or bf16 at a "
                          f"head_dim that is a multiple of 8 from 16 to 256")
-    group = config.num_heads // config.num_kv_heads
+    group = (config.num_heads // tp) // (config.num_kv_heads // tp)
     if decode and not decode_ops.kernel_supports(D, group):
         raise ValueError(f"decode_attention.kernel_supports({D}, {group}) is "
                          f"false: the decode kernels take a head_dim that "
@@ -540,10 +740,13 @@ def check_attention_kernels(config: ModelConfig, dtype: torch.dtype,
 
 
 def logits_from_hidden(params: dict, config: ModelConfig,
-                       h: torch.Tensor) -> torch.Tensor:
-    """LM head: [B, S, E] hidden -> [B, S, vocab] float32 logits."""
+                       h: torch.Tensor, mesh=None) -> torch.Tensor:
+    """LM head: [B, S, E] hidden -> [B, S, vocab] float32 logits. On a
+    mesh each rank projects onto its vocab block and the blocks are
+    gathered, so every rank holds the full logits."""
     head = params["embed"].T if config.tie_embeddings else params["lm_head"]
-    return qmatmul(h, head).to(torch.float32)
+    logits = qmatmul(h, head).to(torch.float32)
+    return logits if _tp(mesh) == 1 else mesh.all_gather(logits, "model")
 
 
 def forward(
@@ -552,14 +755,17 @@ def forward(
     tokens: torch.Tensor,     # [B, S]
     cache: KVCache,
     seq_lens: torch.Tensor | None = None,
+    *,
+    mesh=None,
 ) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder; returns (logits [B, S, vocab] f32, updated cache).
 
     Serves prefill (S = padded prompt length) and decode (S = 1 per slot)
     with the same code. Logits at padded positions are garbage by contract;
     callers index the last valid position."""
-    h, cache = forward_hidden(params, config, tokens, cache, seq_lens)
-    return logits_from_hidden(params, config, h), cache
+    h, cache = forward_hidden(params, config, tokens, cache, seq_lens,
+                              mesh=mesh)
+    return logits_from_hidden(params, config, h, mesh), cache
 
 
 # ---------------------------------------------------------------------------

@@ -415,3 +415,21 @@ def w8a16_apply(x: torch.Tensor, w_packed: torch.Tensor,
     out = w8a16_matmul(x.reshape(-1, K).contiguous(), w_packed, w_scale,
                        out_dtype=out_dtype, apply_scale=apply_scale)
     return out.reshape(*lead, out.shape[-1])
+
+
+def w8a16_apply_sharded(x: torch.Tensor, w) -> torch.Tensor:
+    """qmatmul's entry for a mesh-sharded PackedQuantizedTensor (ops/quant.py:
+    the leaf names its mesh axes; the counterpart of the JAX package's
+    shard_map'd per-shard kernel): the same kernel on this rank's block.
+    Column-parallel (n_axis set: wq/wk/wv/wg/wu/lm_head): x holds the full
+    K, the block is an N-slice, the output stays N-sharded and no
+    collective runs. Row-parallel (k_axis set: wo/wd): x holds this rank's
+    K-slice, the kernel runs with the epilogue scale off into float32, the
+    partials are summed over the axis, and the per-column scale applies
+    after the sum, then the cast: the JAX package's reduce-then-scale
+    order, which the unsharded mixed dot under GSPMD also lowers to."""
+    if w.k_axis is None:
+        return w8a16_apply(x, w.q, w.scale)
+    part = w8a16_apply(x, w.q, w.scale, out_dtype=torch.float32,
+                       apply_scale=False)
+    return (w.mesh.all_reduce(part, w.k_axis) * w.scale).to(x.dtype)

@@ -31,12 +31,20 @@ async def run(config_path: str, device: str = "cuda") -> None:
     await provider.stop()
 
 
-def run_worker(config_path: str) -> None:
-    """Non-rank-0 process of a multi-host provider. The port's engine does
-    not run multihost yet (ROADMAP item 14), so this refuses."""
-    raise SystemExit(
-        "--worker: multihost serving is not ported to the PyTorch engine "
-        "yet (ROADMAP item 14)")
+def run_worker(config_path: str, device: str = "cuda") -> None:
+    """Non-rank-0 process of a multi-host provider: no networking — build
+    the identical engine and mirror rank 0's engine calls until stopped."""
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.parallel.multihost import CommandLoop
+
+    config = ConfigManager(config_path)
+    mh = config.tpu.multihost
+    if not mh or mh.get("process_id", 0) == 0:
+        raise SystemExit("--worker requires tpu.multihost with process_id > 0")
+    engine = InferenceEngine.from_tpu_config(config.tpu, device=device)
+    logger.info(f"worker rank {mh['process_id']} following rank 0…")
+    CommandLoop(engine, is_coordinator=False).follow_forever()
+    logger.info("worker stopped")
 
 
 def main() -> None:
@@ -50,7 +58,7 @@ def main() -> None:
                              "cuda; cpu runs the kernels' plain versions)")
     args = parser.parse_args()
     if args.worker:
-        run_worker(args.config)
+        run_worker(args.config, args.device)
     else:
         asyncio.run(run(args.config, args.device))
 

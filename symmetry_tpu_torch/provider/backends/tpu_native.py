@@ -360,7 +360,7 @@ class TpuNativeBackend(InferenceBackend):
             # other ranks hang on.
             raise BackendError(
                 "only rank 0 runs the provider; start other ranks with "
-                "`python -m symmetry_tpu.provider --worker`")
+                "`python -m symmetry_tpu_torch.provider --worker`")
         if self._process_mode:
             await self._start_host_process()
         else:
@@ -397,7 +397,8 @@ class TpuNativeBackend(InferenceBackend):
                 CommandLoop, MultihostEngine)
 
             self._command_loop = CommandLoop(self._engine,
-                                             is_coordinator=True)
+                                             is_coordinator=True,
+                                             gate=self._device_gate)
             sched_engine = MultihostEngine(self._command_loop)
         # Compile the decode program before taking traffic: the first
         # request must never stall every stream on a fresh XLA compile.

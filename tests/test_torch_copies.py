@@ -62,7 +62,8 @@ PORTED = {
     "ops/decode_attention.py", "ops/flash.py", "ops/kv_append.py",
     "ops/norm.py", "ops/qmm.py", "ops/quant.py", "ops/rope.py",
     "ops/sampling.py", "utils/__init__.py", "utils/compile_cache.py",
-    "utils/devprof.py",
+    "utils/devprof.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/sharding.py", "parallel/multihost.py",
 }
 
 HISTORY = ("history references reworded",
@@ -150,7 +151,7 @@ DEVIATIONS = {
          ["+    BFloat16Array,", "+    wire_dtype,", '+    "BFloat16Array",',
           '+    "wire_dtype",']),
     ]),
-    "provider/backends/tpu_native.py": (10, [
+    "provider/backends/tpu_native.py": (12, [
         (*HISTORY, ["+        \"\"\"Disagg with BOTH tiers as local "
                     "subprocesses (the pair);"]),
         ("the device",
@@ -174,8 +175,17 @@ DEVIATIONS = {
           "+        sched_engine = GatedEngine(self._engine, "
           "self._device_gate)",
           "+                self._device_gate)"]),
+        ("the command loop through the gate",
+         "a multihost rank 0's CommandLoop executes through the same gate "
+         "(parallel/multihost.py), which the GatedEngine it replaces held",
+         ["+                                             "
+          "gate=self._device_gate)"]),
+        ("the worker CLI is the port's",
+         "other ranks run `python -m symmetry_tpu_torch.provider --worker`",
+         ['+                "`python -m symmetry_tpu_torch.provider '
+          '--worker`")']),
     ]),
-    "provider/__main__.py": (5, [
+    "provider/__main__.py": (8, [
         ("--device",
          "the engine's torch device, default the card",
          ["+from symmetry_tpu_torch.provider.backends.base import "
@@ -183,9 +193,14 @@ DEVIATIONS = {
           '+async def run(config_path: str, device: str = "cuda")',
           '+    parser.add_argument("--device", default="cuda",',
           "+        asyncio.run(run(args.config, args.device))"]),
-        ("--worker refused",
-         "multihost serving is not ported (ROADMAP item 14)",
-         ["+    not run multihost yet (ROADMAP item 14), so this refuses."]),
+        ("--worker on the port's engine",
+         "the worker rank builds the port's engine on --device and mirrors "
+         "rank 0's engine calls (PyTorch runs eagerly: no jitted calls)",
+         ["+def run_worker(config_path: str, device: str = \"cuda\")",
+          "+    the identical engine and mirror rank 0's engine calls",
+          "+    engine = InferenceEngine.from_tpu_config(config.tpu, "
+          "device=device)",
+          "+        run_worker(args.config, args.device)"]),
     ]),
 }
 

@@ -32,6 +32,7 @@ from symmetry_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
 from symmetry_tpu.models import init_params as jax_init_params
 from symmetry_tpu.models import preset as jax_preset
 from symmetry_tpu_torch.convert import params_from_numpy
+from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from symmetry_tpu_torch.engine.engine import (
     EngineError,
     InferenceEngine,
@@ -211,7 +212,8 @@ class TestSampling:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
-        ("mesh", object(), "item 14"),
+        # a data axis (the model axis serves: tests/test_torch_tp.py)
+        ("mesh", Mesh(MeshSpec(data=2)), "item 14"),
         ("pipeline_microbatches", 2, "item 14"),
     ])
     def test_knobs_outside_the_slice_raise(self, weights, knob, value, item):

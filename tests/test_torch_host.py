@@ -254,13 +254,13 @@ class TestHostParity:
     @pytest.mark.parametrize("tpu,item", [
         ({"role": "disagg"}, "unknown engine role"),
         ({"role": "decode", "prefix_cache_mb": None}, "prefix cache"),
-        ({"multihost": {"coordinator": "localhost:1", "num_processes": 2}},
-         "item 14"),
+        ({"multihost": {"coordinator": "localhost:1", "num_processes": 2,
+                        "dcn_data": 2}}, "item 14"),
         ({"compile_cache": "/proc/no-such-dir"}, "/proc/no-such-dir"),
     ])
     def test_out_of_slice_config_fails_at_start(self, tpu, item):
         """A config the engine cannot serve fails the host at start: a
-        multihost mesh (item 14), a role that is no tier, a decode tier
+        data axis across hosts (item 14), a role that is no tier, a decode tier
         without its prefix store, and a kernel build directory that cannot
         be written (named, never replaced in silence)."""
         host = EngineHost(provider_config(tpu), device="cpu", out=Stdout())

@@ -192,8 +192,17 @@ class TestQuantizedInit:
         # tiny's kv_dim (32) is narrower than one 64-column panel
         assert sorted(report) == [("layers/wk", "untileable"),
                                   ("layers/wv", "untileable")]
+        # On a mesh the pack needs the config's axes; an axis other than
+        # `model` stays refused (the model axis: tests/test_torch_tp.py).
+        from symmetry_tpu_torch.ops.quant import pack_tree
+        from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+        with pytest.raises(ValueError, match="config"):
+            pack_params(params, mesh=Mesh(MeshSpec(model=2)))
         with pytest.raises(NotImplementedError, match="item 14"):
-            pack_params(params, mesh=object())
+            pack_tree({"wk": params["layers"]["wk"]}, ("wk",),
+                      axes={"wk": (None, "expert")},
+                      mesh=Mesh(MeshSpec(expert=2)))
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@
   stream is the reference for all three.)
 - The inproc capture holds the engine gate: the Scheduler drives a
   GatedEngine, and capture_profile waits while a dispatch holds the gate.
-- Refusals: multihost (ROADMAP item 14) from the backend and from the
-  provider CLI's --worker.
+- Refusals: a data axis across hosts (multihost dcn_data, ROADMAP item
+  14) from the backend and from the provider CLI's --worker.
 - The card's machine has no JAX, no symmetry_tpu and no aiohttp: the
   server and provider CLIs run as subprocesses with those three made
   unimportable (a sitecustomize on PYTHONPATH, so the provider's engine
@@ -237,19 +237,25 @@ def test_multihost_refused_with_item_14(tmp_path):
         "tpu": {"model_preset": "tiny", "dtype": "float32",
                 "engine_isolation": "inproc", "compile_cache": False,
                 "multihost": {"coordinator": "127.0.0.1:1",
-                              "num_processes": 2, "process_id": 0}}})
+                              "num_processes": 2, "process_id": 0,
+                              "dcn_data": 2}}})
     backend = TpuNativeBackend(cfg, device="cpu")
     with pytest.raises(EngineError, match="item 14"):
         asyncio.new_event_loop().run_until_complete(backend.start())
 
+    # a worker rank of the same job (multihost serving itself:
+    # tests/test_torch_tp.py)
+    worker = cfg.get_all()
+    worker["tpu"]["multihost"]["process_id"] = 1
     path = tmp_path / "p.json"
-    path.write_text(json.dumps(cfg.get_all()))
+    path.write_text(json.dumps(worker))
     proc = subprocess.run(
         [sys.executable, "-m", "symmetry_tpu_torch.provider", "-c",
-         str(path), "--worker"], cwd=REPO, capture_output=True, text=True,
+         str(path), "--worker", "--device", "cpu"], cwd=REPO,
+        capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": REPO}, timeout=120)
     assert proc.returncode != 0
-    assert "ROADMAP item 14" in proc.stderr
+    assert "ROADMAP Queue 1 item 14" in proc.stderr
 
 
 # ---------------------------------------------------------------------------

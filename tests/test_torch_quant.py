@@ -139,11 +139,16 @@ class TestQuantize:
                                    rtol=0)
 
     def test_mesh_refused(self):
+        """Packing over a mesh axis other than `model` stays refused (the
+        model axis packs: tests/test_torch_tp.py)."""
+        from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
         qt = quantize(torch.randn(64, 64))
         with pytest.raises(NotImplementedError, match="item 14"):
-            pack_quantized(qt, mesh=object(), n_axis="model")
+            pack_quantized(qt, mesh=Mesh(MeshSpec(data=2)), n_axis="data")
         with pytest.raises(NotImplementedError, match="item 14"):
-            pack_tree({"wq": qt}, ("wq",), mesh=object())
+            pack_tree({"wq": qt}, ("wq",), axes={"wq": ("expert", None)},
+                      mesh=Mesh(MeshSpec(expert=2)))
 
 
 class TestPacking:

@@ -438,12 +438,15 @@ class TestLoad:
         path, _ = checkpoints["llama"]
         with pytest.raises(CheckpointError, match="no config.json"):
             weights.load_checkpoint(str(tmp_path), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            weights.load_checkpoint(path, mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            weights.load_warm_cache(path, dtype=torch.float32,
-                                    quantize=False, rules={})
         cfg = weights.read_hf_config(path)
+        # MoE on a mesh stays refused (dense sharded loads:
+        # tests/test_torch_tp.py)
+        from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+        with pytest.raises(NotImplementedError, match="item 14"):
+            weights.load_checkpoint(path, llama.MoEConfig(
+                **dataclasses.asdict(cfg), num_experts=4),
+                mesh=Mesh(MeshSpec(model=2)), device="cpu")
         with pytest.raises(CheckpointError, match="shape"):
             weights.load_checkpoint(path, dataclasses.replace(
                 cfg, intermediate_size=96), device="cpu")
