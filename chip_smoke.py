@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --tp` runs phase 14 alone, with its nccl pass where
-the machine has two cards.)
+(`python3 chip_smoke.py --tp` runs phases 14 and 15 alone, with their nccl
+passes where the machine has two cards.)
 
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
@@ -104,7 +104,7 @@ Phases (any failure raises and exits non-zero):
               sampled stream runs to its budget; the verify dispatch's
               wall, device busy and kernels, acceptance and tok/s on and
               off;
- 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 4 layers
+ 10. ckpt     a bf16 HF-layout checkpoint at llama3-8b width and 2 layers
               written by the port's writer (2 shards and an index json)
               into build/chip_smoke/ckpt; the leaves loaded on the card
               bit-equal to those written; the engine host started on it
@@ -114,9 +114,9 @@ Phases (any failure raises and exits non-zero):
               in-process engine built from the same tensors through
               params_from_numpy, the warm cache's leaves bit-equal to that
               engine's; load seconds and each host's peak RSS; the
-              directory, with its warm caches, kept for phases 11-14 and
+              directory, with its warm caches, kept for phases 11-15 and
               removed after them;
- 11. disagg   phase 10's checkpoint (llama3-8b width, 4 layers: a depth
+ 11. disagg   phase 10's checkpoint (llama3-8b width, 2 layers: a depth
               cut from 32 that keeps the script inside its time limit),
               bf16 and then int8, the
               provider's default `tpu:` section plus a 1024 MiB prefix
@@ -197,13 +197,30 @@ Phases (any failure raises and exits non-zero):
               --worker` as rank 1, the same chats over TCP, text equal
               to (b)'s; an nccl pass of (b) where the machine has two
               cards (logged when not run);
- 15. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 15. dp       the data axis (parallel/, engine/engine.py): ranks on the
+              one card over gloo, each owning a block of the slots (its
+              decode cache holds only those, its decode computes only
+              those rows, the tokens all-gathered): (a) `tiny` in float32
+              at {data: 2} (dense, then int8 weights + int8 KV) and at
+              {data: 2, model: 2} on four ranks, prompts submitted
+              together over four slots: text equal to one CPU rank's,
+              first-step logits within 1e-4; (b) phase 10's checkpoint at
+              {data: 2}, bf16 then int8 + kv_quant + fused_dequant, four
+              slots, phase 14's three chats and a repeat of the first
+              submitted together (both ranks' blocks live; 8 new tokens,
+              decode block 8, no prefix cache): text equal to one rank's
+              serve of the same chats, tokens and launches equal on both
+              ranks, each rank's KV cache half of one rank's and its
+              weights whole; an nccl pass of (b) bf16 where the machine
+              has two cards;
+ 16. report   one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3; `launches_moe`: each
               row's launches in phase 13; `launches_tp`: rank 0's in
-              phase 14, equal on both ranks), the nvidia-smi line, and
-              last the {"ok": true, ...} line. Each phase prints its
-              seconds.
+              phase 14, equal on both ranks; `launches_dp`: rank 0's in
+              phase 15 (a)-(b) at {data: 2}, equal on both ranks), the
+              nvidia-smi line, and last the {"ok": true, ...} line. Each
+              phase prints its seconds.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -1144,14 +1161,15 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
 
 def schedule(engine, prompts: list[list[int]], max_new: int,
              sampling: dict | None = None,
-             speculative: bool | None = None) -> dict:
+             speculative: bool | None = None,
+             pipeline_depth: int = 2) -> dict:
     """Serve `prompts` through a Scheduler on `engine`, all submitted at
     once; `speculative` is every request's per-request switch (False opts
     out of speculation)."""
     from symmetry_tpu_torch.engine.engine import SamplingParams
     from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
 
-    sched = Scheduler(engine)
+    sched = Scheduler(engine, pipeline_depth=pipeline_depth)
     events = {i: [] for i in range(len(prompts))}
     done = {i: threading.Event() for i in range(len(prompts))}
     first_at: dict[int, float] = {}
@@ -1181,7 +1199,7 @@ def schedule(engine, prompts: list[list[int]], max_new: int,
     for i in range(len(prompts)):
         last = events[i][-1]
         text = "".join(ev.text for ev in events[i])
-        out.append(dict(ids=[ord(c) - ID_BASE for c in text],
+        out.append(dict(ids=[ord(c) - ID_BASE for c in text], text=text,
                         reason=last.finish_reason,
                         generated=last.tokens_generated, ttft_s=last.ttft_s))
     decoded = sum(r["generated"] - 1 for r in out)
@@ -2060,10 +2078,11 @@ def check_speculative(smi: str, *, int8: bool) -> None:
 # ---------------------------------------------------------------------------
 # Phase 10: checkpoint loading
 
-# 4 of llama3-8b's 32 layers: phases 10-12 and 14 serve this checkpoint,
-# and their seconds grow with its depth (at 8 a run with phase 14 read
-# 1,230.6 s of the script's 1,200).
-CKPT_LAYERS = 4
+# 2 of llama3-8b's 32 layers: phases 10-12, 14 and 15 serve this
+# checkpoint, and their seconds grow with its depth (at 8 a run with phase
+# 14 read 1,230.6 s of the script's 1,200; at 4 a slow host read 1,271.9 s
+# with phase 15).
+CKPT_LAYERS = 2
 CKPT_DIR = os.path.join(OUT_DIR, "ckpt")
 CKPT_CHATS = ["hello there, how are you today?",
               "please write one short sentence about a harbour at night",
@@ -2160,6 +2179,15 @@ def serve_in_turn(engine, prompts: list[list[int]], max_new: int,
     finally:
         sched.stop()
     return texts
+
+
+def serve_together(engine, prompts: list[list[int]], max_new: int,
+                   pipeline_depth: int) -> list[str]:
+    """Greedy requests through one Scheduler, all submitted before it
+    starts (`schedule`), so that they hold slots 0, 1, ... at once; their
+    streamed text."""
+    return [r["text"] for r in schedule(
+        engine, prompts, max_new, pipeline_depth=pipeline_depth)["requests"]]
 
 
 def check_checkpoint(smi: str) -> None:
@@ -3470,7 +3498,8 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
         engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
                                  mesh=mesh, device=mesh.device,
                                  kv_quant=job["int8"],
-                                 fused_dequant=job["int8"], **TP_TINY)
+                                 fused_dequant=job["int8"],
+                                 **{**TP_TINY, **job.get("geometry", {})})
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                    for n in TP_TINY_LENS]
@@ -3520,10 +3549,10 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
         facade.warmup()
         out["warmup_s"] = time.monotonic() - t1
         out["texts"], out["serve_s"] = [], []
-        for _ in range(2):
+        serve = serve_together if job.get("together") else serve_in_turn
+        for _ in range(job.get("serves", 2)):
             t1 = time.monotonic()
-            out["texts"].append(serve_in_turn(facade, prompts, job["new"],
-                                              depth))
+            out["texts"].append(serve(facade, prompts, job["new"], depth))
             out["serve_s"].append(time.monotonic() - t1)
         torch.cuda.synchronize()
         out["counts"] = tp_counts()
@@ -3538,12 +3567,15 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
                              for t in tree_leaves(engine.params))
     out["stream_bytes"] = engine.weight_stream_bytes()
     out["stream_bytes_per_device"] = engine.weight_stream_bytes_per_device()
+    out["kv_cache_bytes"] = engine.kv_cache_bytes()
+    out["slot_block"] = list(engine.slot_block)
     out["prompt_lens"] = [len(p) for p in prompts]
     return out
 
 
 def tp_rank_main(spec_path: str, rank: int) -> int:
-    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14."""
+    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14 or
+    15, on the spec's mesh (the model axis over every rank by default)."""
     from symmetry_tpu_torch.parallel.mesh import MeshSpec
     from symmetry_tpu_torch.parallel.multihost import (build_multihost_mesh,
                                                        init_distributed)
@@ -3554,7 +3586,8 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
     world = len(spec["devices"])
     init_distributed(f"127.0.0.1:{spec['port']}", world, rank,
                      device=spec["devices"][rank])
-    mesh = build_multihost_mesh(MeshSpec(model=world))
+    mesh = build_multihost_mesh(MeshSpec.from_dict(
+        spec.get("mesh") or {"model": world}))
     log(f"rank {rank}: mesh {mesh.describe()}")
     results = {}
     for job in spec["jobs"]:
@@ -3578,15 +3611,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def tp_spawn(tag: str, devices: list[str], jobs: list[dict]) -> list[dict]:
-    """Run `jobs` on len(devices) rank processes; every rank's results.
-    A rank that fails fails the phase, its log named."""
+def tp_spawn(tag: str, devices: list[str], jobs: list[dict],
+             mesh: dict | None = None) -> list[dict]:
+    """Run `jobs` on len(devices) rank processes, on `mesh` (the model
+    axis over all of them by default); every rank's results. A rank that
+    fails fails the phase, its log named."""
     os.makedirs(OUT_DIR, exist_ok=True)
     port = free_port()
     spec_path = os.path.join(OUT_DIR, f"{tag}.json")
     with open(spec_path, "w") as fh:
         json.dump({"tag": tag, "port": port, "devices": devices,
-                   "jobs": jobs}, fh)
+                   "jobs": jobs, "mesh": mesh}, fh)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
     procs, logs = [], []
@@ -3618,7 +3653,7 @@ def tp_spawn(tag: str, devices: list[str], jobs: list[dict]) -> list[dict]:
 
 
 def tp_check_ranks(tag: str, name: str, ranks: list[dict]) -> None:
-    """Every rank produced the same tokens at every command, the repeat
+    """Every rank produced the same tokens at every command, a repeat
     serve streamed the first's text, and each rank launched every kernel
     the same number of times."""
     rec = [r[name]["recorded"] for r in ranks]
@@ -3626,7 +3661,7 @@ def tp_check_ranks(tag: str, name: str, ranks: list[dict]) -> None:
         raise AssertionError(f"{tag} {name}: ranks recorded different "
                              f"tokens")
     texts = ranks[0][name]["texts"]
-    if texts[0] != texts[1]:
+    if len(texts) > 1 and texts[0] != texts[1]:
         raise AssertionError(f"{tag} {name}: the repeat serve's text "
                              f"differs from the first's")
     counts = [r[name]["counts"] for r in ranks]
@@ -3634,8 +3669,8 @@ def tp_check_ranks(tag: str, name: str, ranks: list[dict]) -> None:
         raise AssertionError(f"{tag} {name}: launch counts differ by rank "
                              f"{counts}")
     log(f"  {tag} {name}: {len(rec[0])} commands, tokens equal on "
-        f"{len(ranks)} ranks; repeat serve equal; launches per rank "
-        f"{counts[0]}")
+        f"{len(ranks)} ranks; {len(texts)} serve(s) equal; launches per "
+        f"rank {counts[0]}")
 
 
 def tp_reference_logits(int8: bool, prompt: list[int]) -> torch.Tensor:
@@ -3662,9 +3697,12 @@ def tp_reference_logits(int8: bool, prompt: list[int]) -> torch.Tensor:
     return out, ref_bytes
 
 
-def tp_tiny_reference(int8: bool) -> tuple[list[str], torch.Tensor]:
+def tp_tiny_reference(int8: bool, slots: int | None = None,
+                      together: bool = False
+                      ) -> tuple[list[str], torch.Tensor]:
     """`tiny` on one CPU rank from the same draws: the texts of a serve of
-    the TP prompts one at a time, and the first step's logits."""
+    the TP prompts one at a time (or submitted together, over `slots`
+    slots), and the first step's logits."""
     from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
                                                  init_params,
@@ -3676,7 +3714,8 @@ def tp_tiny_reference(int8: bool) -> tuple[list[str], torch.Tensor]:
                          torch.float32, quantize=int8)
     engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
                              device="cpu", kv_quant=int8, fused_dequant=int8,
-                             **TP_TINY)
+                             **{**TP_TINY, **({"max_slots": slots}
+                                              if slots else {})})
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                for n in TP_TINY_LENS]
@@ -3686,7 +3725,8 @@ def tp_tiny_reference(int8: bool) -> tuple[list[str], torch.Tensor]:
     h, _ = forward_hidden(engine.params, cfg, ids, cache, prefill_flash=True)
     logits = logits_from_hidden(engine.params, cfg, h[:, -1:])[0, 0]
     engine.warmup()
-    return serve_in_turn(engine, prompts, 12, 2), logits
+    serve = serve_together if together else serve_in_turn
+    return serve(engine, prompts, 12, 2), logits
 
 
 async def tp_provider(contents: list[str], want: list[str]) -> dict:
@@ -3874,11 +3914,175 @@ def check_tp(smi: str) -> dict[str, int]:
             "w8a8_matmul": 0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the data axis (engine/engine.py), ranks on the one card
+
+DP = 2
+# Ranks share the one card over gloo, as in phase 14: the phase checks
+# correctness and each rank's share of the memory, not the speed of data
+# parallelism (two processes time-slice one card).
+DP_DEVICES = ["cuda:0"] * DP
+DP_TP_DEVICES = ["cuda:0"] * 4   # {data: 2, model: 2}
+# Four slots in (a) and (b): over data=2 each rank owns two, and the four
+# requests of (b), submitted together, hold both blocks.
+DP_SLOTS = 4
+DP_NEW = 8
+
+
+def dp_section(int8: bool, mesh: bool = True) -> dict:
+    """Phase 15(b)'s `tpu:` section: phase 14's (the provider's defaults,
+    phase 10's checkpoint, decode block 8, no prefix cache) at four slots,
+    the data axis at 2 (or one rank)."""
+    section = {**tp_section(int8), "max_batch_size": DP_SLOTS}
+    section.pop("mesh")
+    return {**section, "mesh": {"data": DP}} if mesh else section
+
+
+def dp_reference(int8: bool, contents: list[str]) -> tuple:
+    """One rank's serve of the chats, submitted together, on the same
+    section without the mesh: (texts, KV cache bytes, weight bytes)."""
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    tpu = TpuConfig.from_dict(dp_section(int8, mesh=False))
+    engine = InferenceEngine.from_tpu_config(tpu, device="cuda")
+    engine.warmup()
+    prompts = [engine.tokenizer.apply_chat_template(
+        [{"role": "user", "content": c}]) for c in contents]
+    texts = serve_together(engine, prompts, DP_NEW, tpu.pipeline_depth)
+    out = (texts, engine.kv_cache_bytes(),
+           sum(t.numel() * t.element_size()
+               for t in tree_leaves(engine.params)))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_dp(smi: str) -> dict[str, int]:
+    """Phase 15. (a) `tiny` in float32 at {data: 2}, dense then int8 +
+    int8 KV, and dense at {data: 2, model: 2} on four ranks, the prompts
+    submitted together over DP_SLOTS slots: text equal to one CPU rank's,
+    first-step logits within TP_F32_TOL. (b) phase 10's checkpoint at
+    {data: 2} (whole weights on each rank), bf16 then int8 + kv_quant +
+    fused_dequant, phase 14's chats and a repeat of the first submitted
+    together: text equal to one rank's serve, tokens and launches equal
+    on both ranks, each rank's KV cache half of one rank's. Returns each
+    kernel row's launches on rank 0 in (a)-(b) at {data: 2}."""
+    contents = tp_contents()
+    contents = contents + contents[:1]
+    tiny = [dict(name=f"dp_tiny_{'int8' if i8 else 'f32'}", model="tiny",
+                 int8=i8, new=12, geometry={"max_slots": DP_SLOTS},
+                 together=True, serves=1) for i8 in (False, True)]
+    jobs = tiny + [dict(name=f"dp_ckpt_{'int8' if i8 else 'bf16'}",
+                        model="ckpt", tpu=dp_section(i8), contents=contents,
+                        new=DP_NEW, together=True, serves=1)
+                   for i8 in (False, True)]
+    t0 = time.monotonic()
+    ranks = tp_spawn("dp_gloo", DP_DEVICES, jobs, mesh={"data": DP})
+    log(f"  two data ranks on {DP_DEVICES} ran (a)-(b) in "
+        f"{time.monotonic() - t0:.1f} s (backend "
+        f"{ranks[0]['dp_ckpt_bf16']['backend']})")
+    t0 = time.monotonic()
+    four = tp_spawn("dp_tp_gloo", DP_TP_DEVICES,
+                    [dict(tiny[0], name="dp_tp_tiny_f32")],
+                    mesh={"data": DP, "model": 2})
+    log(f"  four ranks {{data: 2, model: 2}} on {DP_TP_DEVICES} ran (a) in "
+        f"{time.monotonic() - t0:.1f} s")
+    for job in jobs:
+        tp_check_ranks("dp", job["name"], ranks)
+    tp_check_ranks("dp x tp", "dp_tp_tiny_f32", four)
+    # (a) against one CPU rank
+    for name, group, i8 in (("dp_tiny_f32", ranks, False),
+                            ("dp_tiny_int8", ranks, True),
+                            ("dp_tp_tiny_f32", four, False)):
+        texts, logits = tp_tiny_reference(i8, slots=DP_SLOTS, together=True)
+        if group[0][name]["texts"][0] != texts:
+            raise AssertionError(f"(a) {name}: the mesh on the card "
+                                 f"{group[0][name]['texts'][0]} != one CPU "
+                                 f"rank {texts}")
+        mesh_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((mesh_logits - logits).abs().max())
+        log(f"  (a) {name}: text equal to one CPU rank's; first-step "
+            f"logits max_abs_err {err:.3e} (tol {TP_F32_TOL:.0e}); slot "
+            f"blocks {[r[name]['slot_block'] for r in group]}")
+        if err > TP_F32_TOL:
+            raise AssertionError(f"(a) {name}: logits error {err}")
+    # (b) against one rank serving the same chats together
+    for i8 in (False, True):
+        name = f"dp_ckpt_{'int8' if i8 else 'bf16'}"
+        got = [r[name] for r in ranks]
+        t0 = time.monotonic()
+        texts, ref_kv, ref_bytes = dp_reference(i8, contents)
+        t_ref = time.monotonic() - t0
+        kv = [g["kv_cache_bytes"] / ref_kv for g in got]
+        whole = [g["param_bytes"] / ref_bytes for g in got]
+        mem = [g["max_memory_allocated"] for g in got]
+        g0 = got[0]
+        log(f"  (b) {name}: prompt tokens {g0['prompt_lens']}; slot blocks "
+            f"{[g['slot_block'] for g in got]}; KV cache per rank "
+            f"{[g['kv_cache_bytes'] / 1e9 for g in got]} GB of one rank's "
+            f"{ref_kv / 1e9:.4f} (shares {kv}); weights per rank "
+            f"{[g['param_bytes'] / 1e9 for g in got]} GB of "
+            f"{ref_bytes / 1e9:.3f} (shares {[round(w, 4) for w in whole]});"
+            f" streamed per step per rank "
+            f"{g0['stream_bytes_per_device'] / 1e9:.3f} GB of "
+            f"{g0['stream_bytes'] / 1e9:.3f}; max_memory_allocated per rank "
+            f"{[round(m / 2**30, 3) for m in mem]} GiB; build "
+            f"{g0['build_s']:.1f} s, warmup {g0['warmup_s']:.1f} s, serve "
+            f"{[round(t, 1) for t in g0['serve_s']]} s (gloo on one card: "
+            f"not a speed of data parallelism); one rank's serve and build "
+            f"{t_ref:.1f} s")
+        if g0["texts"][0] != texts:
+            raise AssertionError(f"(b) {name}: data=2 {g0['texts'][0]!r} "
+                                 f"!= one rank {texts!r}")
+        if kv != [0.5] * DP:
+            raise AssertionError(f"(b) {name}: KV cache shares {kv}, not "
+                                 f"half of one rank's")
+        if whole != [1.0] * DP or any(
+                g["stream_bytes_per_device"] != g["stream_bytes"]
+                for g in got):
+            raise AssertionError(f"(b) {name}: a data rank holds {whole} "
+                                 f"of the weights, not all of them")
+        log(f"  (b) {name}: text equal to one rank's for "
+            f"{len(contents)} chats")
+    if torch.cuda.device_count() >= 2:
+        nccl = tp_spawn("dp_nccl", ["cuda:0", "cuda:1"], [jobs[2]],
+                        mesh={"data": DP})
+        if nccl[0]["dp_ckpt_bf16"]["backend"] != "nccl":
+            raise AssertionError("two cards must run over nccl")
+        tp_check_ranks("dp nccl", "dp_ckpt_bf16", nccl)
+        got, gloo = nccl[0]["dp_ckpt_bf16"], ranks[0]["dp_ckpt_bf16"]
+        same = got["texts"] == gloo["texts"]
+        log(f"  nccl pass on cuda:0, cuda:1: tokens equal on both ranks; "
+            f"serve {[round(t, 1) for t in got['serve_s']]} s (gloo on one "
+            f"card: {[round(t, 1) for t in gloo['serve_s']]} s); text equal "
+            f"to gloo's: {same}")
+        if not same:
+            raise AssertionError("the nccl pass's text differs from gloo's")
+    else:
+        log(f"  nccl pass not run: {torch.cuda.device_count()} card(s) on "
+            f"this machine")
+    c = {name: ranks[0][name]["counts"] for name in
+         ("dp_tiny_int8", "dp_ckpt_bf16", "dp_ckpt_int8")}
+    return {"flash_prefill": c["dp_ckpt_bf16"]["flash_prefill"]
+            + c["dp_ckpt_int8"]["flash_prefill"],
+            "decode_attention": c["dp_ckpt_bf16"]["decode_attention"],
+            "decode_attention_int8": c["dp_ckpt_int8"]["decode_attention"],
+            "kv_append_fused": c["dp_ckpt_int8"]["decode_attention_append"],
+            "w8a16_matmul[gemv]": c["dp_ckpt_int8"]["w8a16_gemv"],
+            "w8a16_matmul[gemv_f32]": c["dp_tiny_int8"]["w8a16_gemv_f32"],
+            "w8a16_matmul[tc]": c["dp_ckpt_int8"]["w8a16_tc"],
+            "kv_append": sum(r["kv_append"] for r in c.values()),
+            "w8a8_matmul": 0}
+
+
 def tp_main() -> int:
-    """`python3 chip_smoke.py --tp`: phase 14 alone, where the machine has
-    the cards for its nccl pass too: the device, the build, phase 10's
-    checkpoint and warm caches written in process (without its hosts),
-    then phase 14."""
+    """`python3 chip_smoke.py --tp`: phases 14 and 15 alone, where the
+    machine has the cards for their nccl passes too: the device, the
+    build, phase 10's checkpoint and warm caches written in process
+    (without its hosts), then phases 14 and 15."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
@@ -3904,8 +4108,11 @@ def tp_main() -> int:
     t1 = time.perf_counter()
     log(f"checkpoint and warm caches written in {t1 - t0:.1f} s")
     launches = check_tp(smi)
+    t2 = time.perf_counter()
+    log(f"phase 14 took {t2 - t1:.1f} s; launches_tp {launches}")
+    launches = check_dp(smi)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    log(f"phase 14 took {time.perf_counter() - t1:.1f} s; launches_tp "
+    log(f"phase 15 took {time.perf_counter() - t2:.1f} s; launches_dp "
         f"{launches}")
     return 0
 
@@ -4068,7 +4275,6 @@ def main() -> int:
         f"float32, llama3-8b width at {CKPT_LAYERS} layers (phase 10's "
         f"checkpoint) bf16 and int8, the provider with a --worker rank")
     tp_launches = check_tp(smi)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for row in rows:
         row["launches_tp"] = tp_launches[row["name"]]
         on_path = row["name"] not in ("kv_append", "w8a8_matmul")
@@ -4077,11 +4283,26 @@ def main() -> int:
         if not on_path and row["launches_tp"]:
             raise AssertionError(f"{row['name']} launched at TP=2")
     phase_done(14)
+
+    log(f"phase 15: the data axis, ranks on one card: tiny float32 at "
+        f"{{data: 2}} and {{data: 2, model: 2}}, llama3-8b width at "
+        f"{CKPT_LAYERS} layers (phase 10's checkpoint) bf16 and int8 at "
+        f"{{data: 2}}")
+    dp_launches = check_dp(smi)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for row in rows:
+        row["launches_dp"] = dp_launches[row["name"]]
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        if on_path and row["launches_dp"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at data=2")
+        if not on_path and row["launches_dp"]:
+            raise AssertionError(f"{row['name']} launched at data=2")
+    phase_done(15)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_moe", "launches_tp")
+            "launches_moe", "launches_tp", "launches_dp")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          **({"path": row["path"]} if "path" in row else {})}

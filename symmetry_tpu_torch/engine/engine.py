@@ -47,15 +47,23 @@ frames into its block pool (`adopt_prefix`), so the request admits through
 the ordinary prefix-hit path. Device-time probes (`profile_sample`,
 utils/devprof.py) time 1 in N dispatches of each kind on the card.
 
-Tensor parallelism (`mesh`, parallel/): a mesh whose `model` axis is N
-runs N engines, one per rank (process), each holding its block of the
-params (models/llama.py shard_params: `params` passed with a mesh are
-this rank's blocks) and of the KV cache and prefix pool (its kv heads,
-cache_logical_axes). Every rank's host state -- slot lengths, keys, the
-radix tree -- is the same: rank 0's scheduler drives all of them through
-parallel/multihost.py's command loop. Knobs outside this slice (any other
-mesh axis, dcn_data, MoE on a mesh, pipeline microbatches, ring_mesh)
-raise EngineError naming their ROADMAP item.
+Meshes (`mesh`, parallel/): a mesh of N ranks runs N engines, one per
+rank (process). Over the `model` axis (tensor parallelism) each holds its
+block of the params (models/llama.py shard_params: `params` passed with a
+mesh are this rank's blocks) and of the KV cache and prefix pool (its kv
+heads, cache_logical_axes). Over the `data` axis the params are
+replicated and each rank owns a contiguous block of the slots, the block
+NamedSharding gives its data coordinate: its decode cache holds only
+those slots, and decode and verify compute only those rows, whose
+sampled tokens are then all-gathered over the axis. Prefills (coalesced,
+cached, chunked) run whole on every rank of the axis, and each installs
+only its own slots' KV. So the state the host reads -- lengths, last
+tokens, sampling parameters, every slot's key chain -- and the prefix
+pool and radix tree are whole and equal on every rank, as in the JAX
+engine, where they are replicated. Rank 0's scheduler drives every rank
+through parallel/multihost.py's command loop. Knobs outside this slice
+(the other mesh axes, dcn_data, MoE on a mesh, pipeline microbatches,
+ring_mesh) raise EngineError naming their ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -206,7 +214,7 @@ class HostFuture:
 
 # Knobs outside this slice -> the ROADMAP item that brings them.
 _NOT_PORTED = {
-    "mesh": "a mesh axis other than `model` (data, context, stage, "
+    "mesh": "a mesh axis other than `data` and `model` (context, stage, "
             "expert: ROADMAP Queue 1 item 14)",
     "dcn_data": "a data axis across hosts (dcn_data > 1: ROADMAP Queue 1 "
                 "item 14)",
@@ -241,18 +249,27 @@ def _refuse(knob: str) -> EngineError:
                        f"PyTorch engine yet")
 
 
-def check_mesh(shape: dict[str, int], config: ModelConfig | None = None
-               ) -> None:
-    """Refuse a mesh this slice does not serve: any axis but `model` above
-    1, MoE on a mesh, or a model axis that does not divide the heads, kv
-    heads, MLP width and vocabulary (each rank holds an equal block)."""
-    if any(n > 1 for axis, n in shape.items() if axis != "model"):
+def check_mesh(shape: dict[str, int], config: ModelConfig | None = None,
+               max_slots: int | None = None) -> None:
+    """Refuse a mesh this slice does not serve: an axis other than `data`
+    and `model` above 1, MoE on a mesh, a data axis that does not divide
+    the slots (each data rank owns an equal block), or a model axis that
+    does not divide the heads, kv heads, MLP width and vocabulary (each
+    rank holds an equal block)."""
+    if any(n > 1 for axis, n in shape.items()
+           if axis not in ("data", "model")):
         raise _refuse("mesh")
+    if (config is not None and getattr(config, "num_experts", 0)
+            and int(np.prod([int(n) for n in shape.values()])) > 1):
+        raise _refuse("moe_mesh")
+    dp = int(shape.get("data", 1))
+    if max_slots is not None and max_slots % dp:
+        raise EngineError(f"mesh data={dp} does not divide max_slots "
+                          f"{max_slots}: each data rank owns an equal "
+                          f"block of the slots")
     tp = int(shape.get("model", 1))
     if tp == 1 or config is None:
         return
-    if getattr(config, "num_experts", 0):
-        raise _refuse("moe_mesh")
     for what, n in (("num_heads", config.num_heads),
                     ("num_kv_heads", config.num_kv_heads),
                     ("intermediate_size", config.intermediate_size),
@@ -303,7 +320,7 @@ class InferenceEngine:
         if pipeline_microbatches > 1:
             raise _refuse("pipeline_microbatches")
         if mesh is not None:
-            check_mesh(mesh.shape, config)
+            check_mesh(mesh.shape, config, max_slots)
             if role != "unified":
                 # Handoff frames are host-side snapshots of the whole
                 # cache; a rank holds only its kv heads (the JAX engine's
@@ -318,6 +335,15 @@ class InferenceEngine:
                 raise EngineError(f"engine device {device} is not this "
                                   f"rank's mesh device {mesh.device}")
         self.mesh = mesh
+        # The `data` axis: this rank's contiguous block of the slots (the
+        # block NamedSharding gives its data coordinate), and its rows of a
+        # per-slot tensor (every row on one rank).
+        self._dp = 1 if mesh is None else mesh.axis_size("data")
+        local_slots = max_slots // self._dp
+        lo = (0 if mesh is None else mesh.axis_index("data")) * local_slots
+        self.slot_block = (lo, lo + local_slots)
+        self._rows = slice(*self.slot_block) if self._dp > 1 \
+            else slice(None)
         # Disaggregated prefill/decode (engine/disagg/): "unified" prefills
         # AND decodes; "prefill" builds prompt KV and hands it off (never
         # decodes; warmup skips the decode side); "decode" adopts handed-off
@@ -373,10 +399,16 @@ class InferenceEngine:
                 f"max_seq_len {max_seq_len}")
 
         dev = self.device
+        cache = init_cache(config, max_slots // self._dp, max_seq_len,
+                           cache_dtype, quantized=self.kv_quant, device=dev,
+                           mesh=self.mesh)
+        if self._dp > 1:
+            # The lengths stay whole on every rank: the host reads any
+            # slot's, and they advance alike everywhere.
+            cache = cache._replace(lengths=torch.zeros(
+                max_slots, dtype=torch.int32, device=dev))
         self.state = DecodeState(
-            cache=init_cache(config, max_slots, max_seq_len, cache_dtype,
-                             quantized=self.kv_quant, device=dev,
-                             mesh=self.mesh),
+            cache=cache,
             last_token=torch.zeros(max_slots, dtype=torch.int64, device=dev),
             temperature=torch.zeros(max_slots, dtype=torch.float32,
                                     device=dev),
@@ -539,13 +571,28 @@ class InferenceEngine:
         def pick(t, dim=0):
             return t if rows is None else t.index_select(dim, rows)
 
-        slots = self._dev(slots)
-        Sb = prefix.k.shape[2]
-        st.cache.k[:, slots, :Sb] = pick(prefix.k, 1)
-        st.cache.v[:, slots, :Sb] = pick(prefix.v, 1)
-        if self.kv_quant:
-            st.cache.k_scale[:, slots, :, :Sb] = pick(prefix.k_scale, 1)
-            st.cache.v_scale[:, slots, :, :Sb] = pick(prefix.v_scale, 1)
+        slots_d = self._dev(slots)
+        # KV rows: on a data axis, only this rank's slots, at their place
+        # in its block.
+        kv_rows, kv_slots = rows, slots_d
+        if self._dp > 1:
+            lo, hi = self.slot_block
+            mine = [i for i, s in enumerate(slots) if lo <= s < hi]
+            kv_rows = self._dev(np.asarray(last, np.int64)[mine])
+            kv_slots = self._dev(slots[mine] - lo)
+        if len(kv_slots):
+            def pick_kv(t):
+                return t if kv_rows is None else t.index_select(1, kv_rows)
+
+            Sb = prefix.k.shape[2]
+            st.cache.k[:, kv_slots, :Sb] = pick_kv(prefix.k)
+            st.cache.v[:, kv_slots, :Sb] = pick_kv(prefix.v)
+            if self.kv_quant:
+                st.cache.k_scale[:, kv_slots, :, :Sb] = pick_kv(
+                    prefix.k_scale)
+                st.cache.v_scale[:, kv_slots, :, :Sb] = pick_kv(
+                    prefix.v_scale)
+        slots = slots_d
         # The first sampled token's KV is not written yet: the next decode
         # step writes it at position true_len.
         st.cache.lengths[slots] = pick(true_len)
@@ -619,18 +666,35 @@ class InferenceEngine:
                        k_scale=take(prefix.k_scale),
                        v_scale=take(prefix.v_scale))
 
+    def _own(self, cache: KVCache) -> KVCache:
+        """The decode cache as this rank's forward takes it: on a data
+        axis its k/v hold this rank's slots only, so the lengths are cut
+        to that block."""
+        if self._dp == 1:
+            return cache
+        return cache._replace(lengths=cache.lengths[self._rows])
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-slot result of this rank's rows, whole on every rank (an
+        all-gather over the data axis)."""
+        return t if self._dp == 1 else self.mesh.all_gather(t, "data", 0)
+
     def _decode_one(self) -> torch.Tensor:
-        """Advance every slot one token."""
-        st = self.state
+        """Advance every slot one token (on a data axis, this rank's rows,
+        then every rank's tokens)."""
+        st, rows = self.state, self._rows
         h, cache = forward_hidden(self.params, self.config,
-                                  st.last_token[:, None], st.cache,
-                                  mesh=self.mesh)
+                                  st.last_token[rows, None],
+                                  self._own(st.cache), mesh=self.mesh)
         logits = logits_from_hidden(self.params, self.config, h,
                                     self.mesh)[:, 0]
         # Each slot's key splits into its next key and this step's draw.
         keys = prng.split(st.rng)
-        toks = sample_tokens(logits, keys[:, 1], st.temperature,
-                             st.top_p, st.top_k)
+        toks = self._gather_slots(sample_tokens(
+            logits, keys[rows, 1], st.temperature[rows], st.top_p[rows],
+            st.top_k[rows]))
+        if self._dp > 1:
+            cache = cache._replace(lengths=st.cache.lengths + 1)
         self.state = st._replace(cache=cache, last_token=toks,
                                  rng=keys[:, 0])
         return toks
@@ -648,17 +712,20 @@ class InferenceEngine:
         later writes overwrite -- the rollback is one lengths update, no
         data movement. A slot with n_draft 0 advances exactly one token,
         like a plain decode step. Returns (tokens [1 + k, B], n_emit [B])."""
-        st = self.state
-        tokens = torch.cat([st.last_token[:, None], draft], dim=1)
+        st, rows = self.state, self._rows
+        tokens = torch.cat([st.last_token[rows, None], draft[rows]], dim=1)
         old_lengths = st.cache.lengths
-        h, cache = forward_hidden(self.params, self.config, tokens, st.cache,
-                                  seq_lens=1 + n_draft, mesh=self.mesh)
+        h, cache = forward_hidden(self.params, self.config, tokens,
+                                  self._own(st.cache),
+                                  seq_lens=1 + n_draft[rows], mesh=self.mesh)
         # The head over all 1 + k positions: every lane is a candidate.
         logits = logits_from_hidden(self.params, self.config, h, self.mesh)
         # One split of each slot's key per verify, as a decode step takes.
         keys = prng.split(st.rng)
-        out, n_emit = verify_tokens(logits, draft, n_draft, keys[:, 1],
-                                    st.temperature, st.top_p, st.top_k)
+        out, n_emit = verify_tokens(logits, draft[rows], n_draft[rows],
+                                    keys[rows, 1], st.temperature[rows],
+                                    st.top_p[rows], st.top_k[rows])
+        out, n_emit = self._gather_slots(out), self._gather_slots(n_emit)
         last = torch.gather(out, 1, (n_emit - 1).long()[:, None])[:, 0]
         self.state = st._replace(
             cache=cache._replace(lengths=old_lengths + n_emit),
@@ -1434,6 +1501,15 @@ class InferenceEngine:
     def slot_capacity(self) -> int:
         return self.max_seq_len
 
+    def kv_cache_bytes(self) -> int:
+        """Bytes of this rank's decode KV cache, payloads and scale planes:
+        on a data axis, its block of the slots; on a model axis, its kv
+        heads."""
+        c = self.state.cache
+        return sum(t.numel() * t.element_size()
+                   for t in (c.k, c.v, c.k_scale, c.v_scale)
+                   if t is not None)
+
     def weight_stream_bytes(self) -> int:
         """Bytes of parameter data one decode step must stream from device
         memory: every weight (int8 payload + float32 scales, or dense),
@@ -1499,14 +1575,16 @@ class InferenceEngine:
         drawn from torch.Generator(d).manual_seed(0), d the card when one
         is present and else the CPU: random weights of the preset's shape,
         NOT the JAX package's jax.random.key(0) weights.
-        A `tpu.mesh` of N > 1 ranks (the `model` axis) builds this rank's
-        engine of an N-rank job: with `tpu.multihost`, this joins the job
-        first (parallel/multihost.py init_distributed, from its
-        coordinator, num_processes and process_id); without it, the caller
-        has joined it (the engine host spawns and joins its ranks itself).
-        Every rank loads only its block of the weights. Knobs outside this
-        slice raise EngineError naming their ROADMAP item: any other mesh
-        axis, dcn_data > 1, MoE on a mesh and pipeline microbatches."""
+        A `tpu.mesh` of N > 1 ranks (its `data` and `model` axes) builds
+        this rank's engine of an N-rank job: with `tpu.multihost`, this
+        joins the job first (parallel/multihost.py init_distributed, from
+        its coordinator, num_processes and process_id); without it, the
+        caller has joined it (the engine host spawns and joins its ranks
+        itself).
+        Every rank loads only its `model` block of the weights (whole on
+        every rank of the data axis). Knobs outside this slice raise
+        EngineError naming their ROADMAP item: the other mesh axes,
+        dcn_data > 1, MoE on a mesh and pipeline microbatches."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
@@ -1516,7 +1594,8 @@ class InferenceEngine:
             # Refuse before joining a job: the model's shapes decide too.
             check_mesh(spec.shape(), read_hf_config(tpu_cfg.checkpoint_path)
                        if tpu_cfg.checkpoint_path
-                       else preset(tpu_cfg.model_preset or "tiny"))
+                       else preset(tpu_cfg.model_preset or "tiny"),
+                       tpu_cfg.max_batch_size)
         mh = tpu_cfg.multihost
         if mh and int(mh.get("dcn_data", 1)) > 1:
             raise _refuse("dcn_data")

@@ -16,8 +16,9 @@ per axis of size > 1, a CPU control group for the command loop, and its
 torch device. Its `all_reduce` and `all_gather` are the collectives the
 tensor-parallel forward and the sharded loaders call.
 
-Only the `model` axis is served (models/llama.py); the engine refuses any
-other axis above 1 (ROADMAP Queue 1 item 14).
+The `model` axis (models/llama.py) and the `data` axis (engine/engine.py:
+each rank owns a block of the slots) are served, alone or together; the
+engine refuses any other axis above 1 (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations

@@ -463,10 +463,10 @@ class TestFromTpuConfig:
                            b.params["layers"]["wq"])
 
     @pytest.mark.parametrize("raw,item", [
-        # the model axis serves since item 14's TP half
-        # (tests/test_torch_tp.py); the rest stays refused, before any
+        # the model and data axes serve (tests/test_torch_tp.py,
+        # tests/test_torch_dp.py); the rest stays refused, before any
         # process group is joined
-        ({"mesh": {"data": 2, "model": 1}}, "item 14"),
+        ({"mesh": {"data": 2, "model": 1, "stage": 2}}, "item 14"),
         ({"mesh": {"data": 1, "model": 2, "context": 2}}, "item 14"),
         ({"multihost": {"coordinator": "localhost:1", "num_processes": 2,
                         "dcn_data": 2}}, "item 14"),

@@ -51,6 +51,12 @@ COPIES = [
     "engine/disagg/pool.py", "engine/disagg/node.py",
     "engine/disagg/autoscale.py", "client/__init__.py",
     "client/__main__.py", "client/client.py",
+    # the static-analysis suite, its scopes pointed at the port
+    "analysis/__init__.py", "analysis/core.py", "analysis/dataflow.py",
+    "analysis/concurrency.py", "analysis/donation.py",
+    "analysis/fault_seams.py", "analysis/knobs.py", "analysis/lifecycle.py",
+    "analysis/metric_names.py", "analysis/recompile.py",
+    "analysis/wire_contract.py",
 ]
 
 # Modules of the port that compute with torch (or describe the port): not
@@ -64,15 +70,91 @@ PORTED = {
     "ops/sampling.py", "utils/__init__.py", "utils/compile_cache.py",
     "utils/devprof.py", "parallel/__init__.py", "parallel/mesh.py",
     "parallel/sharding.py", "parallel/multihost.py",
+    "analysis/__main__.py",
 }
+
+# Ports whose counterpart is a script outside the JAX package, not a module
+# at the same path: port path -> the script.
+TWIN_SCRIPTS = {"analysis/__main__.py": "tools/symlint.py"}
 
 HISTORY = ("history references reworded",
            "the JAX package's comments cite its own PR numbers and a "
            "path on the machine its reference was read from; the copy's "
            "comments say the same without them")
 
+SCOPE = ("scope: the port",
+         "the checker's file globs name symmetry_tpu_torch/ where the JAX "
+         "package's name symmetry_tpu/ (tools/*.py and tests/** stay in "
+         "the scopes that had them)")
+MESSAGE = ("messages name the port's files",
+           "a finding's message names the port's registry or package, not "
+           "the JAX package's")
+# recompile-hazard and donation check jax.jit regions; the port has none
+# until CUDA graphs give it captured regions (ROADMAP item 18), so over the
+# port's tree they find nothing to check. They stay in ALL_CHECKERS so their
+# seeded fixtures keep running (tests/test_torch_analysis.py).
+NO_JIT = ("scope: the port (no jit regions yet)",
+          "the scope points at the port's engine, spec, ops and models; the "
+          "port has no jax.jit, so over its tree the checker has no target "
+          "until captured regions exist (ROADMAP item 18), and its seeded "
+          "fixtures still run")
+
 # module -> (hunks in the diff, [(deviation, why, anchors)]).
 DEVIATIONS = {
+    "analysis/__init__.py": (6, [
+        ("the scan leaves out the JAX package",
+         "Project.class_constants and knobs._tpu_fields take the first "
+         "scanned file that defines a class; symmetry_tpu/ sorts before "
+         "symmetry_tpu_torch/, so a scan of the whole repo would hold the "
+         "port against the JAX package's TpuConfig and registries. run() "
+         "scans scanned_files(root), every file but symmetry_tpu/**, and "
+         "core.py and knobs.py stay line for line",
+         ["+    iter_py_files,", "+def scanned_files(root: str)",
+          "+    project = Project.scan(root, rels if rels is not None",
+          '+           "Project", "run", "run_suite", "scanned_files"]']),
+        ("the runner's name",
+         "the port's suite runs as python -m symmetry_tpu_torch.analysis "
+         "(__main__.py), and tests/test_torch_analysis.py holds the port "
+         "clean",
+         ["(see __main__.py)",
+          "+Run via `python -m symmetry_tpu_torch.analysis`"]),
+    ]),
+    "analysis/concurrency.py": (1, [
+        (*SCOPE, ['+SCOPE = ("symmetry_tpu_torch/**",)']),
+    ]),
+    "analysis/donation.py": (1, [
+        (*NO_JIT, ['+GROUP = ("symmetry_tpu_torch/*.py",)']),
+    ]),
+    "analysis/recompile.py": (1, [
+        (*NO_JIT, ['+    "symmetry_tpu_torch/engine/engine.py",']),
+    ]),
+    "analysis/fault_seams.py": (2, [
+        (*SCOPE, ['+GUARD_SCOPE = ("symmetry_tpu_torch/**",',
+                  '+ARM_SCOPE = ("symmetry_tpu_torch/**",']),
+    ]),
+    "analysis/knobs.py": (2, [
+        (*SCOPE, ['+GROUP = ("symmetry_tpu_torch/*.py",)']),
+        (*MESSAGE, ['+                    f"symmetry_tpu_torch/ — a dead knob']),
+    ]),
+    "analysis/lifecycle.py": (1, [
+        (*SCOPE, ['+GROUP = ("symmetry_tpu_torch/*.py",)']),
+    ]),
+    "analysis/metric_names.py": (3, [
+        (*SCOPE, ['+EMIT_GROUP = ("symmetry_tpu_torch/*.py",)']),
+        (*MESSAGE, ["+                                f'symmetry_tpu_torch/utils/"
+                    "metrics.py'))",
+                    '("symmetry_tpu_torch/utils/metrics.py", 1))']),
+    ]),
+    "analysis/wire_contract.py": (6, [
+        (*SCOPE, ['+    "symmetry_tpu_torch/engine/host.py",',
+                  '+    "symmetry_tpu_torch/engine/disagg/net.py",',
+                  '+    "symmetry_tpu_torch/provider/*.py",']),
+        (*MESSAGE, ["+                 f'(symmetry_tpu_torch/protocol/keys.py)",
+                    "+                    f' from symmetry_tpu_torch/protocol/"
+                    "keys.py'))",
+                    "+                    f'{registry_class} "
+                    "(symmetry_tpu_torch/protocol/keys.py) '"]),
+    ]),
     "engine/disagg/autoscale.py": (1, [
         (*HISTORY, ["+Every piece existed before this module and nothing "
                     "connected them: the"]),
@@ -254,6 +336,9 @@ def test_every_counterpart_is_a_copy_or_a_port():
             rel = os.path.relpath(os.path.join(dirpath, name), port_root)
             if os.path.exists(os.path.join(REPO, "symmetry_tpu", rel)):
                 twins.add(rel)
+    twins |= {port for port, script in TWIN_SCRIPTS.items()
+              if os.path.exists(os.path.join(port_root, port))
+              and os.path.exists(os.path.join(REPO, script))}
     assert not set(COPIES) & PORTED
     assert twins == set(COPIES) | PORTED, (
         sorted(twins ^ (set(COPIES) | PORTED)))

@@ -212,8 +212,9 @@ class TestSampling:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
-        # a data axis (the model axis serves: tests/test_torch_tp.py)
-        ("mesh", Mesh(MeshSpec(data=2)), "item 14"),
+        # a context axis beside a data axis (the model and data axes
+        # serve: tests/test_torch_tp.py, tests/test_torch_dp.py)
+        ("mesh", Mesh(MeshSpec(data=2, context=2)), "item 14"),
         ("pipeline_microbatches", 2, "item 14"),
     ])
     def test_knobs_outside_the_slice_raise(self, weights, knob, value, item):
@@ -337,7 +338,7 @@ import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 77, names
+assert len(names) >= 89, names
 for new in ("models.moe", "ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
             "protocol.keys", "engine.weights", "engine.safetensors_io",
@@ -356,7 +357,11 @@ for new in ("models.moe", "ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_a
             "engine.disagg.broker", "engine.disagg.net",
             "engine.disagg.pool", "engine.disagg.node",
             "engine.disagg.autoscale", "client", "client.__main__",
-            "client.client"):
+            "client.client", "analysis", "analysis.__main__",
+            "analysis.core", "analysis.dataflow", "analysis.concurrency",
+            "analysis.donation", "analysis.fault_seams", "analysis.knobs",
+            "analysis.lifecycle", "analysis.metric_names",
+            "analysis.recompile", "analysis.wire_contract"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)

@@ -141,10 +141,13 @@ def port_mesh(tp: int, rank: int) -> Mesh:
     return Mesh(MeshSpec(model=tp), rank=rank)
 
 
-def run_ranks(tmp_path, jobs: list[dict], world: int = 2) -> str:
-    """Run `jobs` on `world` ranks; returns the output directory."""
+def run_ranks(tmp_path, jobs: list[dict], world: int = 2,
+              mesh: dict | None = None) -> str:
+    """Run `jobs` on `world` ranks (the mesh `mesh`, by default the model
+    axis over all of them); returns the output directory."""
     out = str(tmp_path)
-    spec = {"port": free_port(), "world": world, "out": out, "jobs": jobs}
+    spec = {"port": free_port(), "world": world, "out": out, "jobs": jobs,
+            "mesh": mesh}
     spec_path = os.path.join(out, "spec.json")
     with open(spec_path, "w", encoding="utf-8") as fh:
         json.dump(spec, fh)
@@ -311,7 +314,7 @@ class TestSharding:
 
 class TestRefusals:
     @pytest.mark.parametrize("raw", [
-        {"mesh": {"data": 2}},
+        {"mesh": {"data": 2, "context": 2}},
         {"mesh": {"model": 2, "context": 2}},
         {"mesh": {"stage": 2}},
         {"mesh": {"expert": 2}},
@@ -320,6 +323,10 @@ class TestRefusals:
             "coordinator": "127.0.0.1:1", "num_processes": 4,
             "process_id": 0, "dcn_data": 2}},
         {"pipeline_microbatches": 2},
+        {"model_preset": "tiny-moe", "mesh": {"data": 2}},
+        {"mesh": {"data": 2}, "multihost": {
+            "coordinator": "127.0.0.1:1", "num_processes": 4,
+            "process_id": 0, "dcn_data": 2}},
     ])
     def test_out_of_slice_names_item_14(self, raw):
         """Refused before any process group is joined (a multihost section
@@ -327,6 +334,15 @@ class TestRefusals:
         with pytest.raises(EngineError, match="item 14"):
             InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
                                             device="cpu")
+
+    def test_indivisible_data_axis_refused(self):
+        """Each data rank owns an equal block of the slots, as NamedSharding
+        would cut the cache's batch dim: 8 slots do not split over 3."""
+        with pytest.raises(EngineError, match="data=3 does not divide "
+                                              "max_slots 8"):
+            InferenceEngine.from_tpu_config(
+                TpuConfig.from_dict({"mesh": {"data": 3},
+                                     "max_batch_size": 8}), device="cpu")
 
     def test_mesh_without_a_job_says_how_to_run_it(self):
         with pytest.raises(EngineError, match="engine host"):
@@ -376,12 +392,14 @@ def jax_forward_ref(tree, cfg, mesh, tokens, *, quantized=False):
 
 
 def jax_serve(tree, cfg, mesh, rounds: int, *, quantized=False,
-              kv_quant=False):
-    """The JAX engine on the mesh, through its Scheduler, greedy: each
-    round's tokens per prompt."""
+              kv_quant=False, geometry: dict | None = None,
+              sampling: dict | None = None):
+    """The JAX engine on the mesh, through its Scheduler, greedy (or with
+    `sampling`, its seed plus the prompt's index): each round's tokens per
+    prompt."""
     engine = JaxEngine(cfg, jax_sharded(tree, cfg, mesh, quantized=quantized),
                        JaxByteTokenizer(), mesh=mesh, kv_quant=kv_quant,
-                       cache_dtype=jnp.float32, **GEOMETRY)
+                       cache_dtype=jnp.float32, **(geometry or GEOMETRY))
     out = []
     for rnd in range(rounds):
         sched = JaxScheduler(engine)
@@ -393,8 +411,11 @@ def jax_serve(tree, cfg, mesh, rounds: int, *, quantized=False,
                     ids[i].append(int(ev.token_id))
                 if ev.done:
                     done[i].set()
+            s = dict(sampling or {})
+            if "seed" in s:
+                s["seed"] += i
             sched.submit(JaxRequest(prompt_ids=list(prompt),
-                                    sampling=JaxSampling(),
+                                    sampling=JaxSampling(**s),
                                     max_new_tokens=MAX_NEW, emit=emit,
                                     id=f"j{rnd}-{i}"))
         sched.start()

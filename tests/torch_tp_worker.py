@@ -1,16 +1,19 @@
-"""One rank of the tensor-parallel tests (tests/test_torch_tp.py).
+"""One rank of the mesh tests (tests/test_torch_tp.py, tests/test_torch_dp.py).
 
 Runs as N real OS processes joined by torch.distributed over gloo on the
 CPU; imports torch and the port only (the parent holds the JAX references).
 
     python tests/torch_tp_worker.py <spec.json> <rank>
 
-The spec names the coordinator port, the world size, an output directory
-and a list of jobs; each job writes `<out>/<job>.<rank>.npz` (and the
-engine jobs a json of the tokens this rank recorded). Jobs:
+The spec names the coordinator port, the world size, the mesh (default
+the `model` axis over every rank), an output directory and a list of
+jobs; each job writes `<out>/<job>.<rank>.npz` (and the engine jobs a
+json of the tokens this rank recorded). Jobs:
 
-  forward  the port's TP forward of a preset on numpy weights: prefill
-           logits over every position, then one decode step's;
+  forward  the port's forward of a preset on numpy weights on the mesh:
+           prefill logits over every position, then one decode step's
+           (with `split_batch`, each data rank runs its block of the rows
+           and the logits are gathered over the data axis);
   engine   an engine on the mesh; rank 0 serves prompts greedily through
            the Scheduler and the command loop, every rank records the
            tokens its own engine produced (the lockstep check);
@@ -90,11 +93,18 @@ def job_forward(job, mesh, rank):
     if job.get("pack"):
         pack_params(params, config=cfg, mesh=mesh)
     tokens = torch.tensor(job["tokens"])
+    if job.get("split_batch"):
+        from symmetry_tpu_torch.parallel.sharding import Sharding
+
+        tokens = Sharding(mesh, ("data", None))(tokens)
     B, S = tokens.shape
     cache = init_cache(cfg, B, S + 4, dtype, device="cpu",
                        quantized=bool(job.get("kv_quant")), mesh=mesh)
     logits, cache = forward(params, cfg, tokens, cache, mesh=mesh)
     step, _ = forward(params, cfg, tokens[:, -1:], cache, mesh=mesh)
+    if job.get("split_batch"):
+        logits = mesh.all_gather(logits, "data", 0)
+        step = mesh.all_gather(step, "data", 0)
     return {"prefill": logits.numpy(), "decode": step.numpy(),
             "cache_k": cache.k.float().numpy()}
 
@@ -155,8 +165,13 @@ def job_engine(job, mesh, rank):
                         ids[i].append(int(ev.token_id))
                     if ev.done:
                         done[i].set()
+                sampling = SamplingParams(**job.get("sampling", {}))
+                if sampling.seed is not None:
+                    # one seed a request, the same in every round
+                    sampling = SamplingParams(**{**job["sampling"],
+                                                 "seed": sampling.seed + i})
                 sched.submit(GenRequest(
-                    prompt_ids=list(prompt), sampling=SamplingParams(),
+                    prompt_ids=list(prompt), sampling=sampling,
                     max_new_tokens=job["max_new"], emit=emit,
                     id=f"r{rnd}-{i}"))
             sched.start()
@@ -175,6 +190,9 @@ def job_engine(job, mesh, rank):
     result["recorded"] = recorded
     result["lengths"] = [engine.slot_length(s)
                          for s in range(engine.max_slots)]
+    result["kv_slots"] = int(engine.state.cache.k.shape[1])
+    result["kv_cache_bytes"] = engine.kv_cache_bytes()
+    result["slot_block"] = list(engine.slot_block)
     result["weight_stream_bytes"] = engine.weight_stream_bytes()
     result["weight_stream_bytes_per_device"] = (
         engine.weight_stream_bytes_per_device())
@@ -234,13 +252,14 @@ def job_direct(job, mesh, rank):
                              speculative=SpecConfig(k_draft=2),
                              **job["engine"])
     loop = CommandLoop(engine, is_coordinator=rank == 0)
+    slots = range(engine.max_slots)
     if rank != 0:
         loop.follow_forever()
-        return {"lengths": [engine.slot_length(s) for s in range(2)]}
+        return {"lengths": [engine.slot_length(s) for s in slots]}
     calls = direct_calls(MultihostEngine(loop))
     loop.stop()
     return {"calls": calls,
-            "lengths": [engine.slot_length(s) for s in range(2)]}
+            "lengths": [engine.slot_length(s) for s in slots]}
 
 
 def job_load(job, mesh, rank):
@@ -301,7 +320,8 @@ def main() -> None:
 
     init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank,
                      device="cpu", timeout_s=120)
-    mesh = build_multihost_mesh(MeshSpec(model=spec["world"]))
+    mesh = build_multihost_mesh(MeshSpec.from_dict(
+        spec.get("mesh") or {"model": spec["world"]}))
     for job in spec["jobs"]:
         out = JOBS[job["kind"]](job, mesh, rank)
         path = os.path.join(spec["out"], f"{job['name']}.{rank}")
@@ -312,6 +332,12 @@ def main() -> None:
         if rest:
             with open(path + ".json", "w", encoding="utf-8") as fh:
                 json.dump(rest, fh)
+    # Every rank leaves the job together: a process that exits while gloo
+    # still serves another rank's pending traffic can abort in teardown.
+    import torch.distributed as dist
+
+    dist.barrier(group=mesh.control)
+    dist.destroy_process_group()
     print(f"RANK {rank} DONE", flush=True)
 
 
