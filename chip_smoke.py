@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --tp` runs phases 14 and 15 alone, with their nccl
-passes where the machine has two cards.)
+(`python3 chip_smoke.py --tp` runs phases 14 to 16 alone, with the nccl
+passes of 14 and 15 where the machine has two cards.)
 
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
@@ -213,14 +213,36 @@ Phases (any failure raises and exits non-zero):
               ranks, each rank's KV cache half of one rank's and its
               weights whole; an nccl pass of (b) bf16 where the machine
               has two cards;
- 16. report   one JSON line listing the nine kernel rows (W8A16 one per
+ 16. pp, cp   the stage and context axes (parallel/pipeline.py,
+              ring.py, ulysses.py): ranks on the one card over gloo, one
+              spawn a mesh: (a) `tiny` in float32 at {stage: 2} (1 and 2
+              microbatches, dense then int8 weights + int8 KV) and at
+              {context: 2} (dense, int8), prompts submitted together over
+              four slots: text equal to one CPU rank's, first-step logits
+              within 1e-4; (b) phase 10's checkpoint (one layer a stage)
+              at {stage: 2} with two microbatches, bf16 then int8 +
+              kv_quant + fused_dequant (which degrades to the mixed dot:
+              log and QMM_FALLBACK `stage_axis`), phase 15's four chats
+              together: text equal to one rank's serve, tokens and
+              launches equal on both ranks, each rank's KV cache half of
+              one rank's, its weights its layer plus the embedding, head
+              and final norm; (c) the checkpoint at {context: 2}:
+              forward_hidden with ring_mesh, ring then Ulysses, at B = 2
+              over a 4096-token bucket (seq_lens 4096, 3000) against one
+              rank's flash forward in bf16 (max abs error within 0.25,
+              ring and Ulysses within it of each other), and the engine,
+              bf16 and int8, text equal to one rank's serve;
+ report       one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3; `launches_moe`: each
               row's launches in phase 13; `launches_tp`: rank 0's in
               phase 14, equal on both ranks; `launches_dp`: rank 0's in
-              phase 15 (a)-(b) at {data: 2}, equal on both ranks), the
-              nvidia-smi line, and last the {"ok": true, ...} line. Each
-              phase prints its seconds.
+              phase 15 (a)-(b) at {data: 2}, equal on both ranks;
+              `launches_pp` and `launches_cp`: rank 0's in phase 16 at
+              {stage: 2} and {context: 2}, the W8A16 rows 0 at {stage: 2}
+              with the reason in `launches_pp_reason`), the nvidia-smi
+              line, and last the {"ok": true, ...} line. Each phase prints
+              its seconds.
 
 Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 """
@@ -3481,8 +3503,7 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     command; the launch counts are set to 0 after warmup and read after
     the serves, on every rank."""
     from symmetry_tpu_torch.engine.engine import InferenceEngine
-    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
-                                                 init_params,
+    from symmetry_tpu_torch.models.llama import (init_cache, init_params,
                                                  logits_from_hidden, preset)
     from symmetry_tpu_torch.parallel.multihost import (
         CMD_CHUNK_ADVANCE, CMD_DECODE, CMD_PREFILL, CMD_PREFILL_MANY,
@@ -3490,6 +3511,7 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     from symmetry_tpu_torch.provider.config import TpuConfig
 
     t0 = time.monotonic()
+    fallbacks0 = stage_fallbacks()
     if job["model"] == "tiny":
         cfg = preset("tiny")
         params = init_params(cfg, torch.Generator(
@@ -3516,8 +3538,8 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     cache = init_cache(cfg, 1, ids.shape[1], engine.cache_dtype,
                        quantized=engine.kv_quant, device=mesh.device,
                        mesh=mesh)
-    h, _ = forward_hidden(engine.params, cfg, ids, cache, prefill_flash=True,
-                          mesh=mesh)
+    # the engine's trunk: the pipeline schedule under a stage axis
+    h, _ = engine.trunk(ids, cache, prefill_flash=True)
     logits = logits_from_hidden(engine.params, cfg, h[:, -1:], mesh)[0, 0]
     del h, cache
     if rank == 0:
@@ -3565,6 +3587,9 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     out["param_bytes"] = sum(t.numel() * t.element_size()
                              for t in tree_leaves(engine.params))
+    out["layer_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(engine.params["layers"]))
+    out["stage_axis_fallbacks"] = stage_fallbacks() - fallbacks0
     out["stream_bytes"] = engine.weight_stream_bytes()
     out["stream_bytes_per_device"] = engine.weight_stream_bytes_per_device()
     out["kv_cache_bytes"] = engine.kv_cache_bytes()
@@ -3573,9 +3598,19 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     return out
 
 
+def stage_fallbacks() -> float:
+    """QMM_FALLBACK{reason="stage_axis"} in this process so far: the int8
+    leaves fused_dequant kept on the mixed dot under a stage axis."""
+    from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
+
+    return METRICS.counter(MetricName.QMM_FALLBACK, "",
+                           labels=("reason",)).value(reason="stage_axis")
+
+
 def tp_rank_main(spec_path: str, rank: int) -> int:
-    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14 or
-    15, on the spec's mesh (the model axis over every rank by default)."""
+    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14, 15
+    or 16, on the spec's mesh (the model axis over every rank by
+    default)."""
     from symmetry_tpu_torch.parallel.mesh import MeshSpec
     from symmetry_tpu_torch.parallel.multihost import (build_multihost_mesh,
                                                        init_distributed)
@@ -3591,7 +3626,8 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
     log(f"rank {rank}: mesh {mesh.describe()}")
     results = {}
     for job in spec["jobs"]:
-        results[job["name"]] = tp_job(mesh, rank, job)
+        run = cp_ring_job if job["model"] == "ring" else tp_job
+        results[job["name"]] = run(mesh, rank, job)
         # the job's engine (the loop and its recorder hold a cycle) goes
         # before the next one is built
         gc.collect()
@@ -3697,12 +3733,23 @@ def tp_reference_logits(int8: bool, prompt: list[int]) -> torch.Tensor:
     return out, ref_bytes
 
 
+_TINY_REFS: dict = {}
+
+
 def tp_tiny_reference(int8: bool, slots: int | None = None,
-                      together: bool = False
+                      together: bool = False, fused: bool = True
                       ) -> tuple[list[str], torch.Tensor]:
     """`tiny` on one CPU rank from the same draws: the texts of a serve of
     the TP prompts one at a time (or submitted together, over `slots`
-    slots), and the first step's logits."""
+    slots), and the first step's logits. int8 weights are packed
+    (fused_dequant) unless `fused` is off. Kept for the phases after."""
+    key = (int8, slots, together, fused)
+    if key not in _TINY_REFS:
+        _TINY_REFS[key] = _tiny_reference(int8, slots, together, fused)
+    return _TINY_REFS[key]
+
+
+def _tiny_reference(int8, slots, together, fused):
     from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
                                                  init_params,
@@ -3713,7 +3760,8 @@ def tp_tiny_reference(int8: bool, slots: int | None = None,
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          torch.float32, quantize=int8)
     engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
-                             device="cpu", kv_quant=int8, fused_dequant=int8,
+                             device="cpu", kv_quant=int8,
+                             fused_dequant=int8 and fused,
                              **{**TP_TINY, **({"max_slots": slots}
                                               if slots else {})})
     rng = np.random.default_rng(0)
@@ -3938,13 +3986,25 @@ def dp_section(int8: bool, mesh: bool = True) -> dict:
     return {**section, "mesh": {"data": DP}} if mesh else section
 
 
-def dp_reference(int8: bool, contents: list[str]) -> tuple:
+_DP_REFS: dict = {}
+
+
+def dp_reference(int8: bool, contents: list[str], fused: bool = True
+                 ) -> tuple:
     """One rank's serve of the chats, submitted together, on the same
-    section without the mesh: (texts, KV cache bytes, weight bytes)."""
+    section without the mesh (int8 weights packed for fused_dequant unless
+    `fused` is off): (texts, KV cache bytes, weight bytes, bytes of the
+    stacked layers). Kept for the phases after."""
     from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.provider.config import TpuConfig
 
-    tpu = TpuConfig.from_dict(dp_section(int8, mesh=False))
+    key = (int8, fused, tuple(contents))
+    if key in _DP_REFS:
+        return _DP_REFS[key]
+    section = dp_section(int8, mesh=False)
+    if int8 and not fused:
+        section["fused_dequant"] = False
+    tpu = TpuConfig.from_dict(section)
     engine = InferenceEngine.from_tpu_config(tpu, device="cuda")
     engine.warmup()
     prompts = [engine.tokenizer.apply_chat_template(
@@ -3952,10 +4012,13 @@ def dp_reference(int8: bool, contents: list[str]) -> tuple:
     texts = serve_together(engine, prompts, DP_NEW, tpu.pipeline_depth)
     out = (texts, engine.kv_cache_bytes(),
            sum(t.numel() * t.element_size()
-               for t in tree_leaves(engine.params)))
+               for t in tree_leaves(engine.params)),
+           sum(t.numel() * t.element_size()
+               for t in tree_leaves(engine.params["layers"])))
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    _DP_REFS[key] = out
     return out
 
 
@@ -4014,7 +4077,7 @@ def check_dp(smi: str) -> dict[str, int]:
         name = f"dp_ckpt_{'int8' if i8 else 'bf16'}"
         got = [r[name] for r in ranks]
         t0 = time.monotonic()
-        texts, ref_kv, ref_bytes = dp_reference(i8, contents)
+        texts, ref_kv, ref_bytes, _ = dp_reference(i8, contents)
         t_ref = time.monotonic() - t0
         kv = [g["kv_cache_bytes"] / ref_kv for g in got]
         whole = [g["param_bytes"] / ref_bytes for g in got]
@@ -4078,11 +4141,287 @@ def check_dp(smi: str) -> dict[str, int]:
             "w8a8_matmul": 0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the stage and context axes (parallel/pipeline.py, ring.py,
+# ulysses.py), ranks on the one card
+
+PP = 2
+CP = 2
+# Ranks share the one card over gloo, as in phases 14-15: the phase checks
+# correctness and each rank's share of the memory, not the speed of either
+# axis (two processes time-slice one card; the stage-to-stage activations
+# and the ring's K/V blocks go through host memory).
+PP_DEVICES = ["cuda:0"] * PP
+CP_DEVICES = ["cuda:0"] * CP
+PP_MICRO = 2
+# (c): forward_hidden with ring_mesh over a 4096-token bucket, two rows,
+# against one rank's flash forward, bf16. Two implementations of one
+# attention in bf16 (the flash kernel rounds P to bf16 on its tensor
+# cores; the ring and Ulysses softmax in float32 and round P before the
+# value product) differ by a few bf16 steps of the hidden states, which the
+# final norm leaves at magnitude ~1-8: the bound is LOGIT_TOL's 0.25.
+CP_SEQ = 4096
+CP_LENS = [4096, 3000]
+CP_TOL = 0.25
+# W8A16 launches at {stage: 2} are 0 by design, as in the JAX engine.
+PP_W8A16_REASON = ("0 under the stage axis: fused_dequant keeps every int8 "
+                   "leaf on the mixed dot (QMM_FALLBACK reason stage_axis), "
+                   "as the JAX engine does")
+
+
+def pp_section(int8: bool) -> dict:
+    """Phase 16(b)'s `tpu:` section: phase 15's (the provider's defaults,
+    phase 10's checkpoint, decode block 8, no prefix cache, 4 slots) at
+    {stage: 2} with two microbatches."""
+    return {**dp_section(int8, mesh=False), "mesh": {"stage": PP},
+            "pipeline_microbatches": PP_MICRO}
+
+
+def cp_section(int8: bool) -> dict:
+    """Phase 16(c)'s engine section: phase 15's at {context: 2}."""
+    return {**dp_section(int8, mesh=False), "mesh": {"context": CP}}
+
+
+def cp_ring_job(mesh, rank: int, job: dict) -> dict:
+    """(c) on this rank of {context: 2}: phase 10's checkpoint whole (the
+    context ranks are replicas), forward_hidden over B = 2 rows of a
+    CP_SEQ bucket (seq_lens CP_LENS) by one rank's flash route, then with
+    ring_mesh by the ring and by Ulysses; the max abs errors over the valid
+    positions, and the seconds each took (two ranks on one card)."""
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.models.llama import forward_hidden, init_cache
+
+    params, cfg = weights.load_warm_cache(CKPT_DIR, dtype=torch.bfloat16,
+                                          quantize=False, device=mesh.device)
+    rng = np.random.default_rng(16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, CP_SEQ))).to(mesh.device)
+    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=mesh.device)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(**kw):
+        cache = init_cache(cfg, 2, CP_SEQ, torch.bfloat16,
+                           device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        h, _ = forward_hidden(params, cfg, tokens, cache, lens,
+                              prefill_flash=True, **kw)
+        torch.cuda.synchronize()
+        return h.float(), time.monotonic() - t0
+
+    def err(a, b) -> float:
+        return max(float((a[i, :n] - b[i, :n]).abs().max())
+                   for i, n in enumerate(CP_LENS))
+
+    ref, out = run()
+    out = {"flash_s": out}
+    hs = {}
+    for mode in ("ring", "ulysses"):
+        hs[mode], out[f"{mode}_s"] = run(ring_mesh=mesh, sp_mode=mode)
+        out[f"{mode}_err"] = err(hs[mode], ref)
+        if not torch.isfinite(hs[mode]).all():
+            raise AssertionError(f"(c) {mode}: non-finite hidden states")
+    out["ring_ulysses_err"] = err(hs["ring"], hs["ulysses"])
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
+    """Phase 16. (a) `tiny` in float32 at {stage: 2} (pipeline
+    microbatches 1 and 2, dense and int8 + int8 KV) and at {context: 2}
+    (dense and int8 + int8 KV), the prompts submitted together over 4
+    slots: text equal to one CPU rank's, first-step logits within
+    TP_F32_TOL. (b) phase 10's checkpoint at {stage: 2} with two
+    microbatches, bf16 then int8 + kv_quant + fused_dequant (which keeps
+    every int8 leaf on the mixed dot: the log and QMM_FALLBACK say
+    stage_axis), phase 15's four chats together: text equal to one rank's
+    serve (int8: with fused_dequant off, the stage ranks' own path), tokens
+    and launches equal on both ranks, each rank's KV cache half of one
+    rank's, its weights its layer plus the embedding, head and final norm.
+    (c) the checkpoint at {context: 2}: forward_hidden with ring_mesh,
+    ring then Ulysses, within CP_TOL of one rank's flash forward and of
+    each other; the engine, bf16 and int8, text equal to one rank's.
+    Returns each kernel row's launches on rank 0 at {stage: 2} and at
+    {context: 2}."""
+    contents = tp_contents()
+    contents = contents + contents[:1]
+    pp_tiny = [dict(name=f"pp_tiny_{'int8' if i8 else 'f32'}_m{m}",
+                    model="tiny", int8=i8, new=12, together=True, serves=1,
+                    geometry={"max_slots": DP_SLOTS,
+                              "pipeline_microbatches": m})
+               for i8 in (False, True) for m in (1, PP_MICRO)]
+    pp_ckpt = [dict(name=f"pp_ckpt_{'int8' if i8 else 'bf16'}",
+                    model="ckpt", tpu=pp_section(i8), contents=contents,
+                    new=DP_NEW, together=True, serves=1)
+               for i8 in (False, True)]
+    t0 = time.monotonic()
+    pp = tp_spawn("pp_gloo", PP_DEVICES, pp_tiny + pp_ckpt,
+                  mesh={"stage": PP})
+    log(f"  two stage ranks on {PP_DEVICES} ran (a)-(b) in "
+        f"{time.monotonic() - t0:.1f} s")
+    cp_tiny = [dict(name=f"cp_tiny_{'int8' if i8 else 'f32'}", model="tiny",
+                    int8=i8, new=12, together=True, serves=1,
+                    geometry={"max_slots": DP_SLOTS})
+               for i8 in (False, True)]
+    cp_ckpt = [dict(name=f"cp_ckpt_{'int8' if i8 else 'bf16'}",
+                    model="ckpt", tpu=cp_section(i8), contents=contents,
+                    new=DP_NEW, together=True, serves=1)
+               for i8 in (False, True)]
+    t0 = time.monotonic()
+    cp = tp_spawn("cp_gloo", CP_DEVICES,
+                  cp_tiny + cp_ckpt + [dict(name="cp_ring", model="ring")],
+                  mesh={"context": CP})
+    log(f"  two context ranks on {CP_DEVICES} ran (a), (c) in "
+        f"{time.monotonic() - t0:.1f} s")
+    for group, jobs, tag in ((pp, pp_tiny + pp_ckpt, "pp"),
+                             (cp, cp_tiny + cp_ckpt, "cp")):
+        for job in jobs:
+            tp_check_ranks(tag, job["name"], group)
+            if group[0][job["name"]]["backend"] != "gloo":
+                raise AssertionError("two ranks on one card must run over "
+                                     "gloo")
+    # (a) against one CPU rank
+    for name, group, i8 in (
+            *((f"pp_tiny_{'int8' if i8 else 'f32'}_m{m}", pp, i8)
+              for i8 in (False, True) for m in (1, PP_MICRO)),
+            ("cp_tiny_f32", cp, False), ("cp_tiny_int8", cp, True)):
+        # under the stage axis int8 leaves stay on the mixed dot
+        texts, logits = tp_tiny_reference(
+            i8, slots=DP_SLOTS, together=True,
+            fused=not name.startswith("pp_"))
+        if group[0][name]["texts"][0] != texts:
+            raise AssertionError(f"(a) {name}: the mesh on the card "
+                                 f"{group[0][name]['texts'][0]} != one CPU "
+                                 f"rank {texts}")
+        mesh_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((mesh_logits - logits).abs().max())
+        log(f"  (a) {name}: text equal to one CPU rank's; first-step "
+            f"logits max_abs_err {err:.3e} (tol {TP_F32_TOL:.0e})")
+        if err > TP_F32_TOL:
+            raise AssertionError(f"(a) {name}: logits error {err}")
+    # (b) against one rank serving the same chats together
+    for i8 in (False, True):
+        name = f"pp_ckpt_{'int8' if i8 else 'bf16'}"
+        got = [r[name] for r in pp]
+        t0 = time.monotonic()
+        texts, ref_kv, ref_bytes, ref_layers = dp_reference(
+            i8, contents, fused=False)
+        t_ref = time.monotonic() - t0
+        kv = [g["kv_cache_bytes"] / ref_kv for g in got]
+        g0 = got[0]
+        log(f"  (b) {name}: prompt tokens {g0['prompt_lens']}; KV cache per "
+            f"rank {[g['kv_cache_bytes'] for g in got]} B of one rank's "
+            f"{ref_kv} (shares {kv}); weights per rank "
+            f"{[g['param_bytes'] for g in got]} B (layers "
+            f"{[g['layer_bytes'] for g in got]}) of one rank's {ref_bytes} "
+            f"(layers {ref_layers}); streamed per step per rank "
+            f"{g0['stream_bytes_per_device']} B of {g0['stream_bytes']}; "
+            f"max_memory_allocated per rank "
+            f"{[round(g['max_memory_allocated'] / 2**30, 3) for g in got]} "
+            f"GiB; stage_axis fallbacks per rank "
+            f"{[g['stage_axis_fallbacks'] for g in got]}; build "
+            f"{g0['build_s']:.1f} s, warmup {g0['warmup_s']:.1f} s, serve "
+            f"{[round(t, 1) for t in g0['serve_s']]} s (gloo on one card: "
+            f"not a speed of pipeline parallelism); one rank's serve and "
+            f"build {t_ref:.1f} s")
+        if g0["texts"][0] != texts:
+            raise AssertionError(f"(b) {name}: stage=2 {g0['texts'][0]!r} "
+                                 f"!= one rank {texts!r}")
+        if kv != [0.5] * PP:
+            raise AssertionError(f"(b) {name}: KV cache shares {kv}, not "
+                                 f"half of one rank's")
+        for g in got:
+            if (2 * g["layer_bytes"] != ref_layers
+                    or g["param_bytes"] - g["layer_bytes"]
+                    != ref_bytes - ref_layers):
+                raise AssertionError(
+                    f"(b) {name}: a rank holds {g['layer_bytes']} B of "
+                    f"layers and {g['param_bytes'] - g['layer_bytes']} B "
+                    f"else; one rank's {ref_layers} and "
+                    f"{ref_bytes - ref_layers}")
+        if i8:
+            if any(g["stage_axis_fallbacks"] != 1 for g in got):
+                raise AssertionError(f"(b) {name}: QMM_FALLBACK stage_axis "
+                                     f"{[g['stage_axis_fallbacks'] for g in got]}")
+            for rank in range(PP):
+                with open(os.path.join(OUT_DIR, f"pp_gloo.{rank}.log")) as fh:
+                    if "reason: stage_axis" not in fh.read():
+                        raise AssertionError(f"(b) rank {rank}'s log does not "
+                                             f"say stage_axis")
+        log(f"  (b) {name}: text equal to one rank's for {len(contents)} "
+            f"chats")
+    # (c) the ring forward, and the engine against one rank's serve
+    for rank, r in enumerate(cp):
+        ring = r["cp_ring"]
+        log(f"  (c) rank {rank}: B=2 x {CP_SEQ} (seq_lens {CP_LENS}) bf16 "
+            f"hidden states against one rank's flash forward: ring "
+            f"max_abs_err {ring['ring_err']:.4f}, ulysses "
+            f"{ring['ulysses_err']:.4f}, ring vs ulysses "
+            f"{ring['ring_ulysses_err']:.4f} (bound {CP_TOL}); seconds flash "
+            f"{ring['flash_s']:.3f}, ring {ring['ring_s']:.3f}, ulysses "
+            f"{ring['ulysses_s']:.3f} (two ranks on one card, gloo: not a "
+            f"speed of either scheme); max_memory_allocated "
+            f"{ring['max_memory_allocated'] / 2**30:.3f} GiB")
+        if max(ring["ring_err"], ring["ulysses_err"],
+               ring["ring_ulysses_err"]) > CP_TOL:
+            raise AssertionError(f"(c) rank {rank}: sequence-parallel "
+                                 f"hidden states beyond {CP_TOL}: {ring}")
+    for i8 in (False, True):
+        name = f"cp_ckpt_{'int8' if i8 else 'bf16'}"
+        texts, ref_kv, _, _ = dp_reference(i8, contents)
+        g0 = cp[0][name]
+        if g0["texts"][0] != texts:
+            raise AssertionError(f"(c) {name}: context=2 {g0['texts'][0]!r} "
+                                 f"!= one rank {texts!r}")
+        if any(r[name]["kv_cache_bytes"] != ref_kv for r in cp):
+            raise AssertionError(f"(c) {name}: a context rank's KV cache is "
+                                 f"not one rank's (replicas)")
+        log(f"  (c) {name}: text equal to one rank's for {len(contents)} "
+            f"chats; serve {[round(t, 1) for t in g0['serve_s']]} s")
+    if torch.cuda.device_count() >= 2:
+        nccl = tp_spawn("pp_nccl", ["cuda:0", "cuda:1"], [pp_ckpt[0]],
+                        mesh={"stage": PP})
+        if nccl[0]["pp_ckpt_bf16"]["backend"] != "nccl":
+            raise AssertionError("two cards must run over nccl")
+        tp_check_ranks("pp nccl", "pp_ckpt_bf16", nccl)
+        got, gloo = nccl[0]["pp_ckpt_bf16"], pp[0]["pp_ckpt_bf16"]
+        log(f"  nccl pass of (b) bf16 on cuda:0, cuda:1: tokens equal on "
+            f"both ranks; serve {[round(t, 1) for t in got['serve_s']]} s "
+            f"(gloo on one card: {[round(t, 1) for t in gloo['serve_s']]} "
+            f"s); text equal to gloo's: {got['texts'] == gloo['texts']}")
+        if got["texts"] != gloo["texts"]:
+            raise AssertionError("the nccl pass's text differs from gloo's")
+    else:
+        log(f"  nccl pass not run: {torch.cuda.device_count()} card(s) on "
+            f"this machine")
+
+    def launches(c: dict, tiny: str) -> dict[str, int]:
+        return {"flash_prefill": c["bf16"]["flash_prefill"]
+                + c["int8"]["flash_prefill"],
+                "decode_attention": c["bf16"]["decode_attention"],
+                "decode_attention_int8": c["int8"]["decode_attention"],
+                "kv_append_fused": c["int8"]["decode_attention_append"],
+                "w8a16_matmul[gemv]": c["int8"]["w8a16_gemv"],
+                "w8a16_matmul[gemv_f32]": c[tiny]["w8a16_gemv_f32"],
+                "w8a16_matmul[tc]": c["int8"]["w8a16_tc"],
+                "kv_append": sum(r["kv_append"] for r in c.values()),
+                "w8a8_matmul": 0}
+
+    pc = {"bf16": pp[0]["pp_ckpt_bf16"]["counts"],
+          "int8": pp[0]["pp_ckpt_int8"]["counts"],
+          "tiny": pp[0][f"pp_tiny_int8_m{PP_MICRO}"]["counts"]}
+    cc = {"bf16": cp[0]["cp_ckpt_bf16"]["counts"],
+          "int8": cp[0]["cp_ckpt_int8"]["counts"],
+          "tiny": cp[0]["cp_tiny_int8"]["counts"]}
+    return launches(pc, "tiny"), launches(cc, "tiny")
+
+
 def tp_main() -> int:
-    """`python3 chip_smoke.py --tp`: phases 14 and 15 alone, where the
+    """`python3 chip_smoke.py --tp`: phases 14 to 16 alone, where the
     machine has the cards for their nccl passes too: the device, the
     build, phase 10's checkpoint and warm caches written in process
-    (without its hosts), then phases 14 and 15."""
+    (without its hosts), then phases 14, 15 and 16."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
@@ -4111,9 +4450,12 @@ def tp_main() -> int:
     t2 = time.perf_counter()
     log(f"phase 14 took {t2 - t1:.1f} s; launches_tp {launches}")
     launches = check_dp(smi)
+    t3 = time.perf_counter()
+    log(f"phase 15 took {t3 - t2:.1f} s; launches_dp {launches}")
+    launches = check_pp_cp(smi)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    log(f"phase 15 took {time.perf_counter() - t2:.1f} s; launches_dp "
-        f"{launches}")
+    log(f"phase 16 took {time.perf_counter() - t3:.1f} s; launches_pp, "
+        f"launches_cp {launches}")
     return 0
 
 
@@ -4289,7 +4631,6 @@ def main() -> int:
         f"{CKPT_LAYERS} layers (phase 10's checkpoint) bf16 and int8 at "
         f"{{data: 2}}")
     dp_launches = check_dp(smi)
-    shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for row in rows:
         row["launches_dp"] = dp_launches[row["name"]]
         on_path = row["name"] not in ("kv_append", "w8a8_matmul")
@@ -4298,14 +4639,42 @@ def main() -> int:
         if not on_path and row["launches_dp"]:
             raise AssertionError(f"{row['name']} launched at data=2")
     phase_done(15)
+
+    log(f"phase 16: the stage and context axes, ranks on one card: tiny "
+        f"float32 at {{stage: 2}} (1 and {PP_MICRO} microbatches) and "
+        f"{{context: 2}}, llama3-8b width at {CKPT_LAYERS} layers (phase "
+        f"10's checkpoint) bf16 and int8 at both, ring and Ulysses prefill "
+        f"over {CP_SEQ} tokens")
+    pp_launches, cp_launches = check_pp_cp(smi)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for row in rows:
+        row["launches_pp"] = pp_launches[row["name"]]
+        row["launches_cp"] = cp_launches[row["name"]]
+        off_pp = row["name"] in ("kv_append", "w8a8_matmul") or row[
+            "name"].startswith("w8a16_matmul")
+        if row["name"].startswith("w8a16_matmul"):
+            row["launches_pp_reason"] = PP_W8A16_REASON
+        if not off_pp and row["launches_pp"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at stage=2")
+        if off_pp and row["launches_pp"]:
+            raise AssertionError(f"{row['name']} launched at stage=2")
+        on_cp = row["name"] not in ("kv_append", "w8a8_matmul")
+        if on_cp and row["launches_cp"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at "
+                                 f"context=2")
+        if not on_cp and row["launches_cp"]:
+            raise AssertionError(f"{row['name']} launched at context=2")
+    phase_done(16)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_moe", "launches_tp", "launches_dp")
+            "launches_moe", "launches_tp", "launches_dp", "launches_pp",
+            "launches_cp")
+    extra = ("path", "launches_pp_reason")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
-         **({"path": row["path"]} if "path" in row else {})}
+         **{k: row[k] for k in extra if k in row}}
         for row in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -61,9 +61,17 @@ only its own slots' KV. So the state the host reads -- lengths, last
 tokens, sampling parameters, every slot's key chain -- and the prefix
 pool and radix tree are whole and equal on every rank, as in the JAX
 engine, where they are replicated. Rank 0's scheduler drives every rank
-through parallel/multihost.py's command loop. Knobs outside this slice
-(the other mesh axes, dcn_data, MoE on a mesh, pipeline microbatches,
-ring_mesh) raise EngineError naming their ROADMAP item.
+through parallel/multihost.py's command loop. The `context` axis's ranks
+are replicas, as in the JAX engine, where no sharding rule maps a
+parameter or cache dim to it (models/llama.py forward_hidden's
+`ring_mesh` is the sequence-parallel prefill over it). A `stage` axis
+(stage-only, as in the JAX engine) routes the trunk of every dispatch
+through parallel/pipeline.py (`trunk`): each rank holds its block of the
+layers of the params, the decode cache, the prefill buffers and the
+prefix pool (PIPELINE_RULES), and `pipeline_microbatches` splits the
+dispatches whose batch is max_slots. Knobs outside this slice (the
+`expert` axis, dcn_data, MoE on a mesh) raise EngineError naming their
+ROADMAP item.
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -116,7 +124,12 @@ from symmetry_tpu_torch.parallel.multihost import (
     build_multihost_mesh,
     init_distributed,
 )
-from symmetry_tpu_torch.parallel.sharding import Sharding, logical_to_spec
+from symmetry_tpu_torch.parallel.pipeline import pipeline_forward_hidden
+from symmetry_tpu_torch.parallel.sharding import (
+    Sharding,
+    logical_to_spec,
+    mesh_rules,
+)
 from symmetry_tpu_torch.utils.devprof import DeviceProfiler
 from symmetry_tpu_torch.utils.logging import logger
 from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
@@ -214,12 +227,10 @@ class HostFuture:
 
 # Knobs outside this slice -> the ROADMAP item that brings them.
 _NOT_PORTED = {
-    "mesh": "a mesh axis other than `data` and `model` (context, stage, "
-            "expert: ROADMAP Queue 1 item 14)",
+    "mesh": "the `expert` mesh axis (ROADMAP Queue 1 item 14)",
     "dcn_data": "a data axis across hosts (dcn_data > 1: ROADMAP Queue 1 "
                 "item 14)",
     "moe_mesh": "MoE on a mesh (ROADMAP Queue 1 item 14)",
-    "pipeline_microbatches": "pipeline parallelism (ROADMAP Queue 1 item 14)",
 }
 
 # KV cache dtype -> the dtype name its handoff planes travel under.
@@ -250,18 +261,41 @@ def _refuse(knob: str) -> EngineError:
 
 
 def check_mesh(shape: dict[str, int], config: ModelConfig | None = None,
-               max_slots: int | None = None) -> None:
-    """Refuse a mesh this slice does not serve: an axis other than `data`
-    and `model` above 1, MoE on a mesh, a data axis that does not divide
+               max_slots: int | None = None,
+               pipeline_microbatches: int = 1) -> None:
+    """Refuse a mesh this slice does not serve: the `expert` axis above 1,
+    MoE on a mesh, a stage axis beside any other axis above 1 (the JAX
+    engine's words, which it raises at its first dispatch) or over a
+    layer count it does not divide, pipeline microbatches without a stage
+    axis or that do not divide the slots, a data axis that does not divide
     the slots (each data rank owns an equal block), or a model axis that
     does not divide the heads, kv heads, MLP width and vocabulary (each
     rank holds an equal block)."""
-    if any(n > 1 for axis, n in shape.items()
-           if axis not in ("data", "model")):
+    if int(shape.get("expert", 1)) > 1:
         raise _refuse("mesh")
     if (config is not None and getattr(config, "num_experts", 0)
             and int(np.prod([int(n) for n in shape.values()])) > 1):
         raise _refuse("moe_mesh")
+    pp = int(shape.get("stage", 1))
+    if pp > 1:
+        other = [a for a in ("data", "context", "expert", "model")
+                 if int(shape.get(a, 1)) != 1]
+        if other:
+            raise EngineError(
+                f"pipeline_forward_hidden shards only the stage axis; mesh "
+                f"has non-trivial axes {other} — use a stage-only "
+                f"(sub)mesh")
+        if config is not None and config.num_layers % pp:
+            raise EngineError(f"{config.num_layers} layers not divisible by "
+                              f"{pp} stages")
+        if max_slots is not None and max_slots % pipeline_microbatches:
+            raise EngineError(
+                f"max_slots {max_slots} must divide into "
+                f"{pipeline_microbatches} pipeline microbatches")
+    elif pipeline_microbatches > 1:
+        raise EngineError(
+            "pipeline_microbatches > 1 requires a mesh with a stage axis "
+            "> 1 — the setting would otherwise be silently inert")
     dp = int(shape.get("data", 1))
     if max_slots is not None and max_slots % dp:
         raise EngineError(f"mesh data={dp} does not divide max_slots "
@@ -317,10 +351,9 @@ class InferenceEngine:
         profile_sample: int = 0,
         device: str | torch.device = "cuda",
     ) -> None:
-        if pipeline_microbatches > 1:
-            raise _refuse("pipeline_microbatches")
+        check_mesh(mesh.shape if mesh is not None else {}, config, max_slots,
+                   pipeline_microbatches)
         if mesh is not None:
-            check_mesh(mesh.shape, config, max_slots)
             if role != "unified":
                 # Handoff frames are host-side snapshots of the whole
                 # cache; a rank holds only its kv heads (the JAX engine's
@@ -335,6 +368,10 @@ class InferenceEngine:
                 raise EngineError(f"engine device {device} is not this "
                                   f"rank's mesh device {mesh.device}")
         self.mesh = mesh
+        # The `stage` axis: every dispatch's trunk runs the pipeline
+        # schedule (`trunk`), microbatched when its batch is max_slots.
+        self.pipeline = mesh is not None and mesh.axis_size("stage") > 1
+        self.pipeline_microbatches = pipeline_microbatches
         # The `data` axis: this rank's contiguous block of the slots (the
         # block NamedSharding gives its data coordinate), and its rows of a
         # per-slot tensor (every row on one rank).
@@ -487,7 +524,9 @@ class InferenceEngine:
         """`fused_dequant`: pack the int8 leaves into the W8A16 kernel's
         panel layout once, here; the layout is the routing (qmatmul
         dispatches on the leaf type). Leaves the kernel cannot take stay
-        flat on the mixed dot, loudly (log + counter), never silently."""
+        flat on the mixed dot, loudly (log + counter), never silently.
+        Under a stage axis every leaf stays flat, as in the JAX engine
+        (reason `stage_axis`)."""
         if not _has_int8(self.params):
             raise EngineError(
                 "fused_dequant found no packable int8 weights: it requires "
@@ -496,6 +535,16 @@ class InferenceEngine:
         fallback = METRICS.counter(
             MetricName.QMM_FALLBACK,
             "int8 leaves kept on the mixed dot at load", labels=("reason",))
+        if self.pipeline:
+            # The JAX engine degrades the whole tree under a stage axis (its
+            # per-shard kernel dispatch cannot nest in the pipeline's
+            # shard_map), and so does the port. A stage rank could pack its
+            # own layers (ROADMAP item 14's remainders).
+            logger.warning("fused_dequant: pipeline (stage axis > 1) keeps "
+                           "every int8 leaf on the mixed dot (reason: "
+                           "stage_axis)")
+            fallback.inc(reason="stage_axis")
+            return
         degrades: list[tuple[str, str]] = []
         self.params = pack_params(self.params, config=self.config,
                                   mesh=self.mesh, report=degrades)
@@ -506,6 +555,23 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     # Device primitives
+
+    def trunk(self, tokens, cache: KVCache, seq_lens=None, *,
+              prefill_flash: bool = False):
+        """forward_hidden, routed through the pipeline schedule when the
+        mesh has a stage axis (the JAX engine's `trunk`): the params and
+        the cache are then this stage's layers, and the batch splits into
+        `pipeline_microbatches` only when it is max_slots."""
+        if self.pipeline:
+            n_micro = (self.pipeline_microbatches
+                       if tokens.shape[0] == self.max_slots else 1)
+            return pipeline_forward_hidden(
+                self.params, self.config, tokens, cache, self.mesh,
+                seq_lens=seq_lens, n_microbatches=n_micro,
+                prefill_flash=prefill_flash)
+        return forward_hidden(self.params, self.config, tokens, cache,
+                              seq_lens=seq_lens, prefill_flash=prefill_flash,
+                              mesh=self.mesh)
 
     def _prefill(self, tokens, true_len, temp, top_p, top_k, keys,
                  scratch: KVCache):
@@ -519,9 +585,7 @@ class InferenceEngine:
         attention never reads it back, so dirty reuse is sound once the
         lengths are reset to the empty-cache contract."""
         cache = scratch._replace(lengths=torch.zeros_like(scratch.lengths))
-        h, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=true_len, prefill_flash=True,
-                                  mesh=self.mesh)
+        h, cache = self.trunk(tokens, cache, true_len, prefill_flash=True)
         return self._sample_at(h, true_len - 1, temp, top_p, top_k,
                                keys), cache
 
@@ -539,16 +603,14 @@ class InferenceEngine:
         continuation path (absolute-position masking against the KV that
         earlier chunks wrote; the flash path's empty-cache contract does
         not hold past chunk 0)."""
-        _, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=seq_len, mesh=self.mesh)
+        _, cache = self.trunk(tokens, cache, seq_len)
         return cache
 
     def _chunk_final(self, tokens, cache: KVCache, seq_len, last_idx, temp,
                      top_p, top_k, keys):
         """Last chunk (or a cached hit's suffix): also sample the first
         token at last_idx, as `_prefill` does."""
-        h, cache = forward_hidden(self.params, self.config, tokens, cache,
-                                  seq_lens=seq_len, mesh=self.mesh)
+        h, cache = self.trunk(tokens, cache, seq_len)
         return self._sample_at(h, last_idx, temp, top_p, top_k,
                                keys), cache
 
@@ -683,9 +745,7 @@ class InferenceEngine:
         """Advance every slot one token (on a data axis, this rank's rows,
         then every rank's tokens)."""
         st, rows = self.state, self._rows
-        h, cache = forward_hidden(self.params, self.config,
-                                  st.last_token[rows, None],
-                                  self._own(st.cache), mesh=self.mesh)
+        h, cache = self.trunk(st.last_token[rows, None], self._own(st.cache))
         logits = logits_from_hidden(self.params, self.config, h,
                                     self.mesh)[:, 0]
         # Each slot's key splits into its next key and this step's draw.
@@ -715,9 +775,7 @@ class InferenceEngine:
         st, rows = self.state, self._rows
         tokens = torch.cat([st.last_token[rows, None], draft[rows]], dim=1)
         old_lengths = st.cache.lengths
-        h, cache = forward_hidden(self.params, self.config, tokens,
-                                  self._own(st.cache),
-                                  seq_lens=1 + n_draft[rows], mesh=self.mesh)
+        h, cache = self.trunk(tokens, self._own(st.cache), 1 + n_draft[rows])
         # The head over all 1 + k positions: every lane is a candidate.
         logits = logits_from_hidden(self.params, self.config, h, self.mesh)
         # One split of each slot's key per verify, as a decode step takes.
@@ -1532,7 +1590,8 @@ class InferenceEngine:
         def parts(axes) -> int:
             if per_device or self.mesh is None:
                 return 1
-            return Sharding(self.mesh, logical_to_spec(axes)).parts()
+            return Sharding(self.mesh, logical_to_spec(
+                axes, mesh_rules(self.mesh))).parts()
 
         def nbytes(leaf, axes) -> int:
             if isinstance(leaf, (QuantizedTensor, PackedQuantizedTensor)):
@@ -1575,16 +1634,17 @@ class InferenceEngine:
         drawn from torch.Generator(d).manual_seed(0), d the card when one
         is present and else the CPU: random weights of the preset's shape,
         NOT the JAX package's jax.random.key(0) weights.
-        A `tpu.mesh` of N > 1 ranks (its `data` and `model` axes) builds
-        this rank's engine of an N-rank job: with `tpu.multihost`, this
-        joins the job first (parallel/multihost.py init_distributed, from
-        its coordinator, num_processes and process_id); without it, the
-        caller has joined it (the engine host spawns and joins its ranks
-        itself).
-        Every rank loads only its `model` block of the weights (whole on
-        every rank of the data axis). Knobs outside this slice raise
-        EngineError naming their ROADMAP item: the other mesh axes,
-        dcn_data > 1, MoE on a mesh and pipeline microbatches."""
+        A `tpu.mesh` of N > 1 ranks (its `data`, `model`, `context` and
+        `stage` axes) builds this rank's engine of an N-rank job: with
+        `tpu.multihost`, this joins the job first (parallel/multihost.py
+        init_distributed, from its coordinator, num_processes and
+        process_id); without it, the caller has joined it (the engine host
+        spawns and joins its ranks itself).
+        Every rank loads only its block of the weights: its `model` block,
+        under a stage axis its layers, whole on every rank of the data and
+        context axes. Knobs outside this slice raise EngineError naming
+        their ROADMAP item: the `expert` axis, dcn_data > 1 and MoE on a
+        mesh."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
@@ -1595,12 +1655,12 @@ class InferenceEngine:
             check_mesh(spec.shape(), read_hf_config(tpu_cfg.checkpoint_path)
                        if tpu_cfg.checkpoint_path
                        else preset(tpu_cfg.model_preset or "tiny"),
-                       tpu_cfg.max_batch_size)
+                       tpu_cfg.max_batch_size, tpu_cfg.pipeline_microbatches)
+        elif tpu_cfg.pipeline_microbatches > 1:
+            check_mesh({}, None, None, tpu_cfg.pipeline_microbatches)
         mh = tpu_cfg.multihost
         if mh and int(mh.get("dcn_data", 1)) > 1:
             raise _refuse("dcn_data")
-        if tpu_cfg.pipeline_microbatches > 1:
-            raise _refuse("pipeline_microbatches")
         mesh = None
         if mh:
             init_distributed(mh["coordinator"], int(mh["num_processes"]),

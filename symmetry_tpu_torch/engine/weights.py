@@ -24,8 +24,10 @@ mapped tensor is sliced before anything is copied, so no rank holds a
 whole tensor. The block equals slicing the single-device tree, int8
 included: a rank quantizing its K-slice of a row-parallel leaf takes each
 column's amax over the whole K (a max over the mesh axis) before its
-scale, as quantizing the full leaf does. MoE checkpoints do not load on a
-mesh (ROADMAP Queue 1 item 14).
+scale, as quantizing the full leaf does. Under a stage axis
+(PIPELINE_RULES) a rank reads only its layers: a cold load reads only
+their HF tensors, a warm load slices only their rows of each stacked leaf.
+MoE checkpoints do not load on a mesh (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -75,13 +77,16 @@ def _block(mesh, rules, axes: tuple):
     """The function cutting this rank's block out of a full tensor laid out
     by logical `axes` (identity without a mesh), and whether its
     contraction (second-last) dim is split: a row-parallel leaf, whose
-    int8 scales need the amax over every rank's rows."""
+    int8 scales need the amax over every rank's rows. `rules` default to
+    the mesh's (sharding.mesh_rules)."""
     from symmetry_tpu_torch.parallel.sharding import (Sharding,
-                                                      logical_to_spec)
+                                                      logical_to_spec,
+                                                      mesh_rules)
 
     if mesh is None:
         return (lambda t: t), False
-    spec = logical_to_spec(axes, rules)
+    spec = logical_to_spec(axes, mesh_rules(mesh) if rules is None
+                           else rules)
     return Sharding(mesh, spec), (len(spec) >= 2
                                   and mesh.axis_size(spec[-2]) > 1)
 
@@ -284,7 +289,12 @@ def load_checkpoint(
                                      row_par)
             put((), read(hf_name, transpose, shape, block))
     n_exp = getattr(config, "num_experts", 0)
-    L = config.num_layers
+    # This rank's layers: all of them, or under a stage axis its block.
+    layers = range(config.num_layers)
+    if mesh is not None:
+        layers = layers[_block(mesh, rules, ("layers",))[0].slices(
+            (config.num_layers,))[0]]
+    L = len(layers)
     for hf_sub, (ours, transpose) in HF_LAYER_MAP.items():
         if ours not in layer_shapes or (n_exp and ours in _EXPERT_LEAVES):
             continue
@@ -293,9 +303,9 @@ def load_checkpoint(
         block, row_par = _block(mesh, rules, axes["layers"][ours][1:])
         params["layers"][ours], put = leaf(
             ours, (L, *local_shape(block, shape)), row_par)
-        for layer in range(L):
-            put((layer,), read(f"model.layers.{layer}.{hf_sub}", transpose,
-                               shape, block))
+        for i, layer in enumerate(layers):
+            put((i,), read(f"model.layers.{layer}.{hf_sub}", transpose,
+                           shape, block))
     if n_exp:
         shape = layer_shapes["router"]
         params["layers"]["router"], put = leaf("router", (L, *shape))

@@ -42,8 +42,21 @@ convert (the compiled HLO on its CPU mesh). An int8 one is summed in
 float32 before its per-column scale (ops/qmm.py w8a16_apply_sharded, and
 the mixed dot below in the same order).
 
-Not ported in this slice: sequence-parallel prefill, MoE on a mesh
-(ROADMAP Queue 1 item 14).
+Sequence-parallel prefill (`ring_mesh`, `sp_mode`): a prefill from an
+empty cache shards its attention's sequence over the `context` axis of
+`ring_mesh`, by the K/V ring (parallel/ring.py) or by the Ulysses head
+scatter (parallel/ulysses.py), in place of the flash kernel, as in the JAX
+package. The projections, the MLP and the cache writes run whole on every
+rank of the axis, as the JAX forward leaves them outside its shard_map;
+the attention's output shards are all-gathered, so every rank returns the
+whole hidden states and a whole cache. `ring_mesh` with any other axis
+above 1 is refused (ROADMAP Queue 1 item 14).
+
+Pipeline parallelism (parallel/pipeline.py) runs `run_layers` over a stage
+rank's block of the layers against its block of the cache
+(init_cache(mesh=...) under a stage axis: L / P layers).
+
+Not ported in this slice: MoE on a mesh (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -225,13 +238,13 @@ def init_cache(
     dtype: torch.dtype = torch.bfloat16, *, quantized: bool = False,
     device: str | torch.device = "cuda", mesh=None,
 ) -> KVCache:
-    """A zeroed cache; on a mesh, this rank's block: its kv heads
-    (cache_logical_axes)."""
+    """A zeroed cache; on a mesh, this rank's block: its kv heads, and
+    under a stage axis its layers (cache_logical_axes under mesh_rules)."""
     kv_heads = config.num_kv_heads // _tp(mesh)
-    shape = (config.num_layers, batch, capacity, kv_heads,
-             config.dim_per_head)
+    layers = config.num_layers // _pp(mesh)
+    shape = (layers, batch, capacity, kv_heads, config.dim_per_head)
     if quantized:
-        scale_shape = (config.num_layers, batch, kv_heads, capacity)
+        scale_shape = (layers, batch, kv_heads, capacity)
         return KVCache(
             k=torch.zeros(shape, dtype=torch.int8, device=device),
             v=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -418,6 +431,11 @@ def _tp(mesh) -> int:
     return 1 if mesh is None else mesh.axis_size("model")
 
 
+def _pp(mesh) -> int:
+    """Pipeline degree: the mesh's `stage` axis (1 without one)."""
+    return 1 if mesh is None else mesh.axis_size("stage")
+
+
 # Weights eligible for int8 quantization (all the large matmuls; the
 # embedding stays dense: it is gathered, not contracted).
 QUANT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "lm_head")
@@ -512,6 +530,8 @@ def _layer(
     config: ModelConfig,
     prefill_flash: bool,         # flash self-attention (fresh cache)
     mesh=None,                   # tensor parallel over its `model` axis
+    ring_mesh=None,              # sequence-parallel prefill (fresh cache)
+    sp_mode: str = "ring",       # "ring" | "ulysses"
 ) -> torch.Tensor:
     B, S, E = h.shape
     tp = _tp(mesh)
@@ -550,7 +570,7 @@ def _layer(
         T = cache.k.shape[2]
         b_idx = torch.arange(B, device=h.device)[:, None]
         pos_w = torch.clamp(positions, max=T - 1).long()
-        if not prefill_flash:
+        if not (prefill_flash or ring_mesh is not None):
             # A continuation (a prompt chunk, a cached hit's suffix) may
             # run pad tokens past the capacity. The JAX package drops those
             # writes; here they clamp onto row T - 1, so each carries the
@@ -572,7 +592,21 @@ def _layer(
             cache.k[layer][b_idx, pos_w] = k.to(cache.k.dtype)
             cache.v[layer][b_idx, pos_w] = v.to(cache.v.dtype)
 
-        if prefill_flash:
+        if ring_mesh is not None:
+            # Long-context prefill: the sequence sharded over the `context`
+            # axis -- K/V blocks rotating (parallel/ring.py), or one
+            # all-to-all head scatter when heads divide the shard count
+            # (parallel/ulysses.py); the output comes back whole.
+            if sp_mode == "ulysses":
+                from symmetry_tpu_torch.parallel.ulysses import (
+                    ulysses_attention)
+
+                attn = ulysses_attention(q, k, v, seq_lens, ring_mesh)
+            else:
+                from symmetry_tpu_torch.parallel.ring import ring_attention
+
+                attn = ring_attention(q, k, v, seq_lens, ring_mesh)
+        elif prefill_flash:
             # Prefill from empty: attention over this call's own K/V; the
             # cache is never read back.
             attn = flash_prefill(q, k, v, seq_lens,
@@ -656,14 +690,20 @@ def run_layers(
     *,
     use_flash: bool = False,
     mesh=None,
+    use_ring=None,
+    sp_mode: str = "ring",
+    cache_layer=lambda i: i,
 ) -> torch.Tensor:
     """Run the stack of decoder layers over `h` (a Python loop over the
-    stacked layer dim; the cache is written in place)."""
+    stacked layer dim; the cache is written in place). Layer i of the stack
+    reads and writes layer `cache_layer(i)` of the cache: a pipeline stage
+    runs its local layers against its local cache, viewed per microbatch
+    (parallel/pipeline.py)."""
     n_layers = _stacked_layers(layers_params["wq"])
     for i in range(n_layers):
         lp = {name: layer_slice(w, i) for name, w in layers_params.items()}
-        h = _layer(h, lp, cache, i, positions, kv_valid, seq_lens, config,
-                   use_flash, mesh)
+        h = _layer(h, lp, cache, cache_layer(i), positions, kv_valid,
+                   seq_lens, config, use_flash, mesh, use_ring, sp_mode)
     return h
 
 
@@ -675,7 +715,8 @@ def forward_hidden(
     seq_lens: torch.Tensor | None = None,  # [B] valid tokens; None = all S
     *,
     prefill_flash: bool = False,  # caller guarantees the cache is empty
-    ring_mesh=None,               # sequence-parallel prefill: not ported
+    ring_mesh=None,               # context-parallel prefill mesh
+    sp_mode: str = "ring",        # "ring" | "ulysses"
     mesh=None,                    # tensor parallel (this rank's blocks)
 ) -> tuple[torch.Tensor, KVCache]:
     """Decoder trunk: returns (final-norm hidden states [B, S, E], cache).
@@ -684,10 +725,30 @@ def forward_hidden(
     position. prefill_flash=True is VALID ONLY when cache.lengths are all
     zero (the engine's prefill): attention then covers this call's own
     K/V, not the cache. With `mesh`, params and cache are this rank's
-    blocks and the hidden states come out whole on every rank."""
+    blocks and the hidden states come out whole on every rank.
+
+    ring_mesh additionally shards the attention's sequence over the mesh's
+    `context` axis (every rank of it calls this with the same inputs); it
+    requires prefill_flash's empty-cache contract and S divisible by the
+    shard count, and is unused when S == 1. sp_mode picks the scheme:
+    "ring" rotates K/V blocks (parallel/ring.py, any head count),
+    "ulysses" head-scatters by all-to-all (parallel/ulysses.py, needs
+    kv_heads % shards == 0). The schemes take no window: with ring_mesh
+    set, a sliding-window model runs the flash kernel instead, as in the
+    JAX package."""
     if ring_mesh is not None:
-        raise NotImplementedError("sequence-parallel prefill (ring_mesh) is "
-                                  "not ported yet (ROADMAP Queue 1 item 14)")
+        if not prefill_flash:
+            # Ring q/kv positions start at 0 and ignore cached entries: only
+            # the prefill-from-empty contract makes that correct.
+            raise ValueError("ring_mesh requires prefill_flash=True "
+                             "(prefill-from-empty contract)")
+        other = sorted(a for a, n in ring_mesh.shape.items()
+                       if n > 1 and a != "context")
+        if other or _tp(mesh) > 1:
+            raise NotImplementedError(
+                f"ring_mesh on a mesh with axes {other or ['model']} above "
+                f"1 besides `context` is not ported yet (ROADMAP Queue 1 "
+                f"item 14): pass a context-only mesh")
     B, S = tokens.shape
     if seq_lens is None:
         seq_lens = torch.full((B,), S, dtype=torch.int32,
@@ -696,7 +757,9 @@ def forward_hidden(
                  + torch.arange(S, dtype=torch.int32,
                                 device=tokens.device)[None, :])
     kv_valid = cache.lengths + seq_lens
-    use_flash = prefill_flash and S > 1
+    use_ring = ring_mesh if (ring_mesh is not None and S > 1
+                             and config.sliding_window is None) else None
+    use_flash = prefill_flash and use_ring is None and S > 1
 
     n_stacked = _stacked_layers(params["layers"]["wq"])
     if n_stacked != config.num_layers:
@@ -712,7 +775,8 @@ def forward_hidden(
         # cast to the activation dtype (HF modeling_gemma semantics)
         h = h * torch.tensor(config.hidden_size ** 0.5, dtype=h.dtype)
     h = run_layers(params["layers"], h, cache, positions, kv_valid,
-                   seq_lens, config, use_flash=use_flash, mesh=mesh)
+                   seq_lens, config, use_flash=use_flash, mesh=mesh,
+                   use_ring=use_ring, sp_mode=sp_mode)
     h = rms_norm(h, norm_weight(params["final_norm"], config.norm_plus_one),
                  config.rms_eps)
     return h, cache._replace(lengths=kv_valid)

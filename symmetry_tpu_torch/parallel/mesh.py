@@ -13,12 +13,21 @@ engine, so a mesh of N ranks is N processes joined by torch.distributed
 (parallel/multihost.py init_distributed), even on one host. `Mesh` is this
 rank's view of the grid: the grid shape, its coordinates, one process group
 per axis of size > 1, a CPU control group for the command loop, and its
-torch device. Its `all_reduce` and `all_gather` are the collectives the
-tensor-parallel forward and the sharded loaders call.
+torch device. Its collectives: `all_reduce` and `all_gather` (the
+tensor-parallel forward, the sharded loaders, the data axis's tokens),
+`shift` (send to the next rank of an axis and receive from the previous
+one: the JAX ppermute ring of parallel/ring.py), `send`/`recv` (one
+point-to-point transfer: the stage-to-stage activations of
+parallel/pipeline.py), `all_to_all` (split on one dim, concatenate on
+another: `jax.lax.all_to_all(..., tiled=True)`, parallel/ulysses.py) and
+`broadcast` (from one rank of an axis).
 
-The `model` axis (models/llama.py) and the `data` axis (engine/engine.py:
-each rank owns a block of the slots) are served, alone or together; the
-engine refuses any other axis above 1 (ROADMAP Queue 1 item 14).
+The engine serves the `model` axis (models/llama.py), the `data` axis
+(engine/engine.py: each rank owns a block of the slots), the `context`
+axis (its ranks are replicas, as in the JAX engine; models/llama.py
+forward_hidden's `ring_mesh` shards a prefill's sequence over it) and the
+`stage` axis (parallel/pipeline.py; stage-only, as in the JAX package).
+The `expert` axis stays refused (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -101,6 +110,18 @@ class Mesh:
     def axis_index(self, axis: str | None) -> int:
         return 0 if axis is None else self.coords[axis]
 
+    def axis_ranks(self, axis: str) -> list[int]:
+        """The global ranks of this rank's line along `axis`, in the axis's
+        order (this rank at index axis_index(axis))."""
+        shape = tuple(self.spec.shape().values())
+        idx = list(np.unravel_index(self.rank, shape))
+        ax = AXIS_ORDER.index(axis)
+        out = []
+        for i in range(shape[ax]):
+            idx[ax] = i
+            out.append(int(np.ravel_multi_index(tuple(idx), shape)))
+        return out
+
     @property
     def shared_device(self) -> bool:
         """True when two ranks of the mesh run on one card."""
@@ -144,6 +165,71 @@ class Mesh:
         parts = [torch.empty_like(src) for _ in range(n)]
         dist.all_gather(parts, src, group=self.groups[axis])
         return torch.cat(parts, dim=dim).to(t.device)
+
+    def shift(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """`t` sent to the next rank along `axis` (index i + 1, cyclic) and
+        the previous rank's `t` (same shape and dtype) returned: one step
+        of the JAX ppermute ring [(i, (i + 1) % n)]. Both transfers are
+        posted together (batch_isend_irecv), so no two ranks block on a
+        send."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        ranks, i = self.axis_ranks(axis), self.axis_index(axis)
+        src = t.cpu() if self._staged(t) else t.contiguous()
+        out = torch.empty_like(src)
+        group = self.groups[axis]
+        for work in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, src, ranks[(i + 1) % n], group),
+                dist.P2POp(dist.irecv, out, ranks[(i - 1) % n], group)]):
+            work.wait()
+        return out.to(t.device)
+
+    def send(self, t: torch.Tensor, axis: str, to: int) -> None:
+        """`t` to the rank at index `to` along `axis`; returns when the
+        transfer is done (the receiver's matching `recv`)."""
+        src = t.cpu() if self._staged(t) else t.contiguous()
+        dist.send(src, self.axis_ranks(axis)[to], group=self.groups[axis])
+
+    def recv(self, shape: tuple[int, ...], dtype: torch.dtype, axis: str,
+             frm: int) -> torch.Tensor:
+        """The tensor of `shape` and `dtype` that the rank at index `frm`
+        along `axis` sends, on this rank's device."""
+        staged = self.device.type == "cuda" and self.backend == "gloo"
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if staged else self.device)
+        dist.recv(buf, self.axis_ranks(axis)[frm], group=self.groups[axis])
+        return buf.to(self.device)
+
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """`t` split into n equal blocks on `split_dim`, block j sent to the
+        rank at index j along `axis`; the blocks received, one from each
+        rank, concatenated on `concat_dim` in the axis's order
+        (`jax.lax.all_to_all(..., tiled=True)`)."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return t
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of "
+                             f"{tuple(t.shape)} does not split over {n} "
+                             f"ranks")
+        src = t.cpu() if self._staged(t) else t
+        src = torch.stack(src.chunk(n, dim=split_dim)).contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=self.groups[axis])
+        return torch.cat(out.unbind(0), dim=concat_dim).to(t.device)
+
+    def broadcast(self, t: torch.Tensor, axis: str, src: int
+                  ) -> torch.Tensor:
+        """The `t` of the rank at index `src` along `axis`, on every rank of
+        the axis; every rank passes a tensor of that shape and dtype."""
+        if self.axis_size(axis) == 1:
+            return t
+        buf = t.cpu() if self._staged(t) else t.contiguous()
+        dist.broadcast(buf, self.axis_ranks(axis)[src],
+                       group=self.groups[axis])
+        return buf.to(t.device)
 
 
 def build_mesh(spec: MeshSpec | dict[str, int], devices=None) -> Mesh:

@@ -14,6 +14,13 @@ all-reduces per layer (after wo, after w_down) itself. `Sharding` is the
 counterpart of a NamedSharding: it names this rank's block of a full
 array (`shard_shape`, `slices`) and cuts it out of a tensor, a numpy array
 or a memory-mapped on-disk tensor without copying the rest.
+
+Pipeline parallelism (parallel/pipeline.py) serves under PIPELINE_RULES,
+the default rules with the stacked-layer dim over `stage`: a stage rank
+holds its contiguous L / P layers of every stacked leaf (int8 scales
+included) and of the KV cache, as NamedSharding cuts dim 0. `mesh_rules`
+picks the table a mesh serves under, and every cut that takes no explicit
+rules (`shardings_for`, `shard_leaf`, the loaders) uses it.
 """
 
 from __future__ import annotations
@@ -38,6 +45,18 @@ DEFAULT_RULES: dict[str, str | None] = {
     "experts": "expert",   # MoE expert parallelism
 }
 
+# Pipeline mode: layers (params AND cache) over `stage`
+# (symmetry_tpu/parallel/pipeline.py PIPELINE_RULES).
+PIPELINE_RULES: dict[str, str | None] = {**DEFAULT_RULES, "layers": "stage"}
+
+
+def mesh_rules(mesh: Mesh | None) -> dict[str, str | None]:
+    """PIPELINE_RULES when the mesh has a stage axis above 1, else
+    DEFAULT_RULES (the JAX engine's `_stage_rules`)."""
+    if mesh is not None and mesh.axis_size("stage") > 1:
+        return PIPELINE_RULES
+    return DEFAULT_RULES
+
 
 def logical_to_spec(
     axes: tuple[str | None, ...], rules: dict[str, str | None] | None = None
@@ -56,9 +75,9 @@ def logical_to_spec(
 
 
 class Sharding:
-    """This rank's block of an array laid out by `spec` over `mesh`: each
-    dim split evenly over its mesh axis, block i on the rank at index i of
-    that axis."""
+    """This rank's block of an array laid out by `spec` (mesh axes, as
+    logical_to_spec gives them) over `mesh`: each dim split evenly over its
+    mesh axis, block i on the rank at index i of that axis."""
 
     def __init__(self, mesh: Mesh, spec: tuple[str | None, ...]) -> None:
         self.mesh = mesh
@@ -99,7 +118,9 @@ def shardings_for(
     mesh: Mesh,
     rules: dict[str, str | None] | None = None,
 ) -> Any:
-    """Tree of Shardings matching a tree of logical-axes tuples."""
+    """Tree of Shardings matching a tree of logical-axes tuples (under
+    `rules`, by default the mesh's: mesh_rules)."""
+    rules = mesh_rules(mesh) if rules is None else rules
     if isinstance(logical_axes, dict):
         return {k: shardings_for(v, mesh, rules)
                 for k, v in logical_axes.items()}
@@ -108,5 +129,7 @@ def shardings_for(
 
 def shard_leaf(full, axes: tuple[str | None, ...], mesh: Mesh,
                rules: dict[str, str | None] | None = None):
-    """This rank's block of one full leaf laid out by logical `axes`."""
+    """This rank's block of one full leaf laid out by logical `axes` (under
+    `rules`, by default the mesh's: mesh_rules)."""
+    rules = mesh_rules(mesh) if rules is None else rules
     return Sharding(mesh, logical_to_spec(axes, rules))(full)

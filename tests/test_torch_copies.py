@@ -69,7 +69,8 @@ PORTED = {
     "ops/norm.py", "ops/qmm.py", "ops/quant.py", "ops/rope.py",
     "ops/sampling.py", "utils/__init__.py", "utils/compile_cache.py",
     "utils/devprof.py", "parallel/__init__.py", "parallel/mesh.py",
-    "parallel/sharding.py", "parallel/multihost.py",
+    "parallel/sharding.py", "parallel/multihost.py", "parallel/ring.py",
+    "parallel/ulysses.py", "parallel/pipeline.py",
     "analysis/__main__.py",
 }
 

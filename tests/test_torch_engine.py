@@ -212,10 +212,12 @@ class TestSampling:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
-        # a context axis beside a data axis (the model and data axes
-        # serve: tests/test_torch_tp.py, tests/test_torch_dp.py)
-        ("mesh", Mesh(MeshSpec(data=2, context=2)), "item 14"),
-        ("pipeline_microbatches", 2, "item 14"),
+        # the expert axis (the model, data, context and stage axes serve:
+        # tests/test_torch_tp.py, test_torch_dp.py, test_torch_cp.py,
+        # test_torch_pp.py)
+        ("mesh", Mesh(MeshSpec(expert=2)), "item 14"),
+        # microbatches without a stage axis: the JAX engine's words
+        ("pipeline_microbatches", 2, "requires a mesh with a stage axis"),
     ])
     def test_knobs_outside_the_slice_raise(self, weights, knob, value, item):
         _, params = weights
@@ -338,7 +340,7 @@ import importlib, pkgutil, sys
 import symmetry_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(symmetry_tpu_torch.__path__,
                                                "symmetry_tpu_torch.")]
-assert len(names) >= 89, names
+assert len(names) >= 92, names
 for new in ("models.moe", "ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_attention",
             "convert", "engine.host", "engine.prefix_cache", "provider.config",
             "protocol.keys", "engine.weights", "engine.safetensors_io",
@@ -361,7 +363,8 @@ for new in ("models.moe", "ops.quant", "ops.qmm", "ops.kv_append", "ops.decode_a
             "analysis.core", "analysis.dataflow", "analysis.concurrency",
             "analysis.donation", "analysis.fault_seams", "analysis.knobs",
             "analysis.lifecycle", "analysis.metric_names",
-            "analysis.recompile", "analysis.wire_contract"):
+            "analysis.recompile", "analysis.wire_contract",
+            "parallel.ring", "parallel.ulysses", "parallel.pipeline"):
     assert "symmetry_tpu_torch." + new in names, new
 for name in names:
     importlib.import_module(name)

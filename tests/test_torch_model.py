@@ -214,12 +214,23 @@ class TestModelSurface:
                              torch.ones(1, dtype=torch.int32))
 
     def test_ring_mesh_refused(self):
+        """Sequence-parallel prefill serves a context-only mesh
+        (tests/test_torch_cp.py); with a model axis too it is refused,
+        naming item 14, and without the empty-cache contract in the JAX
+        words."""
+        from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
         cfg = preset("tiny")
         params = init_params(cfg, torch.Generator(), torch.float32)
         with pytest.raises(NotImplementedError, match="item 14"):
             forward_hidden(params, cfg, torch.zeros((1, 4), dtype=torch.long),
                            init_cache(cfg, 1, 8, torch.float32, device="cpu"),
-                           prefill_flash=True, ring_mesh=object())
+                           prefill_flash=True,
+                           ring_mesh=Mesh(MeshSpec(context=2, model=2)))
+        with pytest.raises(ValueError, match="prefill_flash"):
+            forward_hidden(params, cfg, torch.zeros((1, 4), dtype=torch.long),
+                           init_cache(cfg, 1, 8, torch.float32, device="cpu"),
+                           ring_mesh=Mesh(MeshSpec(context=2)))
 
     def test_depth_mismatch_raises(self):
         cfg = preset("tiny")

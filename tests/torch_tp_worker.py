@@ -1,4 +1,5 @@
-"""One rank of the mesh tests (tests/test_torch_tp.py, tests/test_torch_dp.py).
+"""One rank of the mesh tests (tests/test_torch_tp.py, test_torch_dp.py,
+test_torch_cp.py, test_torch_pp.py).
 
 Runs as N real OS processes joined by torch.distributed over gloo on the
 CPU; imports torch and the port only (the parent holds the JAX references).
@@ -6,9 +7,10 @@ CPU; imports torch and the port only (the parent holds the JAX references).
     python tests/torch_tp_worker.py <spec.json> <rank>
 
 The spec names the coordinator port, the world size, the mesh (default
-the `model` axis over every rank), an output directory and a list of
-jobs; each job writes `<out>/<job>.<rank>.npz` (and the engine jobs a
-json of the tokens this rank recorded). Jobs:
+the `model` axis over every rank; a job may name its own, built once per
+shape), an output directory and a list of jobs; each job writes
+`<out>/<job>.<rank>.npz` (and the engine jobs a json of the tokens this
+rank recorded). Jobs:
 
   forward  the port's forward of a preset on numpy weights on the mesh:
            prefill logits over every position, then one decode step's
@@ -20,7 +22,11 @@ json of the tokens this rank recorded). Jobs:
   direct   rank 0 makes one call of every dispatching kind through the
            command loop's facade (`direct_calls`, verify included);
   load     sharded load_checkpoint / load_warm_cache of a checkpoint dir;
-  qmm      w8a16_apply_sharded on one leaf, row- and column-parallel.
+  qmm      w8a16_apply_sharded on one leaf, row- and column-parallel;
+  sp       ring_attention and ulysses_attention on numpy q/k/v;
+  ring_fwd forward_hidden with `ring_mesh`, sp_mode "ring" and "ulysses";
+  pipeline pipeline_forward_hidden: a prefill, then decode steps, each
+           rank's block of the cache after each.
 """
 
 from __future__ import annotations
@@ -79,6 +85,93 @@ def flat(tree, prefix: str = "") -> dict:
     return out
 
 
+def job_sp(job, mesh, rank):
+    import torch
+
+    from symmetry_tpu_torch.parallel.ring import ring_attention
+    from symmetry_tpu_torch.parallel.ulysses import ulysses_attention
+
+    with np.load(job["data"]) as z:
+        q, k, v, lens = (torch.from_numpy(z[n]) for n in
+                         ("q", "k", "v", "seq_lens"))
+    out = {"ring": ring_attention(q, k, v, lens, mesh).numpy()}
+    if job.get("ulysses", True):
+        out["ulysses"] = ulysses_attention(q, k, v, lens, mesh).numpy()
+    for fn, S, H, K in job.get("refusals", []):
+        q, kv = torch.zeros((1, S, H, 8)), torch.zeros((1, S, K, 8))
+        try:
+            (ulysses_attention if fn == "ulysses" else ring_attention)(
+                q, kv, kv, torch.tensor([S]), mesh)
+            out.setdefault("refused", []).append("")
+        except ValueError as exc:
+            out.setdefault("refused", []).append(str(exc))
+    return out
+
+
+def job_ring_fwd(job, mesh, rank):
+    import torch
+
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
+                                                 preset)
+
+    cfg = preset(job["preset"])
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu")
+    tokens = torch.tensor(job["tokens"])
+    lens = torch.tensor(job["seq_lens"], dtype=torch.int32)
+    B, S = tokens.shape
+    out = {}
+    for mode in ("ring", "ulysses"):
+        cache = init_cache(cfg, B, S, torch.float32, device="cpu",
+                           quantized=bool(job.get("kv_quant")))
+        h, cache = forward_hidden(params, cfg, tokens, cache, lens,
+                                  prefill_flash=True, ring_mesh=mesh,
+                                  sp_mode=mode)
+        out[f"{mode}_h"] = h.numpy()
+        out[f"{mode}_k"] = cache.k.float().numpy()
+        out[f"{mode}_v"] = cache.v.float().numpy()
+        out[f"{mode}_lengths"] = cache.lengths.numpy()
+    return out
+
+
+def job_pipeline(job, mesh, rank):
+    import torch
+
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.models.llama import init_cache, preset
+    from symmetry_tpu_torch.parallel.pipeline import pipeline_forward_hidden
+
+    cfg = preset(job["preset"])
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
+                               mesh=mesh, config=cfg)
+    tokens = torch.tensor(job["tokens"])
+    lens = torch.tensor(job["seq_lens"], dtype=torch.int32)
+    B, S = tokens.shape
+    quant = bool(job.get("kv_quant"))
+    cache = init_cache(cfg, B, S + job["steps"], torch.float32,
+                       device="cpu", quantized=quant, mesh=mesh)
+    out = {}
+    h, cache = pipeline_forward_hidden(
+        params, cfg, tokens, cache, mesh, lens,
+        n_microbatches=job["micro"], prefill_flash=job.get("flash", False))
+    out["prefill_h"] = h.numpy()
+    steps = []
+    step_tokens = torch.tensor(job["step_tokens"])
+    for i in range(job["steps"]):
+        h, cache = pipeline_forward_hidden(
+            params, cfg, step_tokens[:, i:i + 1], cache, mesh,
+            n_microbatches=job["micro"])
+        steps.append(h.numpy())
+    out["step_h"] = np.stack(steps)
+    out["lengths"] = cache.lengths.numpy()
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t = getattr(cache, name)
+        if t is not None:
+            out[f"cache_{name}"] = t.float().numpy() if t.dtype != torch.int8 \
+                else t.numpy()
+    return out
+
+
 def job_forward(job, mesh, rank):
     import torch
 
@@ -109,6 +202,14 @@ def job_forward(job, mesh, rank):
             "cache_k": cache.k.float().numpy()}
 
 
+def _stage_fallbacks() -> float:
+    """QMM_FALLBACK{reason="stage_axis"} in this process so far."""
+    from symmetry_tpu_torch.utils.metrics import METRICS, MetricName
+
+    return METRICS.counter(MetricName.QMM_FALLBACK, "",
+                           labels=("reason",)).value(reason="stage_axis")
+
+
 def job_engine(job, mesh, rank):
     import torch
 
@@ -125,6 +226,7 @@ def job_engine(job, mesh, rank):
     cfg = preset(job["preset"])
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
                                mesh=mesh, config=cfg)
+    fallbacks0 = _stage_fallbacks()
     kw = dict(job.get("engine", {}))
     if "speculative" in kw:
         from symmetry_tpu_torch.engine.spec import SpecConfig
@@ -196,6 +298,10 @@ def job_engine(job, mesh, rank):
     result["weight_stream_bytes"] = engine.weight_stream_bytes()
     result["weight_stream_bytes_per_device"] = (
         engine.weight_stream_bytes_per_device())
+    result["stage_axis_fallbacks"] = _stage_fallbacks() - fallbacks0
+    result["kv_layers"] = int(engine.state.cache.k.shape[0])
+    if engine._pool_kv is not None:
+        result["pool_layers"] = int(engine._pool_kv.k.shape[0])
     return result
 
 
@@ -304,7 +410,8 @@ def job_qmm(job, mesh, rank):
 
 
 JOBS = {"forward": job_forward, "engine": job_engine, "direct": job_direct,
-        "load": job_load, "qmm": job_qmm}
+        "load": job_load, "qmm": job_qmm, "sp": job_sp,
+        "ring_fwd": job_ring_fwd, "pipeline": job_pipeline}
 
 
 def main() -> None:
@@ -320,10 +427,19 @@ def main() -> None:
 
     init_distributed(f"127.0.0.1:{spec['port']}", spec["world"], rank,
                      device="cpu", timeout_s=120)
-    mesh = build_multihost_mesh(MeshSpec.from_dict(
-        spec.get("mesh") or {"model": spec["world"]}))
+    meshes: dict = {}
+
+    def mesh_for(shape: dict):
+        key = tuple(sorted(shape.items()))
+        if key not in meshes:  # every rank builds the same meshes in order
+            meshes[key] = build_multihost_mesh(MeshSpec.from_dict(shape))
+        return meshes[key]
+
+    default = spec.get("mesh") or {"model": spec["world"]}
+    mesh = mesh_for(default)
     for job in spec["jobs"]:
-        out = JOBS[job["kind"]](job, mesh, rank)
+        out = JOBS[job["kind"]](job, mesh_for(job.get("mesh", default)),
+                                rank)
         path = os.path.join(spec["out"], f"{job['name']}.{rank}")
         arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
         if arrays:
