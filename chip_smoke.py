@@ -5,8 +5,8 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py --tp` runs phases 14 to 16 alone, with the nccl
-passes of 14 and 15 where the machine has two cards.)
+(`python3 chip_smoke.py --tp` runs phases 14 to 17 alone, with the nccl
+passes of 14, 15, 16 and 17 where the machine has two cards.)
 
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
@@ -232,6 +232,27 @@ Phases (any failure raises and exits non-zero):
               rank's flash forward in bf16 (max abs error within 0.25,
               ring and Ulysses within it of each other), and the engine,
               bf16 and int8, text equal to one rank's serve;
+ 17. ep       the expert axis and MoE on every mesh axis (models/moe.py,
+              engine/engine.py, engine/weights.py): ranks on the one card
+              over gloo, one spawn of two ranks and one of four, each job
+              on its own mesh: (a) `tiny-moe` in float32, prompts of 5, 14
+              and 40 tokens together over four slots (the 40's prefill
+              through the dispatch), at {expert: 2} (dense, then int8 +
+              int8 KV), {model: 2}, {stage: 2} (two microbatches),
+              {context: 2}, {expert: 2, model: 2} and {data: 2, expert:
+              2}: text equal to one CPU rank's, first-step logits within
+              1e-4; (b) phase 13(e)'s mixtral-8x7b-width checkpoint (kept
+              until this phase ends) loaded sharded at {expert: 2} through
+              from_tpu_config, bf16 then int8 + kv_quant + fused_dequant,
+              phase 15's section and four chats together: text equal to
+              one rank's serve, tokens and launches equal on both ranks,
+              first-step logits within LOGIT_TOL of one rank's, each
+              rank's expert bytes exactly half of one rank's and every
+              other byte whole, its KV cache whole; (c) the checkpoint at
+              {expert: 2, model: 2} on four ranks, bf16: text equal to
+              (b)'s one-rank serve, experts a quarter a rank; under --tp
+              with two cards, mixtral-8x7b bf16 at all 32 layers at
+              {expert: 2} over nccl (logged when not run);
  report       one JSON line listing the nine kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3; `launches_moe`: each
@@ -240,7 +261,8 @@ Phases (any failure raises and exits non-zero):
               phase 15 (a)-(b) at {data: 2}, equal on both ranks;
               `launches_pp` and `launches_cp`: rank 0's in phase 16 at
               {stage: 2} and {context: 2}, the W8A16 rows 0 at {stage: 2}
-              with the reason in `launches_pp_reason`), the nvidia-smi
+              with the reason in `launches_pp_reason`; `launches_ep`: rank
+              0's in phase 17 (a)-(b) at {expert: 2}), the nvidia-smi
               line, and last the {"ok": true, ...} line. Each phase prints
               its seconds.
 
@@ -250,6 +272,8 @@ Needs the CUDA toolkit (nvcc) and the repository's sources; nothing else.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
+import contextlib
 import gc
 import hashlib
 import json
@@ -1184,14 +1208,17 @@ def serve(preset_name: str, *, device: str, dtype: torch.dtype,
 def schedule(engine, prompts: list[list[int]], max_new: int,
              sampling: dict | None = None,
              speculative: bool | None = None,
-             pipeline_depth: int = 2) -> dict:
+             pipeline_depth: int = 2, admit_seconds: float = 0.65) -> dict:
     """Serve `prompts` through a Scheduler on `engine`, all submitted at
     once; `speculative` is every request's per-request switch (False opts
-    out of speculation)."""
+    out of speculation); `admit_seconds` is the Scheduler's admission
+    time per decode block (infinite: its dispatches depend on the
+    requests only, not on the host's speed)."""
     from symmetry_tpu_torch.engine.engine import SamplingParams
     from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
 
-    sched = Scheduler(engine, pipeline_depth=pipeline_depth)
+    sched = Scheduler(engine, pipeline_depth=pipeline_depth,
+                      admit_seconds_per_block=admit_seconds)
     events = {i: [] for i in range(len(prompts))}
     done = {i: threading.Event() for i in range(len(prompts))}
     first_at: dict[int, float] = {}
@@ -2204,12 +2231,14 @@ def serve_in_turn(engine, prompts: list[list[int]], max_new: int,
 
 
 def serve_together(engine, prompts: list[list[int]], max_new: int,
-                   pipeline_depth: int) -> list[str]:
+                   pipeline_depth: int, admit_seconds: float = 0.65
+                   ) -> list[str]:
     """Greedy requests through one Scheduler, all submitted before it
     starts (`schedule`), so that they hold slots 0, 1, ... at once; their
     streamed text."""
     return [r["text"] for r in schedule(
-        engine, prompts, max_new, pipeline_depth=pipeline_depth)["requests"]]
+        engine, prompts, max_new, pipeline_depth=pipeline_depth,
+        admit_seconds=admit_seconds)["requests"]]
 
 
 def check_checkpoint(smi: str) -> None:
@@ -3006,9 +3035,9 @@ class counting_dispatch:
         self.saved = moe.moe_mlp_dispatch
         self.calls = 0
 
-        def counted(x, lp, config):
+        def counted(x, lp, config, mesh=None):
             self.calls += 1
-            return self.saved(x, lp, config)
+            return self.saved(x, lp, config, mesh)
 
         moe.moe_mlp_dispatch = counted
         return self
@@ -3021,6 +3050,109 @@ class counting_dispatch:
 
         moe.moe_mlp_dispatch = self.saved
         return False
+
+
+class recording_decisions:
+    """Within the block, record every discrete decision this process's
+    engine makes, in order: each MoE router call (models/moe.py top_k:
+    each token's top-k experts as a set, and its k-th router logit minus
+    its (k+1)-th) and each sampling (engine sample_tokens: each row's
+    token, and its best logit minus its second). A measurement harness;
+    the port keeps no such record."""
+
+    def __enter__(self):
+        from symmetry_tpu_torch.engine import engine as engine_mod
+        from symmetry_tpu_torch.models import moe
+
+        self.saved = (moe.top_k, engine_mod.sample_tokens)
+        self.kinds: list[str] = []
+        self.choices: list[np.ndarray] = []
+        self.margins: list[np.ndarray] = []
+
+        def note(kind, choice, top, k):
+            self.kinds.append(kind)
+            self.choices.append(choice.cpu().numpy())
+            self.margins.append((top[..., k - 1] - top[..., k]).reshape(-1)
+                                .float().cpu().numpy())
+
+        def routed(logits, k):
+            vals, idx = self.saved[0](logits, k)
+            note("route", torch.sort(idx.reshape(-1, k), dim=-1).values,
+                 torch.sort(logits, dim=-1, descending=True).values, k)
+            return vals, idx
+
+        def sampled(logits, *args):
+            toks = self.saved[1](logits, *args)
+            note("sample", toks.reshape(-1, 1),
+                 torch.topk(logits, 2, dim=-1).values, 1)
+            return toks
+
+        moe.top_k, engine_mod.sample_tokens = routed, sampled
+        return self
+
+    def __exit__(self, *exc):
+        from symmetry_tpu_torch.engine import engine as engine_mod
+        from symmetry_tpu_torch.models import moe
+
+        moe.top_k, engine_mod.sample_tokens = self.saved
+        return False
+
+    def save(self, path: str) -> None:
+        np.savez(path, kinds=np.array(self.kinds),
+                 **{f"choice{i}": c for i, c in enumerate(self.choices)})
+
+    @staticmethod
+    def load(path: str) -> tuple[list[str], list[np.ndarray]]:
+        with np.load(path) as z:
+            kinds = z["kinds"].tolist()
+            return kinds, [z[f"choice{i}"] for i in range(len(kinds))]
+
+
+def decisions_apart(kinds: list[str], choices: list[np.ndarray], want,
+                    layers: int) -> list[tuple]:
+    """Every decision, in order, that a run's (kinds, choices) makes
+    otherwise than `want` (a recording_decisions of one rank's run of the
+    same requests, on a model of `layers` MoE layers, so each forward
+    records one router call a layer, in layer order) while the two runs
+    still feed the model the same tokens: (index, kind, layer of a router
+    call, row, one rank's margin there) for each differing row, up to and
+    including the first sampling that differs; a "dispatch" entry where
+    the runs stop making the same calls before that."""
+    apart, run = [], 0
+    for i, (kind, got) in enumerate(zip(kinds, choices)):
+        if kind != want.kinds[i] or got.shape != want.choices[i].shape:
+            return apart + [(i, "dispatch", None, None, None)]
+        layer = run % layers if kind == "route" else None
+        run = run + 1 if kind == "route" else 0
+        rows = np.nonzero((got != want.choices[i]).any(-1))[0]
+        apart += [(i, kind, layer, int(r), float(want.margins[i][r]))
+                  for r in rows]
+        if kind == "sample" and len(rows):
+            break
+    return apart
+
+
+def near_ties(apart: list[tuple]) -> bool:
+    """Whether decisions_apart's list is what rounding alone can do. The
+    first layer's router input is the embedding and one attention, which
+    no router decision feeds, so while the tokens agree every first-layer
+    decision apart must be one rank's near tie (ROUTE_TIE); so must a
+    later layer's until a first-layer one came apart (after it, a token's
+    other expert moves the later layers' inputs); a sampled token apart
+    must be a near tie of the logits (2 * LOGIT_TOL, phase 9's) unless a
+    router decision came apart before it."""
+    cascade = False
+    for _, kind, layer, _, margin in apart:
+        if kind == "dispatch":
+            return False
+        if kind == "route":
+            if (layer == 0 or not cascade) and margin > ROUTE_TIE:
+                return False
+            cascade = cascade or layer == 0
+        elif margin > 2 * LOGIT_TOL and not any(
+                a[1] == "route" for a in apart):
+            return False
+    return True
 
 
 def check_moe_tiny() -> dict[str, int]:
@@ -3353,47 +3485,56 @@ def check_moe_layer_int8() -> None:
 
 
 # The depth of (e)'s mixtral checkpoint: 2 of 32 layers (6.3 GB in bf16).
+# It stays for phase 17, which removes it.
 MOE_CKPT_LAYERS = 2
+MOE_CKPT_DIR = os.path.join(OUT_DIR, "ckpt_mixtral")
 # (e)'s allowance above the int8 engine's own bytes for the load's
 # transients: one tensor read in bf16, its float32 copy and the quantizer's
 # float32 temporaries (the largest is the [32000, 4096] LM head).
 MOE_CKPT_SLACK = 2 * 2**30
 
 
-def check_moe_checkpoint(smi: str) -> None:
-    """(e) A mixtral-8x7b-width checkpoint (MOE_CKPT_LAYERS layers, bf16,
-    random weights, seed 0) written by the port's writer, served through
-    InferenceEngine.from_tpu_config with quantization: int8 and no warm
-    cache: the cold load quantizes each tensor as it is read, so the card
-    never holds the dense tree (mixtral-8x7b's is ~93.4 GB). The peak
-    above what was allocated before must stay within the engine's own
-    bytes plus MOE_CKPT_SLACK, and under the dense tree's size; the int8
-    leaves must equal quantize_params of the tensors written, bit for
-    bit."""
+def write_moe_checkpoint() -> tuple:
+    """A mixtral-8x7b-width checkpoint (MOE_CKPT_LAYERS layers, bf16,
+    random weights, seed 0) written to MOE_CKPT_DIR by the port's writer
+    (2 shards); returns (config, the params written, their bytes)."""
     import dataclasses
 
     from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.models.llama import init_params, preset
+
+    shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    cfg = dataclasses.replace(preset("mixtral-8x7b"),
+                              num_layers=MOE_CKPT_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         torch.bfloat16)
+    dense = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    t0 = time.perf_counter()
+    weights.save_checkpoint(MOE_CKPT_DIR, params, cfg, dtype=torch.bfloat16,
+                            shards=2)
+    log(f"  wrote a mixtral-8x7b-width checkpoint at {MOE_CKPT_LAYERS} "
+        f"layers, {dense / 1e9:.3f} GB in bf16, in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return cfg, params, dense
+
+
+def check_moe_checkpoint(smi: str) -> None:
+    """(e) The mixtral-8x7b-width checkpoint (write_moe_checkpoint) served
+    through InferenceEngine.from_tpu_config with quantization: int8 and no
+    warm cache: the cold load quantizes each tensor as it is read, so the
+    card never holds the dense tree (mixtral-8x7b's is ~93.4 GB). The peak
+    above what was allocated before must stay within the engine's own
+    bytes plus MOE_CKPT_SLACK, and under the dense tree's size; the int8
+    leaves must equal quantize_params of the tensors written, bit for
+    bit. The checkpoint stays for phase 17."""
     from symmetry_tpu_torch.engine.engine import (InferenceEngine,
                                                   SamplingParams)
-    from symmetry_tpu_torch.models.llama import (init_params, preset,
-                                                 quantize_params)
+    from symmetry_tpu_torch.models.llama import quantize_params
     from symmetry_tpu_torch.provider.config import TpuConfig
 
-    ckpt = os.path.join(OUT_DIR, "ckpt_mixtral")
-    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt = MOE_CKPT_DIR
     try:
-        cfg = dataclasses.replace(preset("mixtral-8x7b"),
-                                  num_layers=MOE_CKPT_LAYERS)
-        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
-            0), torch.bfloat16)
-        dense = sum(t.numel() * t.element_size()
-                    for t in tree_leaves(params))
-        t0 = time.perf_counter()
-        weights.save_checkpoint(ckpt, params, cfg, dtype=torch.bfloat16,
-                                shards=2)
-        log(f"  (e) wrote a mixtral-8x7b-width checkpoint at "
-            f"{MOE_CKPT_LAYERS} layers, {dense / 1e9:.3f} GB in bf16, in "
-            f"{time.perf_counter() - t0:.3f} s")
+        cfg, params, dense = write_moe_checkpoint()
         want = quantize_params(params)
         del params
         gc.collect()
@@ -3428,8 +3569,10 @@ def check_moe_checkpoint(smi: str) -> None:
         log(f"  (e) {n} tensors bit-equal to quantize_params of the "
             f"tensors written; a 100-token prefill gives token {first}")
         del engine, want
-    finally:
+    except BaseException:
         shutil.rmtree(ckpt, ignore_errors=True)
+        raise
+    finally:
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3512,8 +3655,8 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
 
     t0 = time.monotonic()
     fallbacks0 = stage_fallbacks()
-    if job["model"] == "tiny":
-        cfg = preset("tiny")
+    if job["model"] in ("tiny", "tiny-moe"):
+        cfg = preset(job["model"])
         params = init_params(cfg, torch.Generator(
             device=mesh.device).manual_seed(0), torch.float32,
             quantize=job["int8"], mesh=mesh)
@@ -3524,7 +3667,7 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
                                  **{**TP_TINY, **job.get("geometry", {})})
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-                   for n in TP_TINY_LENS]
+                   for n in job.get("lens", TP_TINY_LENS)]
         depth = 2
     else:
         tpu = TpuConfig.from_dict(job["tpu"])
@@ -3532,6 +3675,9 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
         cfg = engine.config
         prompts = [engine.tokenizer.apply_chat_template(
             [{"role": "user", "content": c}]) for c in job["contents"]]
+        if job.get("id_text"):
+            # the stream's text carries the token ids, one character each
+            engine.tokenizer = id_tokenizer(cfg.vocab_size)
         depth = tpu.pipeline_depth
     t_build = time.monotonic() - t0
     ids = torch.tensor([prompts[0]], device=mesh.device)
@@ -3572,10 +3718,16 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
         out["warmup_s"] = time.monotonic() - t1
         out["texts"], out["serve_s"] = [], []
         serve = serve_together if job.get("together") else serve_in_turn
-        for _ in range(job.get("serves", 2)):
-            t1 = time.monotonic()
-            out["texts"].append(serve(facade, prompts, job["new"], depth))
-            out["serve_s"].append(time.monotonic() - t1)
+        with (recording_decisions() if job.get("decisions")
+              else contextlib.nullcontext()) as decisions:
+            for _ in range(job.get("serves", 2)):
+                t1 = time.monotonic()
+                out["texts"].append(serve(facade, prompts, job["new"], depth,
+                                          **job.get("serve", {})))
+                out["serve_s"].append(time.monotonic() - t1)
+        if job.get("decisions"):
+            decisions.save(os.path.join(OUT_DIR,
+                                        f"tp_{job['name']}_decisions.npz"))
         torch.cuda.synchronize()
         out["counts"] = tp_counts()
         loop.stop()
@@ -3589,6 +3741,7 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
                              for t in tree_leaves(engine.params))
     out["layer_bytes"] = sum(t.numel() * t.element_size()
                              for t in tree_leaves(engine.params["layers"]))
+    out["expert_bytes"] = expert_bytes(engine.params)
     out["stage_axis_fallbacks"] = stage_fallbacks() - fallbacks0
     out["stream_bytes"] = engine.weight_stream_bytes()
     out["stream_bytes_per_device"] = engine.weight_stream_bytes_per_device()
@@ -3596,6 +3749,16 @@ def tp_job(mesh, rank: int, job: dict) -> dict:
     out["slot_block"] = list(engine.slot_block)
     out["prompt_lens"] = [len(p) for p in prompts]
     return out
+
+
+def expert_bytes(params: dict) -> int:
+    """Bytes of an MoE tree's expert stacks (wg, wu, wd; int8 payloads and
+    scales), 0 for a dense tree."""
+    layers = params["layers"]
+    if "router" not in layers:
+        return 0
+    return sum(t.numel() * t.element_size()
+               for k in ("wg", "wu", "wd") for t in tree_leaves(layers[k]))
 
 
 def stage_fallbacks() -> float:
@@ -3608,9 +3771,10 @@ def stage_fallbacks() -> float:
 
 
 def tp_rank_main(spec_path: str, rank: int) -> int:
-    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14, 15
-    or 16, on the spec's mesh (the model axis over every rank by
-    default)."""
+    """`python chip_smoke.py --tp-rank RANK SPEC`: one rank of phase 14,
+    15, 16 or 17, on the spec's mesh (the model axis over every rank by
+    default) or a job's own `mesh` (every rank builds the same meshes in
+    job order)."""
     from symmetry_tpu_torch.parallel.mesh import MeshSpec
     from symmetry_tpu_torch.parallel.multihost import (build_multihost_mesh,
                                                        init_distributed)
@@ -3621,13 +3785,22 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
     world = len(spec["devices"])
     init_distributed(f"127.0.0.1:{spec['port']}", world, rank,
                      device=spec["devices"][rank])
-    mesh = build_multihost_mesh(MeshSpec.from_dict(
-        spec.get("mesh") or {"model": world}))
-    log(f"rank {rank}: mesh {mesh.describe()}")
+    meshes: dict = {}
+
+    def mesh_for(shape: dict):
+        key = tuple(sorted(shape.items()))
+        if key not in meshes:
+            meshes[key] = build_multihost_mesh(MeshSpec.from_dict(shape))
+            log(f"rank {rank}: mesh {meshes[key].describe()}")
+        return meshes[key]
+
+    default = spec.get("mesh") or {"model": world}
+    mesh_for(default)
     results = {}
     for job in spec["jobs"]:
         run = cp_ring_job if job["model"] == "ring" else tp_job
-        results[job["name"]] = run(mesh, rank, job)
+        results[job["name"]] = run(mesh_for(job.get("mesh", default)), rank,
+                                   job)
         # the job's engine (the loop and its recorder hold a cycle) goes
         # before the next one is built
         gc.collect()
@@ -3737,36 +3910,42 @@ _TINY_REFS: dict = {}
 
 
 def tp_tiny_reference(int8: bool, slots: int | None = None,
-                      together: bool = False, fused: bool = True
+                      together: bool = False, fused: bool = True,
+                      model: str = "tiny", geometry: dict | None = None,
+                      lens: list[int] | None = None
                       ) -> tuple[list[str], torch.Tensor]:
-    """`tiny` on one CPU rank from the same draws: the texts of a serve of
-    the TP prompts one at a time (or submitted together, over `slots`
-    slots), and the first step's logits. int8 weights are packed
-    (fused_dequant) unless `fused` is off. Kept for the phases after."""
-    key = (int8, slots, together, fused)
+    """`tiny` (or `model`) on one CPU rank from the same draws: the texts
+    of a serve of the TP prompts (or `lens`) one at a time (or submitted
+    together, over `slots` slots), and the first step's logits. int8
+    weights are packed (fused_dequant) unless `fused` is off. Kept for the
+    phases after."""
+    geometry = {**(geometry or {}), **({"max_slots": slots} if slots
+                                       else {})}
+    lens = lens or TP_TINY_LENS
+    key = (int8, together, fused, model, repr(sorted(geometry.items())),
+           tuple(lens))
     if key not in _TINY_REFS:
-        _TINY_REFS[key] = _tiny_reference(int8, slots, together, fused)
+        _TINY_REFS[key] = _tiny_reference(int8, together, fused, model,
+                                          geometry, lens)
     return _TINY_REFS[key]
 
 
-def _tiny_reference(int8, slots, together, fused):
+def _tiny_reference(int8, together, fused, model, geometry, lens):
     from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
                                                  init_params,
                                                  logits_from_hidden, preset)
 
-    cfg = preset("tiny")
+    cfg = preset(model)
     # drawn on the card, as the ranks draw them; the engine moves them
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          torch.float32, quantize=int8)
     engine = InferenceEngine(cfg, params, id_tokenizer(cfg.vocab_size),
                              device="cpu", kv_quant=int8,
                              fused_dequant=int8 and fused,
-                             **{**TP_TINY, **({"max_slots": slots}
-                                              if slots else {})})
+                             **{**TP_TINY, **geometry})
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in TP_TINY_LENS]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     ids = torch.tensor([prompts[0]])
     cache = init_cache(cfg, 1, ids.shape[1], torch.float32, quantized=int8,
                        device="cpu")
@@ -4417,11 +4596,295 @@ def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
     return launches(pc, "tiny"), launches(cc, "tiny")
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the expert axis and MoE on every mesh axis (models/moe.py),
+# ranks on the one card
+
+EP = 2
+# Ranks share the one card over gloo, as in phases 14-16: the phase checks
+# correctness and each rank's share of the memory, not the speed of expert
+# parallelism.
+EP_DEVICES = ["cuda:0"] * EP
+EP4_DEVICES = ["cuda:0"] * 4
+# (a): tiny-moe in float32 over four slots; the 40-token prompt prefills
+# alone at the 64 bucket, so its layers take the capacity dispatch.
+EP_TINY = dict(max_slots=DP_SLOTS, max_seq_len=128,
+               prefill_buckets=(16, 32, 64))
+EP_TINY_LENS = [5, 14, 40]
+# (a)'s meshes: two ranks, then four.
+EP_TINY_MESHES = {"ep": {"expert": EP}, "tp": {"model": 2},
+                  "pp": {"stage": PP}, "cp": {"context": CP}}
+EP_TINY4_MESHES = {"eptp": {"expert": EP, "model": 2},
+                   "dpep": {"data": 2, "expert": EP}}
+# (c): a router logit is a bf16 value (the product is rounded before the
+# cast to float32), one step 1/32 at magnitudes 4-8. A rank whose inputs
+# differ from one rank's by a bf16 step can swap two experts whose logits
+# are within about two steps: a router near tie.
+ROUTE_TIE = 0.0625
+
+
+def tiny_reference(job: dict) -> tuple[list[str], torch.Tensor]:
+    """(a)'s one CPU rank for a `tiny-moe` job (its geometry without the
+    pipeline's microbatches)."""
+    geometry = {k: v for k, v in job["geometry"].items()
+                if k != "pipeline_microbatches"}
+    return tp_tiny_reference(job["int8"], together=True, model="tiny-moe",
+                             geometry=geometry, lens=EP_TINY_LENS)
+
+
+def ep_section(int8: bool, mesh: dict | None) -> dict:
+    """Phase 17(b)-(c)'s `tpu:` section: phase 15's (4 slots, capacity
+    2048, decode block 8, no prefix cache) on phase 13(e)'s mixtral
+    checkpoint, read cold (no warm cache is written: a sharded load writes
+    none, and a one-rank bf16 cache would be 6.3 GB), on `mesh`."""
+    section = {**dp_section(int8, mesh=False),
+               "checkpoint_path": MOE_CKPT_DIR, "warm_cache": False}
+    return {**section, "mesh": mesh} if mesh else section
+
+
+_EP_REFS: dict = {}
+
+
+# (b)-(c) serve with no admission time budget, so a mesh and one rank make
+# the same dispatches in the same order whatever the host's speed, and
+# (c) can hold their decisions one for one.
+EP_SERVE = {"admit_seconds": float("inf")}
+
+
+def ep_reference(int8: bool, contents: list[str]) -> dict:
+    """One rank's engine on the mixtral checkpoint (ep_section without a
+    mesh): the first step's logits on the first chat, as tp_job computes
+    them, the chats' text served together (EP_SERVE) with the decisions
+    it made (recording_decisions), and its bytes. Kept for (c)."""
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.models.llama import init_cache, logits_from_hidden
+    from symmetry_tpu_torch.provider.config import TpuConfig
+
+    if int8 in _EP_REFS:
+        return _EP_REFS[int8]
+    tpu = TpuConfig.from_dict(ep_section(int8, None))
+    engine = InferenceEngine.from_tpu_config(tpu, device="cuda")
+    cfg = engine.config
+    prompts = [engine.tokenizer.apply_chat_template(
+        [{"role": "user", "content": c}]) for c in contents]
+    engine.tokenizer = id_tokenizer(cfg.vocab_size)
+    ids = torch.tensor([prompts[0]], device="cuda")
+    cache = init_cache(cfg, 1, ids.shape[1], engine.cache_dtype,
+                       quantized=engine.kv_quant, device="cuda")
+    h, _ = engine.trunk(ids, cache, prefill_flash=True)
+    logits = logits_from_hidden(engine.params, cfg, h[:, -1:])[0, 0]
+    del h, cache
+    engine.warmup()
+    with recording_decisions() as decisions:
+        texts = serve_together(engine, prompts, DP_NEW, tpu.pipeline_depth,
+                               **EP_SERVE)
+    out = {"texts": texts, "decisions": decisions,
+           "logits": logits.float().cpu(),
+           "kv_cache_bytes": engine.kv_cache_bytes(),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(engine.params)),
+           "expert_bytes": expert_bytes(engine.params)}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    _EP_REFS[int8] = out
+    return out
+
+
+def check_ep(smi: str) -> dict[str, int]:
+    """Phase 17. (a) `tiny-moe` in float32, the prompts submitted together
+    over four slots (one prefill through the dispatch): {expert: 2} dense
+    then int8 + int8 KV, {model: 2}, {stage: 2} with two microbatches and
+    {context: 2} on two ranks, {expert: 2, model: 2} and {data: 2, expert:
+    2} on four: text equal to one CPU rank's, first-step logits within
+    TP_F32_TOL. (b) phase 13(e)'s mixtral-8x7b-width checkpoint (2
+    layers) loaded sharded at {expert: 2}, bf16 then int8 + kv_quant +
+    fused_dequant, phase 14's three chats and a repeat of the first
+    together (every prefill layer through the dispatch): text equal to one
+    rank's serve 4/4, tokens and launches equal on both ranks, first-step
+    logits within LOGIT_TOL of one rank's, each rank's expert bytes half of
+    one rank's and every other byte whole, KV per rank whole. (c) the
+    checkpoint at {expert: 2, model: 2}, bf16, four ranks: text equal to
+    (b)'s one-rank serve, a chat parting from it only when the first
+    discrete decision of the serve made otherwise (recording_decisions: a
+    router choice, a sampled token) is one rank's near tie (the model
+    axis's float32 sums round apart), experts per rank a quarter. Texts
+    are compared token for token (id_tokenizer). The two spawns run
+    together while this process makes the one-rank references.
+    Returns each kernel row's launches on rank 0 in (a)-(b) at {expert:
+    2}."""
+    contents = tp_contents()
+    contents = contents + contents[:1]
+
+    def tiny(name, mesh, int8=False, geometry=None):
+        return dict(name=f"ep_tiny_{name}", model="tiny-moe", int8=int8,
+                    new=12, together=True, serves=1, lens=EP_TINY_LENS,
+                    mesh=mesh, geometry={**EP_TINY, **(geometry or {})})
+
+    two = [tiny("ep_f32", EP_TINY_MESHES["ep"]),
+           tiny("ep_int8", EP_TINY_MESHES["ep"], int8=True),
+           tiny("tp_f32", EP_TINY_MESHES["tp"]),
+           tiny("pp_f32", EP_TINY_MESHES["pp"],
+                geometry={"pipeline_microbatches": PP_MICRO}),
+           tiny("cp_f32", EP_TINY_MESHES["cp"])]
+    def ckpt(name, int8, mesh, **kw):
+        return dict(name=name, model="ckpt", tpu=ep_section(int8, mesh),
+                    mesh=mesh, contents=contents, new=DP_NEW, together=True,
+                    serves=1, id_text=True, serve=EP_SERVE, **kw)
+
+    two += [ckpt(f"ep_ckpt_{'int8' if i8 else 'bf16'}", i8, {"expert": EP})
+            for i8 in (False, True)]
+    four = [tiny(f"{k}_f32", m) for k, m in EP_TINY4_MESHES.items()]
+    four.append(ckpt("ep_ckpt_bf16_eptp", False,
+                     {"expert": EP, "model": 2}, decisions=True))
+    # Both spawns run together, and this process makes the one-rank
+    # references meanwhile: the ranks' time is mostly process start-up.
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        spawns = [pool.submit(tp_spawn, "ep_gloo", EP_DEVICES, two,
+                              mesh={"expert": EP}),
+                  pool.submit(tp_spawn, "ep4_gloo", EP4_DEVICES, four,
+                              mesh={"expert": EP, "model": 2})]
+        for job in two + four:
+            if job["model"] != "ckpt":
+                tiny_reference(job)
+        for i8 in (False, True):
+            ep_reference(i8, contents)
+        t_ref = time.monotonic() - t0
+        ranks, ranks4 = (f.result() for f in spawns)
+    log(f"  two ranks on {EP_DEVICES} ran (a)-(b) and four on "
+        f"{EP4_DEVICES} (a), (c), together, in {time.monotonic() - t0:.1f} "
+        f"s; the one-rank references meanwhile took {t_ref:.1f} s")
+    for group, jobs, tag in ((ranks, two, "ep"), (ranks4, four, "ep4")):
+        for job in jobs:
+            tp_check_ranks(tag, job["name"], group)
+            if group[0][job["name"]]["backend"] != "gloo":
+                raise AssertionError("ranks on one card must run over gloo")
+    # (a) against one CPU rank
+    for job, group in [(j, ranks) for j in two if j["model"] != "ckpt"] + [
+            (j, ranks4) for j in four if j["model"] != "ckpt"]:
+        name = job["name"]
+        texts, logits = tiny_reference(job)
+        if group[0][name]["texts"][0] != texts:
+            raise AssertionError(f"(a) {name}: the mesh on the card "
+                                 f"{group[0][name]['texts'][0]} != one CPU "
+                                 f"rank {texts}")
+        mesh_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((mesh_logits - logits).abs().max())
+        log(f"  (a) {name} at {job['mesh']}: text equal to one CPU rank's; "
+            f"first-step logits max_abs_err {err:.3e} (tol "
+            f"{TP_F32_TOL:.0e}); expert bytes per rank "
+            f"{[r[name]['expert_bytes'] for r in group]}")
+        if err > TP_F32_TOL:
+            raise AssertionError(f"(a) {name}: logits error {err}")
+    # (b) and (c) against one rank on the same checkpoint
+    for name, group, parts in (("ep_ckpt_bf16", ranks, EP),
+                               ("ep_ckpt_int8", ranks, EP),
+                               ("ep_ckpt_bf16_eptp", ranks4, 2 * EP)):
+        i8 = "int8" in name
+        got = [r[name] for r in group]
+        ref = ep_reference(i8, contents)
+        mesh_logits = torch.from_numpy(np.load(os.path.join(
+            OUT_DIR, f"tp_{name}_logits.npy")))
+        err = float((mesh_logits - ref["logits"]).abs().max())
+        g0 = got[0]
+        log(f"  ({'c' if parts > EP else 'b'}) {name}: prompt tokens "
+            f"{g0['prompt_lens']}; first-step logits max_abs_err {err:.4f} "
+            f"(tol {LOGIT_TOL}); expert bytes per rank "
+            f"{[g['expert_bytes'] for g in got]} of one rank's "
+            f"{ref['expert_bytes']}; weights per rank "
+            f"{[g['param_bytes'] for g in got]} B of {ref['param_bytes']}; "
+            f"KV per rank {[g['kv_cache_bytes'] for g in got]} B of "
+            f"{ref['kv_cache_bytes']}; streamed per step per rank "
+            f"{g0['stream_bytes_per_device']} B of {g0['stream_bytes']}; "
+            f"max_memory_allocated per rank "
+            f"{[round(g['max_memory_allocated'] / 2**30, 3) for g in got]} "
+            f"GiB; launches per rank {g0['counts']}; build "
+            f"{g0['build_s']:.1f} s, warmup {g0['warmup_s']:.1f} s, serve "
+            f"{[round(t, 1) for t in g0['serve_s']]} s (gloo on one card: "
+            f"not a speed of expert parallelism)")
+        if err > LOGIT_TOL:
+            raise AssertionError(f"{name}: logits error {err}")
+        parted = [i for i, (want, text) in enumerate(
+            zip(ref["texts"], g0["texts"][0])) if text != want]
+        if parted and parts == EP:
+            # At {expert: 2} each expert's output and the combine round as
+            # one rank's: the text must be one rank's.
+            raise AssertionError(f"{name}: chats {parted} differ from one "
+                                 f"rank's: {g0['texts'][0]!r} != "
+                                 f"{ref['texts']!r}")
+        if parts > EP:
+            # Over a model axis the F halves' float32 sums round apart
+            # (about one bf16 step of the logits), so the mesh may make a
+            # decision the other way where one rank made it at a near tie,
+            # and its text may part from there (near_ties).
+            apart = decisions_apart(*recording_decisions.load(
+                os.path.join(OUT_DIR, f"tp_{name}_decisions.npz")),
+                ref["decisions"], MOE_CKPT_LAYERS)
+            log(f"  (c) {name}: {len(ref['decisions'].kinds)} decisions of "
+                f"one rank's serve; those the mesh makes otherwise while "
+                f"the tokens agree (index, kind, layer, row, one rank's "
+                f"margin): {apart}")
+            if not near_ties(apart) or (parted and not apart):
+                raise AssertionError(
+                    f"{name}: chats {parted} part from one rank's and the "
+                    f"decisions apart {apart} are not near ties")
+        log(f"  {name}: text equal to one rank's for "
+            f"{len(contents) - len(parted)} of {len(contents)} chats"
+            + (f"; chats {parted} part after a near tie" if parted else ""))
+    _EP_REFS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = {"tiny": ranks[0]["ep_tiny_ep_int8"]["counts"],
+         "bf16": ranks[0]["ep_ckpt_bf16"]["counts"],
+         "int8": ranks[0]["ep_ckpt_int8"]["counts"]}
+    return {"flash_prefill": c["bf16"]["flash_prefill"]
+            + c["int8"]["flash_prefill"],
+            "decode_attention": c["bf16"]["decode_attention"],
+            "decode_attention_int8": c["int8"]["decode_attention"],
+            "kv_append_fused": c["int8"]["decode_attention_append"],
+            "w8a16_matmul[gemv]": c["int8"]["w8a16_gemv"],
+            "w8a16_matmul[gemv_f32]": c["tiny"]["w8a16_gemv_f32"],
+            "w8a16_matmul[tc]": c["int8"]["w8a16_tc"],
+            "kv_append": sum(r["kv_append"] for r in c.values()),
+            "w8a8_matmul": 0}
+
+
+def check_ep_nccl() -> None:
+    """`--tp` with two cards: mixtral-8x7b in bf16 at all 32 layers, the
+    model one card cannot hold (~93.4 GB), at {expert: 2}, one card a rank
+    over nccl: init_params(mesh=) keeps a rank's experts only (~48.3 GB a
+    rank), phase 14's chats one at a time; tokens equal on both ranks.
+    Logged as not run on a machine with fewer cards."""
+    if torch.cuda.device_count() < 2:
+        log(f"  nccl pass of mixtral-8x7b at {{expert: 2}} not run: "
+            f"{torch.cuda.device_count()} card(s) on this machine")
+        return
+    section = {"model_preset": "mixtral-8x7b", "mesh": {"expert": EP},
+               "max_batch_size": DP_SLOTS, "decode_block": TP_DECODE_BLOCK}
+    got = tp_spawn("ep_nccl", ["cuda:0", "cuda:1"], [dict(
+        name="ep_mixtral", model="ckpt", tpu=section,
+        contents=tp_contents(), new=TP_NEW, serves=1)],
+        mesh={"expert": EP})
+    if got[0]["ep_mixtral"]["backend"] != "nccl":
+        raise AssertionError("two cards must run over nccl")
+    tp_check_ranks("ep nccl", "ep_mixtral", got)
+    g = [r["ep_mixtral"] for r in got]
+    log(f"  nccl pass, mixtral-8x7b bf16 32 layers at {{expert: 2}} on "
+        f"cuda:0, cuda:1: tokens equal on both ranks; weights per rank "
+        f"{[r['param_bytes'] for r in g]} B (experts "
+        f"{[r['expert_bytes'] for r in g]}); max_memory_allocated per rank "
+        f"{[round(r['max_memory_allocated'] / 2**30, 3) for r in g]} GiB; "
+        f"serve {[round(t, 1) for t in g[0]['serve_s']]} s")
+
+
 def tp_main() -> int:
-    """`python3 chip_smoke.py --tp`: phases 14 to 16 alone, where the
+    """`python3 chip_smoke.py --tp`: phases 14 to 17 alone, where the
     machine has the cards for their nccl passes too: the device, the
     build, phase 10's checkpoint and warm caches written in process
-    (without its hosts), then phases 14, 15 and 16."""
+    (without its hosts), then phases 14, 15 and 16; phase 13(e)'s mixtral
+    checkpoint, then phase 17 and its nccl pass."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check",
               file=sys.stderr)
@@ -4454,8 +4917,17 @@ def tp_main() -> int:
     log(f"phase 15 took {t3 - t2:.1f} s; launches_dp {launches}")
     launches = check_pp_cp(smi)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    log(f"phase 16 took {time.perf_counter() - t3:.1f} s; launches_pp, "
-        f"launches_cp {launches}")
+    t4 = time.perf_counter()
+    log(f"phase 16 took {t4 - t3:.1f} s; launches_pp, launches_cp "
+        f"{launches}")
+    write_moe_checkpoint()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = check_ep(smi)
+    shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    log(f"phase 17 took {time.perf_counter() - t4:.1f} s (the mixtral "
+        f"checkpoint's write included); launches_ep {launches}")
+    check_ep_nccl()
     return 0
 
 
@@ -4665,12 +5137,30 @@ def main() -> int:
         if not on_cp and row["launches_cp"]:
             raise AssertionError(f"{row['name']} launched at context=2")
     phase_done(16)
+
+    log(f"phase 17: the expert axis and MoE on every mesh axis, ranks on "
+        f"one card: tiny-moe float32 at {{expert: 2}} (dense, int8), "
+        f"{{model: 2}}, {{stage: 2}}, {{context: 2}}, {{expert: 2, model: "
+        f"2}} and {{data: 2, expert: 2}}; mixtral-8x7b width at "
+        f"{MOE_CKPT_LAYERS} layers (phase 13(e)'s checkpoint) bf16 and int8 "
+        f"at {{expert: 2}}, bf16 at {{expert: 2, model: 2}}")
+    ep_launches = check_ep(smi)
+    shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    for row in rows:
+        row["launches_ep"] = ep_launches[row["name"]]
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        if on_path and row["launches_ep"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at "
+                                 f"expert=2")
+        if not on_path and row["launches_ep"]:
+            raise AssertionError(f"{row['name']} launched at expert=2")
+    phase_done(17)
     log(f"  all phases {time.perf_counter() - t_start:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_moe", "launches_tp", "launches_dp", "launches_pp",
-            "launches_cp")
+            "launches_cp", "launches_ep")
     extra = ("path", "launches_pp_reason")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},

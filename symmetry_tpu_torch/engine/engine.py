@@ -64,14 +64,19 @@ engine, where they are replicated. Rank 0's scheduler drives every rank
 through parallel/multihost.py's command loop. The `context` axis's ranks
 are replicas, as in the JAX engine, where no sharding rule maps a
 parameter or cache dim to it (models/llama.py forward_hidden's
-`ring_mesh` is the sequence-parallel prefill over it). A `stage` axis
-(stage-only, as in the JAX engine) routes the trunk of every dispatch
-through parallel/pipeline.py (`trunk`): each rank holds its block of the
-layers of the params, the decode cache, the prefill buffers and the
-prefix pool (PIPELINE_RULES), and `pipeline_microbatches` splits the
-dispatches whose batch is max_slots. Knobs outside this slice (the
-`expert` axis, dcn_data, MoE on a mesh) raise EngineError naming their
-ROADMAP item.
+`ring_mesh` is the sequence-parallel prefill over it). So are the
+`expert` axis's, but for an MoE model's expert stacks: each rank holds
+the experts of its coordinate, and every MoE layer sums over the axis
+(models/moe.py). An MoE model serves on every axis; on a `data` axis a
+verify whose whole batch is dispatch-sized runs the MoE layers over the
+whole batch (`trunk`'s batch_axis), as the JAX engine's one program
+does. A `stage` axis (stage-only, as in the JAX engine) routes the trunk
+of every dispatch through parallel/pipeline.py (`trunk`): each rank
+holds its block of the layers of the params, the decode cache, the
+prefill buffers and the prefix pool (PIPELINE_RULES), and
+`pipeline_microbatches` splits the dispatches whose batch is max_slots.
+A `tpu.multihost` job with `dcn_data` > 1 serves the data axis across
+hosts (parallel/multihost.py build_multihost_mesh).
 
 The engine is synchronous and single-threaded by design: exactly one thread
 (the scheduler's engine thread) may call the mutating methods.
@@ -123,6 +128,7 @@ from symmetry_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from symmetry_tpu_torch.parallel.multihost import (
     build_multihost_mesh,
     init_distributed,
+    multihost_spec,
 )
 from symmetry_tpu_torch.parallel.pipeline import pipeline_forward_hidden
 from symmetry_tpu_torch.parallel.sharding import (
@@ -225,14 +231,6 @@ class HostFuture:
         return arr if dtype is None else arr.astype(dtype, copy=False)
 
 
-# Knobs outside this slice -> the ROADMAP item that brings them.
-_NOT_PORTED = {
-    "mesh": "the `expert` mesh axis (ROADMAP Queue 1 item 14)",
-    "dcn_data": "a data axis across hosts (dcn_data > 1: ROADMAP Queue 1 "
-                "item 14)",
-    "moe_mesh": "MoE on a mesh (ROADMAP Queue 1 item 14)",
-}
-
 # KV cache dtype -> the dtype name its handoff planes travel under.
 _WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
                 torch.float16: "float16", torch.int8: "int8"}
@@ -255,27 +253,17 @@ def from_numpy_plane(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def _refuse(knob: str) -> EngineError:
-    return EngineError(f"{knob}: {_NOT_PORTED[knob]} is not ported to the "
-                       f"PyTorch engine yet")
-
-
 def check_mesh(shape: dict[str, int], config: ModelConfig | None = None,
                max_slots: int | None = None,
                pipeline_microbatches: int = 1) -> None:
-    """Refuse a mesh this slice does not serve: the `expert` axis above 1,
-    MoE on a mesh, a stage axis beside any other axis above 1 (the JAX
-    engine's words, which it raises at its first dispatch) or over a
-    layer count it does not divide, pipeline microbatches without a stage
-    axis or that do not divide the slots, a data axis that does not divide
-    the slots (each data rank owns an equal block), or a model axis that
-    does not divide the heads, kv heads, MLP width and vocabulary (each
-    rank holds an equal block)."""
-    if int(shape.get("expert", 1)) > 1:
-        raise _refuse("mesh")
-    if (config is not None and getattr(config, "num_experts", 0)
-            and int(np.prod([int(n) for n in shape.values()])) > 1):
-        raise _refuse("moe_mesh")
+    """Refuse a mesh the engine does not serve: a stage axis beside any
+    other axis above 1 (the JAX engine's words, which it raises at its
+    first dispatch; ROADMAP Queue 1 item 14) or over a layer count it does
+    not divide, pipeline microbatches without a stage axis or that do not
+    divide the slots, a data axis that does not divide the slots (each
+    data rank owns an equal block), an expert axis that does not divide an
+    MoE model's experts, or a model axis that does not divide the heads,
+    kv heads, MLP width and vocabulary (each rank holds an equal block)."""
     pp = int(shape.get("stage", 1))
     if pp > 1:
         other = [a for a in ("data", "context", "expert", "model")
@@ -284,7 +272,7 @@ def check_mesh(shape: dict[str, int], config: ModelConfig | None = None,
             raise EngineError(
                 f"pipeline_forward_hidden shards only the stage axis; mesh "
                 f"has non-trivial axes {other} — use a stage-only "
-                f"(sub)mesh")
+                f"(sub)mesh (ROADMAP Queue 1 item 14)")
         if config is not None and config.num_layers % pp:
             raise EngineError(f"{config.num_layers} layers not divisible by "
                               f"{pp} stages")
@@ -301,6 +289,11 @@ def check_mesh(shape: dict[str, int], config: ModelConfig | None = None,
         raise EngineError(f"mesh data={dp} does not divide max_slots "
                           f"{max_slots}: each data rank owns an equal "
                           f"block of the slots")
+    ep = int(shape.get("expert", 1))
+    n_exp = getattr(config, "num_experts", 0)
+    if n_exp and n_exp % ep:
+        raise EngineError(f"mesh expert={ep} does not divide num_experts "
+                          f"{n_exp}: every rank holds an equal block")
     tp = int(shape.get("model", 1))
     if tp == 1 or config is None:
         return
@@ -557,11 +550,12 @@ class InferenceEngine:
     # Device primitives
 
     def trunk(self, tokens, cache: KVCache, seq_lens=None, *,
-              prefill_flash: bool = False):
+              prefill_flash: bool = False, own_rows: bool = False):
         """forward_hidden, routed through the pipeline schedule when the
         mesh has a stage axis (the JAX engine's `trunk`): the params and
         the cache are then this stage's layers, and the batch splits into
-        `pipeline_microbatches` only when it is max_slots."""
+        `pipeline_microbatches` only when it is max_slots. `own_rows`: the
+        batch is this rank's block of the data axis (decode, verify)."""
         if self.pipeline:
             n_micro = (self.pipeline_microbatches
                        if tokens.shape[0] == self.max_slots else 1)
@@ -571,7 +565,9 @@ class InferenceEngine:
                 prefill_flash=prefill_flash)
         return forward_hidden(self.params, self.config, tokens, cache,
                               seq_lens=seq_lens, prefill_flash=prefill_flash,
-                              mesh=self.mesh)
+                              mesh=self.mesh,
+                              batch_axis=("data" if own_rows and self._dp > 1
+                                          else None))
 
     def _prefill(self, tokens, true_len, temp, top_p, top_k, keys,
                  scratch: KVCache):
@@ -745,7 +741,8 @@ class InferenceEngine:
         """Advance every slot one token (on a data axis, this rank's rows,
         then every rank's tokens)."""
         st, rows = self.state, self._rows
-        h, cache = self.trunk(st.last_token[rows, None], self._own(st.cache))
+        h, cache = self.trunk(st.last_token[rows, None], self._own(st.cache),
+                              own_rows=True)
         logits = logits_from_hidden(self.params, self.config, h,
                                     self.mesh)[:, 0]
         # Each slot's key splits into its next key and this step's draw.
@@ -775,7 +772,8 @@ class InferenceEngine:
         st, rows = self.state, self._rows
         tokens = torch.cat([st.last_token[rows, None], draft[rows]], dim=1)
         old_lengths = st.cache.lengths
-        h, cache = self.trunk(tokens, self._own(st.cache), 1 + n_draft[rows])
+        h, cache = self.trunk(tokens, self._own(st.cache), 1 + n_draft[rows],
+                              own_rows=True)
         # The head over all 1 + k positions: every lane is a candidate.
         logits = logits_from_hidden(self.params, self.config, h, self.mesh)
         # One split of each slot's key per verify, as a decode step takes.
@@ -1634,38 +1632,41 @@ class InferenceEngine:
         drawn from torch.Generator(d).manual_seed(0), d the card when one
         is present and else the CPU: random weights of the preset's shape,
         NOT the JAX package's jax.random.key(0) weights.
-        A `tpu.mesh` of N > 1 ranks (its `data`, `model`, `context` and
-        `stage` axes) builds this rank's engine of an N-rank job: with
-        `tpu.multihost`, this joins the job first (parallel/multihost.py
-        init_distributed, from its coordinator, num_processes and
-        process_id); without it, the caller has joined it (the engine host
-        spawns and joins its ranks itself).
+        A `tpu.mesh` of N > 1 ranks (any of its axes) builds this rank's
+        engine of an N-rank job: with `tpu.multihost`, this joins the job
+        first (parallel/multihost.py init_distributed, from its
+        coordinator, num_processes and process_id); without it, the caller
+        has joined it (the engine host spawns and joins its ranks itself).
+        With `tpu.multihost.dcn_data` = D > 1, `tpu.mesh` is one host's
+        share and the job's mesh has D times its data axis
+        (build_multihost_mesh): num_processes counts ranks, D times the
+        mesh's size.
         Every rank loads only its block of the weights: its `model` block,
-        under a stage axis its layers, whole on every rank of the data and
-        context axes. Knobs outside this slice raise EngineError naming
-        their ROADMAP item: the `expert` axis, dcn_data > 1 and MoE on a
-        mesh."""
+        an MoE model's experts of its `expert` coordinate, under a stage
+        axis its layers, whole on every rank of the data and context axes.
+        A stage axis beside another axis above 1 raises EngineError in the
+        JAX engine's words."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise EngineError("no CUDA device is available; pass "
                               "device='cpu' to run the plain versions")
         spec = MeshSpec.from_dict(dict(tpu_cfg.mesh or {}))
-        if spec.size > 1:
+        mh = tpu_cfg.multihost
+        dcn_data = int(mh.get("dcn_data", 1)) if mh else 1
+        whole = multihost_spec(spec, dcn_data)
+        if whole.size > 1:
             # Refuse before joining a job: the model's shapes decide too.
-            check_mesh(spec.shape(), read_hf_config(tpu_cfg.checkpoint_path)
+            check_mesh(whole.shape(), read_hf_config(tpu_cfg.checkpoint_path)
                        if tpu_cfg.checkpoint_path
                        else preset(tpu_cfg.model_preset or "tiny"),
                        tpu_cfg.max_batch_size, tpu_cfg.pipeline_microbatches)
         elif tpu_cfg.pipeline_microbatches > 1:
             check_mesh({}, None, None, tpu_cfg.pipeline_microbatches)
-        mh = tpu_cfg.multihost
-        if mh and int(mh.get("dcn_data", 1)) > 1:
-            raise _refuse("dcn_data")
         mesh = None
         if mh:
             init_distributed(mh["coordinator"], int(mh["num_processes"]),
                              int(mh.get("process_id", 0)), device=device)
-            mesh = build_multihost_mesh(spec)
+            mesh = build_multihost_mesh(spec, dcn_data)
         elif spec.size > 1:
             if not dist.is_initialized():
                 raise EngineError(

@@ -50,8 +50,8 @@ Protocol: JSON lines, as in the JAX package's host.
             ran on the kernels; the prefill role adds `handoff`, the
             decode role `adopt`, and probes a `devprof` block)
 
-A mesh (`tpu.mesh` over the `model`, `data`, `context` or `stage` axes,
-parallel/): this host is rank 0 and its scheduler drives every rank
+A mesh (`tpu.mesh` over any of the `model`, `data`, `context`, `expert`
+and `stage` axes, parallel/): this host is rank 0 and its scheduler drives every rank
 through the command loop
 (parallel/multihost.py), as the JAX host does for a multihost job. With
 `tpu.multihost`, the other ranks are started by the operator
@@ -62,10 +62,8 @@ process): `python -m symmetry_tpu_torch.engine.host cfg --follow R
 --coordinator ADDR --parent PID`. A follower dies with the host (the
 kernel's parent-death signal), so a respawned host never finds an orphan
 rank holding the card; `--device` names each rank's card, and ranks share
-one only when it names the card exactly (e.g. cuda:0). The `expert` axis,
-dcn_data and MoE on a mesh fail at start (from_tpu_config names item 14),
-and so does a stage axis beside another axis above 1 (in the JAX engine's
-words).
+one only when it names the card exactly (e.g. cuda:0). A stage axis
+beside another axis above 1 fails at start (in the JAX engine's words).
 `tpu.compile_cache` names where the kernels are built
 (utils/compile_cache.py); PyTorch runs eagerly.
 

@@ -27,7 +27,9 @@ column's amax over the whole K (a max over the mesh axis) before its
 scale, as quantizing the full leaf does. Under a stage axis
 (PIPELINE_RULES) a rank reads only its layers: a cold load reads only
 their HF tensors, a warm load slices only their rows of each stacked leaf.
-MoE checkpoints do not load on a mesh (ROADMAP Queue 1 item 14).
+An MoE checkpoint's expert stacks load a rank's experts (its `expert`
+coordinate), each over its `model` block of F: a cold load reads only
+their HF tensors; the router is whole on every rank.
 """
 
 from __future__ import annotations
@@ -67,6 +69,11 @@ from symmetry_tpu_torch.ops.quant import (
     quantize as quantize_leaf,
     unpack_quantized,
 )
+from symmetry_tpu_torch.parallel.sharding import (
+    Sharding,
+    logical_to_spec,
+    mesh_rules,
+)
 
 __all__ = ["CheckpointError", "convert_hf_state_dict", "load_checkpoint",
            "save_checkpoint", "save_warm_cache", "load_warm_cache",
@@ -79,10 +86,6 @@ def _block(mesh, rules, axes: tuple):
     contraction (second-last) dim is split: a row-parallel leaf, whose
     int8 scales need the amax over every rank's rows. `rules` default to
     the mesh's (sharding.mesh_rules)."""
-    from symmetry_tpu_torch.parallel.sharding import (Sharding,
-                                                      logical_to_spec,
-                                                      mesh_rules)
-
     if mesh is None:
         return (lambda t: t), False
     spec = logical_to_spec(axes, mesh_rules(mesh) if rules is None
@@ -234,9 +237,6 @@ def load_checkpoint(
     row-parallel leaf takes a max over the mesh axis per column block)."""
     if config is None:
         config = read_hf_config(path)
-    if mesh is not None and getattr(config, "num_experts", 0):
-        raise NotImplementedError("MoE checkpoints on a mesh are not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
     device = torch.device(device)
     store = SafetensorsDir(path)
     tied = config.tie_embeddings or "lm_head.weight" not in store.names()
@@ -309,17 +309,25 @@ def load_checkpoint(
     if n_exp:
         shape = layer_shapes["router"]
         params["layers"]["router"], put = leaf("router", (L, *shape))
-        for layer in range(L):
-            put((layer,), read(f"model.layers.{layer}.{HF_MOE_ROUTER}",
-                               True, shape))
-        # One HF tensor per (layer, expert), straight into its slot.
+        for i, layer in enumerate(layers):
+            put((i,), read(f"model.layers.{layer}.{HF_MOE_ROUTER}", True,
+                           shape))
+        # One HF tensor per (layer, expert) of this rank, straight into its
+        # slot: the rank's experts, each cut to its block of F.
         for ours in _EXPERT_LEAVES:
-            shape = layer_shapes[ours][1:]
-            params["layers"][ours], put = leaf(ours, (L, n_exp, *shape))
-            for layer in range(L):
-                for e in range(n_exp):
-                    put((layer, e), read(hf_expert_name(layer, e, ours),
-                                         True, shape))
+            shape = layer_shapes[ours]
+            block, row_par = _block(mesh, rules, axes["layers"][ours][1:])
+            experts = range(n_exp)
+            if mesh is not None:
+                experts = experts[block.slices(shape)[0]]
+                block = Sharding(mesh, block.spec[1:])
+            params["layers"][ours], put = leaf(
+                ours, (L, len(experts), *local_shape(block, shape[1:])),
+                row_par)
+            for i, layer in enumerate(layers):
+                for j, e in enumerate(experts):
+                    put((i, j), read(hf_expert_name(layer, e, ours), True,
+                                     shape[1:], block))
     return params, config
 
 
@@ -537,9 +545,6 @@ def load_warm_cache(checkpoint_path: str, *, dtype: torch.dtype,
             "params.safetensors"))
     except (ValueError, TypeError, KeyError, OSError, CheckpointError):
         return None
-    if mesh is not None and getattr(config, "num_experts", 0):
-        raise NotImplementedError("MoE checkpoints on a mesh are not "
-                                  "ported yet (ROADMAP Queue 1 item 14)")
     axes = param_logical_axes(config)
 
     device = torch.device(device)

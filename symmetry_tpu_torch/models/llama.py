@@ -26,6 +26,8 @@ a ModelConfig) serve engine/weights.py.
 MoE (mixtral family, MoEConfig): a layer whose params carry a "router"
 runs models/moe.py's mixture in place of the dense MLP; the expert stacks
 are [L, X, E, F] (wg, wu) and [L, X, F, E] (wd), the router [L, E, X].
+On a mesh a rank holds the experts of its `expert` coordinate over its
+`model` block of F, and the mixture sums over both axes (models/moe.py).
 
 Tensor parallelism (`mesh`, parallel/): megatron over the mesh's `model`
 axis, from `param_logical_axes` and parallel/sharding.py DEFAULT_RULES.
@@ -49,14 +51,15 @@ scatter (parallel/ulysses.py), in place of the flash kernel, as in the JAX
 package. The projections, the MLP and the cache writes run whole on every
 rank of the axis, as the JAX forward leaves them outside its shard_map;
 the attention's output shards are all-gathered, so every rank returns the
-whole hidden states and a whole cache. `ring_mesh` with any other axis
-above 1 is refused (ROADMAP Queue 1 item 14).
+whole hidden states and a whole cache. MoE layers run on every rank of a
+context-only `ring_mesh`, as the JAX forward runs them outside its
+shard_map. `ring_mesh` with any other axis above 1 is refused (ROADMAP
+Queue 1 item 14).
 
 Pipeline parallelism (parallel/pipeline.py) runs `run_layers` over a stage
 rank's block of the layers against its block of the cache
-(init_cache(mesh=...) under a stage axis: L / P layers).
-
-Not ported in this slice: MoE on a mesh (ROADMAP Queue 1 item 14).
+(init_cache(mesh=...) under a stage axis: L / P layers); an MoE layer
+there runs on the microbatch, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -86,7 +89,13 @@ from symmetry_tpu_torch.ops.quant import (
 )
 from symmetry_tpu_torch.ops.quant import quantize as quantize_leaf
 from symmetry_tpu_torch.ops.rope import apply_rope
-from symmetry_tpu_torch.parallel.sharding import DEFAULT_RULES, shard_leaf
+from symmetry_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    Sharding,
+    logical_to_spec,
+    mesh_rules,
+    shard_leaf,
+)
 
 
 @dataclass(frozen=True)
@@ -282,12 +291,15 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     nor a float32 one is ever held.
 
     MoE configs (num_experts > 0) draw the expert stacks [L, X, E, F] (wg,
-    wu) and [L, X, F, E] (wd) and a dense router [L, E, X], as the JAX
-    package lays them out.
+    wu) and [L, X, F, E] (wd) one [K, N] slab per (layer, expert), dense or
+    int8, and a dense router [L, E, X], as the JAX package lays them out.
 
-    With `mesh`, each leaf is drawn whole, as above, and only this rank's
-    block of it is kept (shard_param), so every rank's tree is the
-    single-device tree's, sliced."""
+    With `mesh`, every rank draws what one rank draws, in the same order,
+    and keeps only its block (shard_param), so every rank's tree is the
+    single-device tree's, sliced. A leaf drawn in slabs keeps each slab's
+    block as the slab is drawn, so a rank never holds more than its block
+    and one slab of it (an expert rank of mixtral-8x7b keeps its experts
+    only)."""
     c = config
     device = generator.device
     axes = param_logical_axes(c)
@@ -300,22 +312,44 @@ def init_params(config: ModelConfig, generator: torch.Generator,
                         device=device)
         return w.mul_(scale)
 
-    def dense(shape, scale=None, name=None):
+    def dense(shape, leaf_axes, scale=None, name=None):
         scale = scale if scale is not None else shape[-2] ** -0.5
-        if not (quantize and name in QUANT_KEYS):
-            return draw(shape, scale)
+        quant = quantize and name in QUANT_KEYS
+        if not quant and len(shape) < 4:
+            return local(draw(shape, scale), leaf_axes)
         *lead, K, N = shape
-        q = torch.empty(shape, dtype=torch.int8, device=device)
-        s = torch.empty((*lead, N), dtype=torch.float32, device=device)
+        sl = (tuple(slice(0, n) for n in shape) if mesh is None
+              else Sharding(mesh, logical_to_spec(
+                  leaf_axes, mesh_rules(mesh))).slices(shape))
+        out = tuple(b.stop - b.start for b in sl)
+        if quant:
+            q = torch.empty(out, dtype=torch.int8, device=device)
+            s = torch.empty((*out[:-2], out[-1]), dtype=torch.float32,
+                            device=device)
+        else:
+            w = torch.empty(out, dtype=dtype, device=device)
+        rows, keep = sl[-2], sl[-1]
         # one [K, cols] slab per leading index (a layer, or a layer's
         # expert) or per column block of a 2-D leaf
         cols = N if lead else min(N, _QUANT_INIT_COLS)
         for i in itertools.product(*(range(n) for n in lead)):
+            mine = all(b.start <= j < b.stop for j, b in zip(i, sl[:-2]))
+            li = tuple(j - b.start for j, b in zip(i, sl[:-2]))
             for n0 in range(0, N, cols):
-                qt = quantize_leaf(draw((K, min(cols, N - n0)), scale))
-                q[i][:, n0:n0 + cols] = qt.q
-                s[i][n0:n0 + cols] = qt.scale
-        return QuantizedTensor(q=q, scale=s)
+                n1 = min(N, n0 + cols)
+                slab = draw((K, n1 - n0), scale)
+                lo, hi = max(n0, keep.start), min(n1, keep.stop)
+                if not mine or lo >= hi:
+                    continue
+                src = slice(lo - n0, hi - n0)
+                dst = slice(lo - keep.start, hi - keep.start)
+                if quant:
+                    qt = quantize_leaf(slab)
+                    q[li][:, dst] = qt.q[rows, src]
+                    s[li][dst] = qt.scale[src]
+                else:
+                    w[li][:, dst] = slab[rows, src]
+        return QuantizedTensor(q=q, scale=s) if quant else w
 
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
@@ -326,24 +360,23 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     ffn_d = (L, n_exp, F, E) if n_exp else (L, F, E)
     la = axes["layers"]
     params = {
-        "embed": local(dense((c.vocab_size, E), scale=0.02), axes["embed"]),
+        "embed": dense((c.vocab_size, E), axes["embed"], scale=0.02),
         "layers": {
             "attn_norm": local(ones((L, E)), la["attn_norm"]),
             "mlp_norm": local(ones((L, E)), la["mlp_norm"]),
-            "wq": local(dense((L, E, c.q_dim), name="wq"), la["wq"]),
-            "wk": local(dense((L, E, c.kv_dim), name="wk"), la["wk"]),
-            "wv": local(dense((L, E, c.kv_dim), name="wv"), la["wv"]),
-            "wo": local(dense((L, c.q_dim, E), name="wo"), la["wo"]),
-            "wg": local(dense(ffn, name="wg"), la["wg"]),
-            "wu": local(dense(ffn, name="wu"), la["wu"]),
-            "wd": local(dense(ffn_d, name="wd"), la["wd"]),
+            "wq": dense((L, E, c.q_dim), la["wq"], name="wq"),
+            "wk": dense((L, E, c.kv_dim), la["wk"], name="wk"),
+            "wv": dense((L, E, c.kv_dim), la["wv"], name="wv"),
+            "wo": dense((L, c.q_dim, E), la["wo"], name="wo"),
+            "wg": dense(ffn, la["wg"], name="wg"),
+            "wu": dense(ffn, la["wu"], name="wu"),
+            "wd": dense(ffn_d, la["wd"], name="wd"),
         },
         "final_norm": local(ones((E,)), axes["final_norm"]),
     }
     if n_exp:
         # The router stays dense: it is small, and its logits feed a top-k.
-        params["layers"]["router"] = local(dense((L, E, n_exp)),
-                                           la["router"])
+        params["layers"]["router"] = dense((L, E, n_exp), la["router"])
     if c.attention_bias:
         # qwen2: biases on q/k/v projections only (not o/mlp)
         for name, width in (("bq", c.q_dim), ("bk", c.kv_dim),
@@ -352,8 +385,8 @@ def init_params(config: ModelConfig, generator: torch.Generator,
                 torch.zeros((L, width), dtype=dtype, device=device),
                 la[name])
     if not c.tie_embeddings:
-        params["lm_head"] = local(dense((E, c.vocab_size), scale=0.02,
-                                        name="lm_head"), axes["lm_head"])
+        params["lm_head"] = dense((E, c.vocab_size), axes["lm_head"],
+                                  scale=0.02, name="lm_head")
     return params
 
 
@@ -443,9 +476,36 @@ QUANT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "lm_head")
 _QUANT_INIT_COLS = 16384
 
 
-def quantize_params(params: dict) -> dict:
-    """In-place int8 quantization of all QUANT_KEYS leaves (ops/quant.py)."""
-    return quantize_tree(params, QUANT_KEYS)
+def quantize_params(params: dict, *, config: ModelConfig | None = None,
+                    mesh=None) -> dict:
+    """In-place int8 quantization of all QUANT_KEYS leaves (ops/quant.py).
+
+    With `mesh` (+ `config`), `params` holds this rank's blocks: a leaf
+    whose contraction dim is split (wo, wd over `model`; an MoE wd's block
+    of F included) takes each column's amax over that axis before its
+    scale, so every rank's int8 blocks are the whole tree's, quantized and
+    sliced. Every rank calls it, in the same order."""
+    if mesh is None or mesh.size == 1:
+        return quantize_tree(params, QUANT_KEYS)
+    if config is None:
+        raise ValueError("quantize_params needs `config` to find the "
+                         "row-parallel leaves on a mesh")
+    rules = mesh_rules(mesh)
+
+    def visit(node, axes):
+        for name, child in list(node.items()):
+            if isinstance(child, dict):
+                visit(child, axes[name])
+            elif name in QUANT_KEYS and isinstance(child, torch.Tensor):
+                k_axis = logical_to_spec(axes[name], rules)[-2]
+                reduce = None
+                if mesh.axis_size(k_axis) > 1:
+                    def reduce(amax, k_axis=k_axis):
+                        return mesh.all_reduce(amax, k_axis, "max")
+                node[name] = quantize_leaf(child, amax_reduce=reduce)
+
+    visit(params, param_logical_axes(config))
+    return params
 
 
 def pack_params(params: dict, *, config: ModelConfig | None = None,
@@ -532,6 +592,7 @@ def _layer(
     mesh=None,                   # tensor parallel over its `model` axis
     ring_mesh=None,              # sequence-parallel prefill (fresh cache)
     sp_mode: str = "ring",       # "ring" | "ulysses"
+    batch_axis: str | None = None,  # h's batch is a block of this axis
 ) -> torch.Tensor:
     B, S, E = h.shape
     tp = _tp(mesh)
@@ -621,10 +682,7 @@ def _layer(
 
     x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)
     if "router" in lp:
-        if tp > 1:
-            raise NotImplementedError("MoE on a mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 14)")
-        return h + moe_mlp(x, lp, config)
+        return h + moe_mlp(x, lp, config, mesh, batch_axis)
     return h + _row_parallel(_act(qmatmul(x, lp["wg"]), config)
                              * qmatmul(x, lp["wu"]), lp["wd"], mesh)
 
@@ -693,6 +751,7 @@ def run_layers(
     use_ring=None,
     sp_mode: str = "ring",
     cache_layer=lambda i: i,
+    batch_axis: str | None = None,
 ) -> torch.Tensor:
     """Run the stack of decoder layers over `h` (a Python loop over the
     stacked layer dim; the cache is written in place). Layer i of the stack
@@ -703,7 +762,8 @@ def run_layers(
     for i in range(n_layers):
         lp = {name: layer_slice(w, i) for name, w in layers_params.items()}
         h = _layer(h, lp, cache, cache_layer(i), positions, kv_valid,
-                   seq_lens, config, use_flash, mesh, use_ring, sp_mode)
+                   seq_lens, config, use_flash, mesh, use_ring, sp_mode,
+                   batch_axis)
     return h
 
 
@@ -718,6 +778,7 @@ def forward_hidden(
     ring_mesh=None,               # context-parallel prefill mesh
     sp_mode: str = "ring",        # "ring" | "ulysses"
     mesh=None,                    # tensor parallel (this rank's blocks)
+    batch_axis: str | None = None,  # the batch is a block of this axis
 ) -> tuple[torch.Tensor, KVCache]:
     """Decoder trunk: returns (final-norm hidden states [B, S, E], cache).
 
@@ -735,7 +796,11 @@ def forward_hidden(
     "ulysses" head-scatters by all-to-all (parallel/ulysses.py, needs
     kv_heads % shards == 0). The schemes take no window: with ring_mesh
     set, a sliding-window model runs the flash kernel instead, as in the
-    JAX package."""
+    JAX package.
+
+    `batch_axis` names the mesh axis whose ranks each hold a block of the
+    batch (the engine's decode and verify on a `data` axis): an MoE layer
+    then runs a dispatch-sized call over the whole batch (models/moe.py)."""
     if ring_mesh is not None:
         if not prefill_flash:
             # Ring q/kv positions start at 0 and ignore cached entries: only
@@ -776,7 +841,7 @@ def forward_hidden(
         h = h * torch.tensor(config.hidden_size ** 0.5, dtype=h.dtype)
     h = run_layers(params["layers"], h, cache, positions, kv_valid,
                    seq_lens, config, use_flash=use_flash, mesh=mesh,
-                   use_ring=use_ring, sp_mode=sp_mode)
+                   use_ring=use_ring, sp_mode=sp_mode, batch_axis=batch_axis)
     h = rms_norm(h, norm_weight(params["final_norm"], config.norm_plus_one),
                  config.rms_eps)
     return h, cache._replace(lengths=kv_valid)

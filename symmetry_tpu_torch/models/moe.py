@@ -26,6 +26,36 @@ transient to one [K, N] slab. The W8A16 kernel does not take expert stacks
 
 Top-k selection is a stable descending sort: `jax.lax.top_k` keeps the
 lower index among tied values, and `torch.topk` does not.
+
+On a mesh (`mesh`, parallel/) the expert stacks are this rank's block:
+[X / N, E, F / M] for wg and wu, [X / N, F / M, E] for wd, with N the
+`expert` axis and M the `model` axis; the router stays whole. No sharding
+rule maps a token to `expert`, so every expert rank holds the whole token
+set, and the function is the one-rank call's, split by experts:
+
+  - the gates, and in the dispatch the slot table, cover all X experts
+    and are the same on every rank (the capacity C comes from the whole
+    call's T, so the same pairs drop as on one rank);
+  - a rank runs only its experts over its F / M slice; the down
+    projection's float32 partials are summed over `model` and rounded to
+    the activation dtype once (an int8 wd: the sum before the scale), so
+    each expert's output is the one-rank call's [.., X, E] row;
+  - the gated combine over the rank's experts goes into a float32 partial,
+    summed over `expert` and rounded once.
+
+Both sums are order-free where they matter: a token has at most k = 2
+nonzero gated terms over all ranks, and the zeros of the other experts add
+nothing, so a + b (or a + 0 + b) in float32 is the same whatever the
+ranks' order. At bf16 the terms are products of two bf16 values, exact in
+float32, so the single rounding gives the one-rank combine's value, whose
+einsum and index_add_ also reduce two terms. (With k > 2 the order would
+matter.)
+
+A call whose batch is this rank's block of a `data` axis (`batch_axis`:
+the engine's decode and verify) runs the dense mixture locally, since it
+is row-independent; a dispatch-sized call all-gathers its rows over the
+axis, runs the whole call and keeps its rows, so capacity and drops are
+the JAX engine's, whose one program sees the global batch.
 """
 
 from __future__ import annotations
@@ -35,7 +65,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from symmetry_tpu_torch.ops.quant import QuantizedTensor
+from symmetry_tpu_torch.ops.quant import QuantizedTensor, mixed_dot
 
 # Per-expert buffer = ceil(T * top_k / X * CAPACITY_FACTOR) tokens. Pairs
 # past an expert's capacity contribute nothing (switch semantics, no
@@ -100,29 +130,85 @@ def router_logits(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
     return (x @ router).to(torch.float32)
 
 
-def moe_mlp(x: torch.Tensor, lp: dict, config) -> torch.Tensor:
+def _axis(mesh, axis: str | None) -> int:
+    return 1 if mesh is None or axis is None else mesh.axis_size(axis)
+
+
+def _split(mesh) -> bool:
+    """Whether this rank holds a block of the experts (an `expert` or
+    `model` axis above 1); other axes leave the stacks whole."""
+    return _axis(mesh, "expert") * _axis(mesh, "model") > 1
+
+
+def _expert_block(w, mesh) -> int:
+    """The first expert of this rank's block of a stack."""
+    n = (w.q if isinstance(w, QuantizedTensor) else w).shape[0]
+    return 0 if mesh is None else mesh.axis_index("expert") * n
+
+
+def _expert_down(h: torch.Tensor, wd, mesh) -> torch.Tensor:
+    """Per-expert down projection [X', C, F'] @ [X', F', E] -> [X', C, E] in
+    h's dtype. Over a `model` axis each rank holds an F slice: its float32
+    partials are summed over the axis and rounded once (an int8 leaf: the
+    sum before the per-column scale), as models/llama.py _row_parallel
+    sums a dense row-parallel leaf."""
+    if _axis(mesh, "model") == 1:
+        return _expert_matmul(h, wd)
+    if isinstance(wd, QuantizedTensor):
+        part = torch.stack([
+            mixed_dot(h[e], wd.q[e], wd.scale[e], out_dtype=torch.float32,
+                      apply_scale=False) for e in range(wd.q.shape[0])])
+        part = mesh.all_reduce(part, "model")
+        return (part * wd.scale[:, None, :]).to(h.dtype)
+    from symmetry_tpu_torch.models.llama import _float32_product
+
+    part = torch.stack([_float32_product(h[e], wd[e])
+                        for e in range(wd.shape[0])])
+    return mesh.all_reduce(part, "model").to(h.dtype)
+
+
+def moe_mlp(x: torch.Tensor, lp: dict, config, mesh=None,
+            batch_axis: str | None = None) -> torch.Tensor:
     """MoE FFN: [B, S, E] -> [B, S, E]. The dense mixture at decode and
-    for small calls, capacity-factor dispatch at prefill."""
+    for small calls, capacity-factor dispatch at prefill. On a mesh, this
+    rank's experts (see the module docstring); `batch_axis` names the mesh
+    axis x's batch is this rank's block of."""
     B, S, _ = x.shape
-    if S > 1 and B * S >= MIN_DISPATCH_TOKENS:
-        return moe_mlp_dispatch(x, lp, config)
+    dp = _axis(mesh, batch_axis)
+    if S > 1 and B * dp * S >= MIN_DISPATCH_TOKENS:
+        if dp == 1:
+            return moe_mlp_dispatch(x, lp, config, mesh)
+        whole = moe_mlp_dispatch(mesh.all_gather(x, batch_axis, 0), lp,
+                                 config, mesh)
+        lo = mesh.axis_index(batch_axis) * B
+        return whole[lo:lo + B]
     gates = route_top_k(router_logits(x, lp["router"]),
                         config.num_experts_per_tok).to(x.dtype)  # [B, S, X]
     h = F.silu(qmatmul_experts(x, lp["wg"])) * qmatmul_experts(
-        x, lp["wu"])                                            # [B, S, X, F]
+        x, lp["wu"])                                            # [B, S, X', F']
     X = h.shape[2]
-    y = _expert_matmul(h.reshape(B * S, X, -1).transpose(0, 1), lp["wd"])
-    y = y.transpose(0, 1).reshape(B, S, X, -1)                  # [B, S, X, E]
-    return torch.einsum("bsxe,bsx->bse", y, gates)
+    y = _expert_down(h.reshape(B * S, X, -1).transpose(0, 1), lp["wd"],
+                     mesh)
+    y = y.transpose(0, 1).reshape(B, S, X, -1)                  # [B, S, X', E]
+    if not _split(mesh):
+        return torch.einsum("bsxe,bsx->bse", y, gates)
+    # The gated combine of this rank's experts in float32, summed over
+    # `expert` and rounded once.
+    e0 = _expert_block(lp["wd"], mesh)
+    partial = torch.einsum("bsxe,bsx->bse", y.float(),
+                           gates[..., e0:e0 + X].float())
+    return mesh.all_reduce(partial, "expert").to(x.dtype)
 
 
-def moe_mlp_dispatch(x: torch.Tensor, lp: dict, config) -> torch.Tensor:
+def moe_mlp_dispatch(x: torch.Tensor, lp: dict, config, mesh=None
+                     ) -> torch.Tensor:
     """Capacity-factor token dispatch (GShard/Switch shape, static sizes).
 
     Each (token, choice) pair is ranked within its expert by a one-hot
     cumsum; pairs past the expert's capacity are dropped. Each expert runs
     one batched matmul over its gathered tokens, and a scatter-add puts the
-    gated outputs back in token order."""
+    gated outputs back in token order. On a mesh every rank builds the
+    whole slot table and runs only its experts' slots."""
     B, S, E = x.shape
     X = config.num_experts
     k = config.num_experts_per_tok
@@ -155,15 +241,24 @@ def moe_mlp_dispatch(x: torch.Tensor, lp: dict, config) -> torch.Tensor:
     gate_for_slot = torch.zeros(X * C + 1, dtype=x.dtype, device=dev)
     gate_for_slot[slot] = torch.where(keep, flat_gate,
                                       torch.zeros_like(flat_gate))
-    token_for_slot = token_for_slot[:X * C]
+    # This rank's experts' slots (all of them on one rank).
+    n_local = (lp["wd"].q if isinstance(lp["wd"], QuantizedTensor)
+               else lp["wd"]).shape[0]
+    e0 = _expert_block(lp["wd"], mesh)
+    token_for_slot = token_for_slot[e0 * C:(e0 + n_local) * C]
+    gate_for_slot = gate_for_slot[e0 * C:(e0 + n_local) * C]
 
     # An empty slot gathers token 0 with gate 0: it adds +-0 to token 0.
-    xg = xf[token_for_slot].reshape(X, C, E)
+    xg = xf[token_for_slot].reshape(n_local, C, E)
     h = F.silu(_expert_matmul(xg, lp["wg"])) * _expert_matmul(
-        xg, lp["wu"])                                         # [X, C, F]
-    y = _expert_matmul(h, lp["wd"])                           # [X, C, E]
+        xg, lp["wu"])                                         # [X', C, F']
+    y = _expert_down(h, lp["wd"], mesh)                       # [X', C, E]
 
-    weighted = y.reshape(X * C, E) * gate_for_slot[:X * C, None]
+    weighted = y.reshape(n_local * C, E) * gate_for_slot[:, None]
+    if _split(mesh):
+        out = torch.zeros((T, E), dtype=torch.float32, device=dev)
+        out.index_add_(0, token_for_slot, weighted.float())
+        return mesh.all_reduce(out, "expert").to(x.dtype).reshape(B, S, E)
     # index_add_ runs on atomics on CUDA, in no fixed order. A token gets at
     # most k = 2 nonzero terms besides the +-0 of empty slots, and 0 + a + b
     # rounds the same in either order, so the sum is deterministic and

@@ -19,8 +19,10 @@ are IEEE, so payloads are bit-equal to the JAX package's on the same input
 On a mesh (parallel/), each rank packs its own block of a leaf, and the
 packed leaf names the mesh axes its contraction and output dims are
 sharded over, as the JAX package's does; qmatmul then routes it through
-ops/qmm.py w8a16_apply_sharded. Only the `model` axis shards a packed leaf
-(ROADMAP Queue 1 item 14 brings the others).
+ops/qmm.py w8a16_apply_sharded. Only the `model` axis shards a packed leaf:
+no sharding rule puts another axis on a packed leaf's dims (the `expert`
+axis shards the MoE expert stacks, which stay flat, as in the JAX
+package), and packing over another axis is refused (item 14).
 """
 
 from __future__ import annotations

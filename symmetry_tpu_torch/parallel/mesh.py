@@ -25,9 +25,12 @@ another: `jax.lax.all_to_all(..., tiled=True)`, parallel/ulysses.py) and
 The engine serves the `model` axis (models/llama.py), the `data` axis
 (engine/engine.py: each rank owns a block of the slots), the `context`
 axis (its ranks are replicas, as in the JAX engine; models/llama.py
-forward_hidden's `ring_mesh` shards a prefill's sequence over it) and the
-`stage` axis (parallel/pipeline.py; stage-only, as in the JAX package).
-The `expert` axis stays refused (ROADMAP Queue 1 item 14).
+forward_hidden's `ring_mesh` shards a prefill's sequence over it), the
+`expert` axis (an MoE model's experts: each rank holds its coordinate's
+block of every expert stack and models/moe.py sums the mixture over the
+axis, then over `model` inside it; the other leaves, and a dense model,
+are replicas) and the `stage` axis (parallel/pipeline.py; stage-only, as
+in the JAX package).
 """
 
 from __future__ import annotations

@@ -13,7 +13,8 @@ ranks). Three pieces, as in the JAX package:
      chosen by a rule, not by trying: "nccl" when every rank has a card of
      its own, "gloo" when two ranks share a card (NCCL refuses that) or run
      on the CPU. Idempotent, with a timeout.
-  2. `build_multihost_mesh` -- the mesh over every rank of the job.
+  2. `build_multihost_mesh` -- the mesh over every rank of the job, its
+     `data` axis across hosts when `dcn_data` > 1.
   3. `CommandLoop` -- the rank-0 control plane: rank 0's scheduler decides
      every engine call; each is broadcast to all ranks and executed by
      every rank, rank 0 included, from the same decoded command.
@@ -43,6 +44,7 @@ from the JAX package, each needed because a PyTorch rank is a process:
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import socket
@@ -175,21 +177,42 @@ def init_distributed(coordinator_address: str, num_processes: int,
     return _layout
 
 
-def build_multihost_mesh(ici: MeshSpec | dict, dcn_data: int = 1) -> Mesh:
-    """The mesh over every rank of the job. `ici` is the mesh shape; a
-    `data` axis spanning hosts (dcn_data > 1) is not served yet."""
+def multihost_spec(ici: MeshSpec | dict, dcn_data: int = 1) -> MeshSpec:
+    """The job's whole mesh shape: `ici` (one host's share) with its data
+    axis times `dcn_data`, the hosts along it."""
     if isinstance(ici, dict):
         ici = MeshSpec.from_dict(ici)
-    if dcn_data > 1:
-        raise NotImplementedError(
-            f"dcn_data {dcn_data}: a data axis across hosts is not ported "
-            f"yet (ROADMAP Queue 1 item 14)")
+    if dcn_data < 1:
+        raise ValueError(f"dcn_data {dcn_data} must be >= 1")
+    return dataclasses.replace(ici, data=ici.data * dcn_data)
+
+
+def build_multihost_mesh(ici: MeshSpec | dict, dcn_data: int = 1) -> Mesh:
+    """The mesh over every rank of the job: `ici` is one host's share of
+    it and `dcn_data` the number of hosts along the data axis, the JAX
+    hybrid mesh's layout with a process a granule. The mesh's data axis is
+    dcn_data x ici.data, every other axis ici's. Ranks are host-major:
+    host h runs ranks h * ici.size ... (h + 1) * ici.size - 1, which hold
+    data indices h * ici.data ... (h + 1) * ici.data - 1, so every
+    collective but the data axis's stays inside a host. A rank is one
+    process with one device, so the job has dcn_data x ici.size ranks
+    (num_processes counts ranks; in the JAX package a process is a host
+    of several devices)."""
+    if isinstance(ici, dict):
+        ici = MeshSpec.from_dict(ici)
+    spec = multihost_spec(ici, dcn_data)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if ici.size != world:
+    if spec.size != world:
         raise ValueError(
-            f"multihost mesh {ici.shape()} covers {ici.size} ranks but the "
-            f"job has {world}: every rank must be in the mesh")
-    return build_mesh(ici)
+            f"multihost mesh ({dcn_data} hosts x ici {ici.shape()}) covers "
+            f"{spec.size} ranks but the job has {world}: every global "
+            f"device must be in the mesh")
+    if dcn_data > 1 and ici.stage > 1:
+        # A stage axis outside the data axis would interleave the hosts'
+        # ranks; the engine refuses stage beside data anyway.
+        raise ValueError("dcn_data > 1 with a stage axis: the data axis "
+                         "spans hosts only in a mesh without stages")
+    return build_mesh(spec)
 
 
 @dataclass

@@ -6,7 +6,9 @@ replicated). The default rules are megatron-style tensor parallelism:
 
     wq/wk/wv column-parallel (shard heads), wo row-parallel,
     w_gate/w_up column-parallel (shard mlp), w_down row-parallel,
-    embedding + lm_head sharded over vocab.
+    embedding + lm_head sharded over vocab; an MoE expert stack's experts
+    over `expert` and its mlp dim over `model` ([L, X/N, E, F/M]), its
+    router replicated.
 
 Under JAX, XLA derives the collectives from the shardings. Here every rank
 holds only its block of each leaf, and models/llama.py makes the two

@@ -463,16 +463,18 @@ class TestFromTpuConfig:
                            b.params["layers"]["wq"])
 
     @pytest.mark.parametrize("raw,item", [
-        # the model, data, context and stage axes serve (tests/
-        # test_torch_tp.py, test_torch_dp.py, test_torch_cp.py,
-        # test_torch_pp.py); the rest stays refused, before any process
-        # group is joined: the stage axis beside another, and microbatches
-        # without it, in the JAX engine's words
+        # every axis serves (tests/test_torch_tp.py, test_torch_dp.py,
+        # test_torch_cp.py, test_torch_pp.py, test_torch_ep.py); what
+        # stays refused is refused before any process group is joined: the
+        # stage axis beside another (the expert axis; the data axis across
+        # hosts), naming item 14, and microbatches without it, in the JAX
+        # engine's words
         ({"mesh": {"data": 2, "model": 1, "stage": 2}},
          "shards only the stage axis"),
-        ({"mesh": {"data": 1, "model": 2, "expert": 2}}, "item 14"),
-        ({"multihost": {"coordinator": "localhost:1", "num_processes": 2,
-                        "dcn_data": 2}}, "item 14"),
+        ({"mesh": {"stage": 2, "expert": 2}}, "item 14"),
+        ({"mesh": {"stage": 2}, "multihost": {
+            "coordinator": "localhost:1", "num_processes": 4,
+            "dcn_data": 2}}, "item 14"),
         ({"pipeline_microbatches": 2}, "requires a mesh with a stage axis"),
     ])
     def test_refuses_knobs_outside_the_slice(self, raw, item):

@@ -212,10 +212,11 @@ class TestSampling:
 
 class TestEngineSurface:
     @pytest.mark.parametrize("knob,value,item", [
-        # the expert axis (the model, data, context and stage axes serve:
-        # tests/test_torch_tp.py, test_torch_dp.py, test_torch_cp.py,
-        # test_torch_pp.py)
-        ("mesh", Mesh(MeshSpec(expert=2)), "item 14"),
+        # the stage axis beside the expert axis, in the JAX engine's words
+        # (every axis serves: tests/test_torch_tp.py, test_torch_dp.py,
+        # test_torch_cp.py, test_torch_pp.py, test_torch_ep.py; a dense
+        # model's expert ranks are replicas: below)
+        ("mesh", Mesh(MeshSpec(stage=2, expert=2)), "item 14"),
         # microbatches without a stage axis: the JAX engine's words
         ("pipeline_microbatches", 2, "requires a mesh with a stage axis"),
     ])
@@ -223,6 +224,20 @@ class TestEngineSurface:
         _, params = weights
         with pytest.raises(EngineError, match=item):
             port_engine(params, 1, **{knob: value})
+
+    def test_dense_model_on_an_expert_axis_is_replicated(self, weights):
+        """The `expert` axis (once refused as item 14) builds: no rule maps
+        a dense model's leaf to it, so each rank holds the whole tree and
+        the whole cache, as the JAX engine's expert replicas."""
+        _, params = weights
+        one = port_engine(params, 1)
+        engine = port_engine(params, 1, mesh=Mesh(MeshSpec(expert=2),
+                                                  rank=1))
+        assert engine.mesh.axis_index("expert") == 1
+        assert (engine.weight_stream_bytes_per_device()
+                == engine.weight_stream_bytes()
+                == one.weight_stream_bytes())
+        assert engine.kv_cache_bytes() == one.kv_cache_bytes()
 
     @pytest.mark.parametrize("knob,value,contract", [
         ("role", "prefill", "prefill_chunk"),

@@ -236,8 +236,11 @@ def test_multihost_refused_with_item_14(tmp_path):
         "modelName": "tiny", "apiProvider": "tpu_native",
         "tpu": {"model_preset": "tiny", "dtype": "float32",
                 "engine_isolation": "inproc", "compile_cache": False,
+                # dcn_data serves (tests/test_torch_ep.py); a stage axis
+                # beside the hosts' data axis stays refused
+                "mesh": {"stage": 2},
                 "multihost": {"coordinator": "127.0.0.1:1",
-                              "num_processes": 2, "process_id": 0,
+                              "num_processes": 4, "process_id": 0,
                               "dcn_data": 2}}})
     backend = TpuNativeBackend(cfg, device="cpu")
     with pytest.raises(EngineError, match="item 14"):

@@ -21,8 +21,9 @@ file pays for one process group.
     the single-rank host's text, and its follower dies with it;
   - the provider's in-process backend as rank 0 of a `tpu.multihost` job
     with a `--worker` rank, its command loop under the engine gate;
-  - what stays refused names ROADMAP item 14; the stage axis beside
-    another is refused in the JAX package's words.
+  - what stays refused names ROADMAP item 14: the stage axis beside
+    another, in the JAX package's words; what item 14 served since (the
+    expert axis, MoE on a mesh, dcn_data) passes the mesh check.
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from symmetry_tpu.parallel import build_mesh as jax_build_mesh
 from symmetry_tpu.parallel import multihost as jax_multihost
 from symmetry_tpu.parallel import shardings_for as jax_shardings_for
 from symmetry_tpu_torch.engine import weights
-from symmetry_tpu_torch.engine.engine import EngineError, InferenceEngine
+from symmetry_tpu_torch.engine.engine import (EngineError, InferenceEngine,
+                                              check_mesh)
 from symmetry_tpu_torch.models import llama
 from symmetry_tpu_torch.parallel import multihost
 from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
@@ -313,21 +315,33 @@ class TestSharding:
         assert multihost._decode_assignments(words) == assignments
 
 
+MH4 = {"coordinator": "127.0.0.1:1", "num_processes": 4, "process_id": 0,
+       "dcn_data": 2}
+STAGE_BESIDE = (r"shards only the stage axis; mesh has non-trivial axes "
+                r"\[{}\] — use a stage-only \(sub\)mesh \(ROADMAP Queue 1 "
+                r"item 14\)")
+
+
 class TestRefusals:
     @pytest.mark.parametrize("raw,match", [
-        ({"mesh": {"expert": 2}}, "item 14"),
-        ({"model_preset": "tiny-moe", "mesh": {"model": 2}}, "item 14"),
-        ({"mesh": {"model": 2}, "multihost": {
-            "coordinator": "127.0.0.1:1", "num_processes": 4,
-            "process_id": 0, "dcn_data": 2}}, "item 14"),
+        # once refused: the expert axis, MoE on the model, data and stage
+        # axes, dcn_data (served: test_now_served_is_accepted below,
+        # tests/test_torch_ep.py); beside a stage axis they stay refused
+        ({"mesh": {"stage": 2, "expert": 2}}, STAGE_BESIDE.format("'expert'")),
+        ({"model_preset": "tiny-moe", "mesh": {"stage": 2, "model": 2}},
+         STAGE_BESIDE.format("'model'")),
+        ({"mesh": {"stage": 2}, "multihost": MH4},
+         STAGE_BESIDE.format("'data'")),
         # the JAX engine's words (symmetry_tpu/engine/engine.py)
         ({"pipeline_microbatches": 2},
          "pipeline_microbatches > 1 requires a mesh with a stage axis"),
-        ({"model_preset": "tiny-moe", "mesh": {"data": 2}}, "item 14"),
-        ({"mesh": {"data": 2}, "multihost": {
-            "coordinator": "127.0.0.1:1", "num_processes": 4,
-            "process_id": 0, "dcn_data": 2}}, "item 14"),
-        ({"model_preset": "tiny-moe", "mesh": {"stage": 2}}, "item 14"),
+        ({"model_preset": "tiny-moe", "mesh": {"stage": 2, "data": 2}},
+         STAGE_BESIDE.format("'data'")),
+        ({"mesh": {"stage": 2, "data": 2}, "multihost": MH4},
+         STAGE_BESIDE.format("'data'")),
+        ({"model_preset": "tiny-moe", "mesh": {"stage": 2, "expert": 2,
+                                               "model": 2}},
+         STAGE_BESIDE.format("'expert', 'model'")),
         # the stage axis beside another (the JAX pipeline's words)
         ({"mesh": {"stage": 2, "data": 2}},
          r"shards only the stage axis; mesh has non-trivial axes \['data'\]"),
@@ -337,14 +351,37 @@ class TestRefusals:
     ])
     def test_out_of_slice_names_item_14(self, raw, match):
         """Refused before any process group is joined (a multihost section
-        pointing nowhere is never dialled). What the port does not serve
-        names ROADMAP item 14; the pipeline knobs it serves are refused
-        outside their contract in the JAX engine's words. ({data: 2,
-        context: 2}, {model: 2, context: 2} and {stage: 2} serve:
-        tests/test_torch_cp.py, tests/test_torch_pp.py.)"""
+        pointing nowhere is never dialled). What the port does not serve,
+        a stage axis beside another above 1, is refused in the JAX
+        engine's words, naming ROADMAP item 14; so are the pipeline knobs
+        outside their contract. (`ring_mesh` beside `model` or `data`:
+        test_ring_mesh_with_model_refused.)"""
         with pytest.raises(EngineError, match=match):
             InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
                                             device="cpu")
+
+    @pytest.mark.parametrize("raw", [
+        {"mesh": {"expert": 2}},
+        {"model_preset": "tiny-moe", "mesh": {"model": 2}},
+        {"mesh": {"model": 2}, "multihost": MH4},
+        {"model_preset": "tiny-moe", "mesh": {"data": 2}},
+        {"mesh": {"data": 2}, "multihost": MH4},
+        {"model_preset": "tiny-moe", "mesh": {"stage": 2}},
+    ])
+    def test_now_served_is_accepted(self, raw):
+        """What test_out_of_slice_names_item_14 refused until the expert
+        axis and dcn_data were served passes the engine's mesh check on
+        the job's whole mesh (tests/test_torch_ep.py serves each); without
+        a job, from_tpu_config then says how to run the ranks instead of
+        refusing. (A multihost section is not dialled here.)"""
+        tpu = TpuConfig.from_dict(raw)
+        whole = multihost.multihost_spec(
+            tpu.mesh, (tpu.multihost or {}).get("dcn_data", 1))
+        check_mesh(whole.shape(), llama.preset(tpu.model_preset or "tiny"),
+                   tpu.max_batch_size, tpu.pipeline_microbatches)
+        if not tpu.multihost:
+            with pytest.raises(EngineError, match="engine host"):
+                InferenceEngine.from_tpu_config(tpu, device="cpu")
 
     def test_indivisible_data_axis_refused(self):
         """Each data rank owns an equal block of the slots, as NamedSharding

@@ -439,11 +439,11 @@ class TestLoad:
         with pytest.raises(CheckpointError, match="no config.json"):
             weights.load_checkpoint(str(tmp_path), device="cpu")
         cfg = weights.read_hf_config(path)
-        # MoE on a mesh stays refused (dense sharded loads:
-        # tests/test_torch_tp.py)
+        # MoE loads on a mesh (tests/test_torch_ep.py): a dense checkpoint
+        # read sharded under an MoE config lacks the router
         from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(CheckpointError, match="block_sparse_moe.gate"):
             weights.load_checkpoint(path, llama.MoEConfig(
                 **dataclasses.asdict(cfg), num_experts=4),
                 mesh=Mesh(MeshSpec(model=2)), device="cpu")

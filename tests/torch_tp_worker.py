@@ -1,5 +1,5 @@
 """One rank of the mesh tests (tests/test_torch_tp.py, test_torch_dp.py,
-test_torch_cp.py, test_torch_pp.py).
+test_torch_cp.py, test_torch_pp.py, test_torch_ep.py).
 
 Runs as N real OS processes joined by torch.distributed over gloo on the
 CPU; imports torch and the port only (the parent holds the JAX references).
@@ -8,7 +8,9 @@ CPU; imports torch and the port only (the parent holds the JAX references).
 
 The spec names the coordinator port, the world size, the mesh (default
 the `model` axis over every rank; a job may name its own, built once per
-shape), an output directory and a list of jobs; each job writes
+shape, and a `dcn_data`, the hosts along its data axis), an output
+directory and a list of jobs; a job may override fields of its preset
+(`config`, e.g. an MoE capacity factor), and each writes
 `<out>/<job>.<rank>.npz` (and the engine jobs a json of the tokens this
 rank recorded). Jobs:
 
@@ -26,7 +28,13 @@ rank recorded). Jobs:
   sp       ring_attention and ulysses_attention on numpy q/k/v;
   ring_fwd forward_hidden with `ring_mesh`, sp_mode "ring" and "ulysses";
   pipeline pipeline_forward_hidden: a prefill, then decode steps, each
-           rank's block of the cache after each.
+           rank's block of the cache after each;
+  moe      models/moe.py's moe_mlp on one layer's blocks of numpy
+           weights, at each of the job's inputs;
+  verify   rank 0 prefills every slot and makes verify and decode calls
+           with the job's drafts through the command loop's facade;
+  quantize models/llama.py quantize_params on this rank's blocks of numpy
+           weights.
 """
 
 from __future__ import annotations
@@ -85,6 +93,41 @@ def flat(tree, prefix: str = "") -> dict:
     return out
 
 
+def job_config(job):
+    """The job's preset, with the fields its `config` overrides."""
+    import dataclasses
+
+    from symmetry_tpu_torch.models.llama import preset
+
+    return dataclasses.replace(preset(job["preset"]), **job.get("config", {}))
+
+
+def job_moe(job, mesh, rank):
+    import torch
+
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.models import moe
+    from symmetry_tpu_torch.models.llama import layer_slice
+
+    cfg = job_config(job)
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
+                               mesh=mesh, config=cfg)
+    lp = {k: layer_slice(v, 0) for k, v in params["layers"].items()}
+    with np.load(job["data"]) as z:
+        xs = {k: torch.from_numpy(z[k]) for k in z.files}
+    return {k: moe.moe_mlp(x, lp, cfg, mesh).numpy() for k, x in xs.items()}
+
+
+def job_quantize(job, mesh, rank):
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.models.llama import quantize_params
+
+    cfg = job_config(job)
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
+                               mesh=mesh, config=cfg)
+    return flat(quantize_params(params, config=cfg, mesh=mesh))
+
+
 def job_sp(job, mesh, rank):
     import torch
 
@@ -112,10 +155,9 @@ def job_ring_fwd(job, mesh, rank):
     import torch
 
     from symmetry_tpu_torch.convert import params_from_numpy
-    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
-                                                 preset)
+    from symmetry_tpu_torch.models.llama import forward_hidden, init_cache
 
-    cfg = preset(job["preset"])
+    cfg = job_config(job)
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu")
     tokens = torch.tensor(job["tokens"])
     lens = torch.tensor(job["seq_lens"], dtype=torch.int32)
@@ -138,10 +180,10 @@ def job_pipeline(job, mesh, rank):
     import torch
 
     from symmetry_tpu_torch.convert import params_from_numpy
-    from symmetry_tpu_torch.models.llama import init_cache, preset
+    from symmetry_tpu_torch.models.llama import init_cache
     from symmetry_tpu_torch.parallel.pipeline import pipeline_forward_hidden
 
-    cfg = preset(job["preset"])
+    cfg = job_config(job)
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
                                mesh=mesh, config=cfg)
     tokens = torch.tensor(job["tokens"])
@@ -177,9 +219,9 @@ def job_forward(job, mesh, rank):
 
     from symmetry_tpu_torch.convert import params_from_numpy
     from symmetry_tpu_torch.models.llama import (forward, init_cache,
-                                                 pack_params, preset)
+                                                 pack_params)
 
-    cfg = preset(job["preset"])
+    cfg = job_config(job)
     dtype = getattr(torch, job.get("dtype", "float32"))
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
                                mesh=mesh, config=cfg, dtype=dtype)
@@ -218,12 +260,11 @@ def job_engine(job, mesh, rank):
                                                   SamplingParams)
     from symmetry_tpu_torch.engine.scheduler import GenRequest, Scheduler
     from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
-    from symmetry_tpu_torch.models.llama import preset
     from symmetry_tpu_torch.parallel.multihost import (
         CMD_CHUNK_ADVANCE, CMD_DECODE, CMD_PREFILL, CMD_PREFILL_CACHED,
         CMD_PREFILL_MANY, CMD_VERIFY, CommandLoop, MultihostEngine)
 
-    cfg = preset(job["preset"])
+    cfg = job_config(job)
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
                                mesh=mesh, config=cfg)
     fallbacks0 = _stage_fallbacks()
@@ -300,6 +341,7 @@ def job_engine(job, mesh, rank):
         engine.weight_stream_bytes_per_device())
     result["stage_axis_fallbacks"] = _stage_fallbacks() - fallbacks0
     result["kv_layers"] = int(engine.state.cache.k.shape[0])
+    result["coords"] = mesh.coords
     if engine._pool_kv is not None:
         result["pool_layers"] = int(engine._pool_kv.k.shape[0])
     return result
@@ -345,11 +387,10 @@ def job_direct(job, mesh, rank):
     from symmetry_tpu_torch.engine.engine import InferenceEngine
     from symmetry_tpu_torch.engine.spec import SpecConfig
     from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
-    from symmetry_tpu_torch.models.llama import preset
     from symmetry_tpu_torch.parallel.multihost import (CommandLoop,
                                                        MultihostEngine)
 
-    cfg = preset(job["preset"])
+    cfg = job_config(job)
     params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
                                mesh=mesh, config=cfg)
     engine = InferenceEngine(cfg, params, ByteTokenizer(cfg.vocab_size),
@@ -366,6 +407,53 @@ def job_direct(job, mesh, rank):
     loop.stop()
     return {"calls": calls,
             "lengths": [engine.slot_length(s) for s in slots]}
+
+
+def verify_calls(engine, prompts, drafts, n_drafts, greedy=None) -> list:
+    """Every slot prefilled from `prompts` with `greedy` sampling (the
+    port's by default), then per round one verify of its drafts and one
+    decode block: the outputs, as lists."""
+    if greedy is None:
+        from symmetry_tpu_torch.engine.engine import SamplingParams
+
+        greedy = SamplingParams()
+    out = [[engine.prefill_and_insert(slot, list(p), greedy)
+            for slot, p in enumerate(prompts)]]
+    for draft, n_draft in zip(drafts, n_drafts):
+        toks, n_emit = engine.verify_step(np.asarray(draft, np.int64),
+                                          np.asarray(n_draft, np.int32))
+        out.append(np.asarray(toks).ravel().tolist()
+                   + np.asarray(n_emit).tolist())
+        out.append(np.asarray(engine.decode_steps()).ravel().tolist())
+    return out
+
+
+def job_verify(job, mesh, rank):
+    import torch
+
+    from symmetry_tpu_torch.convert import params_from_numpy
+    from symmetry_tpu_torch.engine.engine import InferenceEngine
+    from symmetry_tpu_torch.engine.spec import SpecConfig
+    from symmetry_tpu_torch.engine.tokenizer import ByteTokenizer
+    from symmetry_tpu_torch.parallel.multihost import (CommandLoop,
+                                                       MultihostEngine)
+
+    cfg = job_config(job)
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
+                               mesh=mesh, config=cfg)
+    engine = InferenceEngine(
+        cfg, params, ByteTokenizer(cfg.vocab_size), mesh=mesh, device="cpu",
+        cache_dtype=torch.float32,
+        speculative=SpecConfig(k_draft=len(job["drafts"][0][0])),
+        **job["engine"])
+    loop = CommandLoop(engine, is_coordinator=rank == 0)
+    if rank != 0:
+        loop.follow_forever()
+        return {}
+    calls = verify_calls(MultihostEngine(loop), job["prompts"],
+                         job["drafts"], job["n_drafts"])
+    loop.stop()
+    return {"calls": calls}
 
 
 def job_load(job, mesh, rank):
@@ -411,7 +499,8 @@ def job_qmm(job, mesh, rank):
 
 JOBS = {"forward": job_forward, "engine": job_engine, "direct": job_direct,
         "load": job_load, "qmm": job_qmm, "sp": job_sp,
-        "ring_fwd": job_ring_fwd, "pipeline": job_pipeline}
+        "ring_fwd": job_ring_fwd, "pipeline": job_pipeline, "moe": job_moe,
+        "verify": job_verify, "quantize": job_quantize}
 
 
 def main() -> None:
@@ -429,16 +518,18 @@ def main() -> None:
                      device="cpu", timeout_s=120)
     meshes: dict = {}
 
-    def mesh_for(shape: dict):
-        key = tuple(sorted(shape.items()))
+    def mesh_for(shape: dict, dcn_data: int = 1):
+        key = (tuple(sorted(shape.items())), dcn_data)
         if key not in meshes:  # every rank builds the same meshes in order
-            meshes[key] = build_multihost_mesh(MeshSpec.from_dict(shape))
+            meshes[key] = build_multihost_mesh(MeshSpec.from_dict(shape),
+                                               dcn_data)
         return meshes[key]
 
     default = spec.get("mesh") or {"model": spec["world"]}
     mesh = mesh_for(default)
     for job in spec["jobs"]:
-        out = JOBS[job["kind"]](job, mesh_for(job.get("mesh", default)),
+        out = JOBS[job["kind"]](job, mesh_for(job.get("mesh", default),
+                                              job.get("dcn_data", 1)),
                                 rank)
         path = os.path.join(spec["out"], f"{job['name']}.{rank}")
         arrays = {k: v for k, v in out.items() if isinstance(v, np.ndarray)}
