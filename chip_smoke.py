@@ -6,13 +6,16 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --tp` runs phases 14 to 17 alone, with the nccl
-passes of 14, 15, 16 and 17 where the machine has two cards.)
+passes of 14, 15, 16 and 17 where the machine has two cards, and 16's
+four-rank pass where it has four.)
 
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
               limit (nvidia-smi);
   2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (five
-              libraries, one nvcc each, started together);
+              libraries, one nvcc per translation unit, all started
+              together: decode_attention.cu is eleven, ops/kernels.py
+              PARTS);
   3. kernels  each kernel against its plain PyTorch version at the serving
               path's widths (llama3-8b heads and weights, bf16): flash
               (the tensor-core variant) and decode attention (bf16 and
@@ -231,7 +234,20 @@ Phases (any failure raises and exits non-zero):
               over a 4096-token bucket (seq_lens 4096, 3000) against one
               rank's flash forward in bf16 (max abs error within 0.25,
               ring and Ulysses within it of each other), and the engine,
-              bf16 and int8, text equal to one rank's serve;
+              bf16 and int8, text equal to one rank's serve; then, on four
+              ranks in one spawn beside (a)-(c)'s, the same bucket at
+              {context: 2, model: 2} (each rank its `model` block; bf16,
+              then int8 + kv_quant + fused_dequant) and at {data: 2,
+              context: 2} (bf16): ring and Ulysses hidden states within
+              0.25 of one rank's flash forward and of each other, one
+              decode step from the cache each wrote with logits within
+              LOGIT_TOL of one rank's, launches equal on every rank
+              (W8A16 tensor-core and int8 decode non-zero), each rank's
+              KV cache and weights half of one rank's at {context: 2,
+              model: 2}, whole and the hidden states equal on both data
+              replicas at {data: 2, context: 2}; an nccl pass of the
+              {context: 2, model: 2} bf16 row where the machine has four
+              cards;
  17. ep       the expert axis and MoE on every mesh axis (models/moe.py,
               engine/engine.py, engine/weights.py): ranks on the one card
               over gloo, one spawn of two ranks and one of four, each job
@@ -261,7 +277,11 @@ Phases (any failure raises and exits non-zero):
               phase 15 (a)-(b) at {data: 2}, equal on both ranks;
               `launches_pp` and `launches_cp`: rank 0's in phase 16 at
               {stage: 2} and {context: 2}, the W8A16 rows 0 at {stage: 2}
-              with the reason in `launches_pp_reason`; `launches_ep`: rank
+              with the reason in `launches_pp_reason`; `launches_cp_tp`:
+              rank 0's in phase 16(c) at {context: 2, model: 2}, bf16 and
+              int8, equal on all four ranks, the rows its path does not
+              reach (flash: the ring replaces it) 0 with the reason in
+              `launches_cp_tp_reason`; `launches_ep`: rank
               0's in phase 17 (a)-(b) at {expert: 2}), the nvidia-smi
               line, and last the {"ok": true, ...} line. Each phase prints
               its seconds.
@@ -1273,18 +1293,30 @@ def profile_dispatch(label: str, fn) -> list[tuple[float, int, str]]:
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+    # The host's operators are recorded too: without them a session on an
+    # H100 dropped 784 of a decode block's kernel records. The device's
+    # records are read raw; key_averages, which builds every host
+    # operator's event first, took ~8 s of a 21,000-kernel block's ~14 s.
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue  # host ops; their kernels are counted below
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
+    groups: dict[str, list] = {}
+    results = getattr(prof.profiler, "kineto_results", None)
+    if results is not None:
+        for ev in results.events():
+            if ev.device_type() == DeviceType.CUDA:
+                g = groups.setdefault(ev.name(), [0.0, 0])
+                g[0] += (ev.end_ns() - ev.start_ns()) / 1e3
+                g[1] += 1
+    else:
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) == DeviceType.CUDA:
+                groups[ev.key] = [getattr(
+                    ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0)), ev.count]
+    rows = [(us / 1e3, count, key) for key, (us, count) in groups.items()
+            if us > 0]
     busy_ms = sum(r[0] for r in rows)
     if busy_ms <= 0:
         log(f"  profile {label}: wall {wall_ms:.3f} ms; the profiler saw no "
@@ -1681,45 +1713,51 @@ def check_host_tiny() -> None:
     base = {"model_preset": "tiny", "dtype": "float32", "max_batch_size": 2,
             "max_seq_len": 256, "prefill_buckets": [32, 64, 128, 256],
             "prefill_chunk": 32, "prefix_cache_mb": 1, "decode_block": 4}
+    # All four hosts (dense and int8, card and CPU) start together: each
+    # spends most of its start importing and warming up on its own.
+    hosts = {}
     for int8 in (False, True):
         tpu = dict(base, **({"quantization": "int8",
                              "kv_quantization": "int8",
                              "fused_dequant": True} if int8 else {}))
         tag = "int8" if int8 else "f32"
-        hosts = [HostProc(f"tiny_{tag}_cuda", tpu),
-                 HostProc(f"tiny_{tag}_cpu", tpu, device="cpu")]
-        try:
-            for h in hosts:
+        hosts[tag] = [HostProc(f"tiny_{tag}_cuda", tpu),
+                      HostProc(f"tiny_{tag}_cpu", tpu, device="cpu")]
+    try:
+        for tag, pair in hosts.items():
+            for h in pair:
                 h.wait_for(lambda f: f.get("op") == "ready")
             for i, content in enumerate(conversation):
-                for h in hosts:
+                for h in pair:
                     submit(h, f"t{i}", content, 12)
-                for h in hosts:
+                for h in pair:
                     h.wait_done([f"t{i}"])
             card, cpu = ([stream(h, f"t{i}") for i in range(len(conversation))]
-                         for h in hosts)
-            stats = hosts[0].stats()
-            for h in hosts:
+                         for h in pair)
+            stats = pair[0].stats()
+            for h in pair:
                 if h.shutdown() != 0:
                     raise AssertionError(f"host {h.label} exit code != 0")
-        finally:
-            for h in hosts:
+            for a, b in zip(card, cpu):
+                if (a["text"], a["tokens"], a["reason"], a["reused"]) != (
+                        b["text"], b["tokens"], b["reason"], b["reused"]):
+                    raise AssertionError(f"host tiny {tag}: card {a} != cpu "
+                                         f"{b}")
+            if not (card[2]["reused"] or 0) > 0:
+                raise AssertionError(f"host tiny {tag}: no prefix hit: {card}")
+            k = stats["kernels"]
+            if min(k["flash_prefill"], k["decode_attention"],
+                   k["decode_attention_append"]) <= 0 or k["kv_append"] or (
+                    tag == "int8" and k["w8a16_matmul"] <= 0):
+                raise AssertionError(f"host tiny {tag}: kernels {k}")
+            log(f"  host tiny {tag}: {len(card)} requests, streamed text "
+                f"identical card vs CPU (reused "
+                f"{[r['reused'] for r in card]}, chunk dispatches "
+                f"{stats['chunk_dispatches']}, card launches {k})")
+    finally:
+        for pair in hosts.values():
+            for h in pair:
                 h.kill()
-        for a, b in zip(card, cpu):
-            if (a["text"], a["tokens"], a["reason"], a["reused"]) != (
-                    b["text"], b["tokens"], b["reason"], b["reused"]):
-                raise AssertionError(f"host tiny {tag}: card {a} != cpu {b}")
-        if not (card[2]["reused"] or 0) > 0:
-            raise AssertionError(f"host tiny {tag}: no prefix hit: {card}")
-        k = stats["kernels"]
-        if min(k["flash_prefill"], k["decode_attention"],
-               k["decode_attention_append"]) <= 0 or k["kv_append"] or (
-                int8 and k["w8a16_matmul"] <= 0):
-            raise AssertionError(f"host tiny {tag}: kernels {k}")
-        log(f"  host tiny {tag}: {len(card)} requests, streamed text "
-            f"identical card vs CPU (reused {[r['reused'] for r in card]}, "
-            f"chunk dispatches {stats['chunk_dispatches']}, card launches "
-            f"{k})")
 
 
 def chat_content(rng: np.random.Generator, n: int) -> str:
@@ -1728,17 +1766,21 @@ def chat_content(rng: np.random.Generator, n: int) -> str:
     return "".join(rng.choice(letters, n))
 
 
-def check_host_full(smi: str) -> dict:
-    """llama3-8b in bf16 at full depth behind the port's host, from the
-    provider's default `tpu:` section plus model_preset and a 1024 MiB
-    prefix cache. Wave 1: 8 greedy chats, two <= 256 tokens (flash) and six
-    chunked; wave 2: 4 chats sharing wave 1's longest prompt's first 1536
-    tokens, two with short tails (the one-dispatch hit path) and two with
-    ~300-token tails (the seeded chunked path)."""
+HOST_FULL_TPU = {"model_preset": "llama3-8b", "prefix_cache_mb": 1024}
+
+
+def check_host_full(smi: str, host: HostProc) -> dict:
+    """llama3-8b in bf16 at full depth behind the port's host (`host`, on
+    HOST_FULL_TPU, started by main beside phase 7), from the provider's
+    default `tpu:` section plus model_preset and a 1024 MiB prefix cache.
+    Wave 1: 8 greedy chats, two <= 256 tokens (flash) and six chunked; wave
+    2: 4 chats sharing wave 1's longest prompt's first 1536 tokens, two
+    with short tails (the one-dispatch hit path) and two with ~300-token
+    tails (the seeded chunked path)."""
     from symmetry_tpu_torch.engine.tokenizer import get_tokenizer
     from symmetry_tpu_torch.provider.config import TpuConfig
 
-    tpu = {"model_preset": "llama3-8b", "prefix_cache_mb": 1024}
+    tpu = HOST_FULL_TPU
     defaults = TpuConfig.from_dict(tpu)
     tok = get_tokenizer(None, vocab_size=128256)
     head = len(tok.apply_chat_template([{"role": "user", "content": ""}]))
@@ -1758,7 +1800,6 @@ def check_host_full(smi: str) -> dict:
         f"{[len(i) for i in ids2]} (prefill_chunk {defaults.prefill_chunk}, "
         f"buckets {defaults.prefill_buckets}, decode_block "
         f"{defaults.decode_block}, pipeline_depth {defaults.pipeline_depth})")
-    host = HostProc("llama3_8b", tpu)
     try:
         ready = host.wait_for(lambda f: f.get("op") == "ready")
         before = host.stats()["kernels"]
@@ -2289,10 +2330,12 @@ def check_checkpoint(smi: str) -> None:
                 "from symmetry_tpu_torch.engine.weights import "
                 f"load_checkpoint; load_checkpoint({ckpt!r})")}
         env = {**os.environ, "PYTHONPATH": ROOT}
-        for what, code in rss_of.items():
-            rc, rss_of[what] = reap(subprocess.Popen(
-                [sys.executable, "-c", f"import torch; {code}; "
-                 f"torch.cuda.synchronize()"], cwd=ROOT, env=env), 300)
+        procs = {what: subprocess.Popen(
+            [sys.executable, "-c", f"import torch; {code}; "
+             f"torch.cuda.synchronize()"], cwd=ROOT, env=env)
+            for what, code in rss_of.items()}  # all three at once
+        for what, proc in procs.items():
+            rc, rss_of[what] = reap(proc, 300)
             if rc != 0:
                 raise AssertionError(f"the {what} process exited {rc}")
         log(f"  peak RSS of one process (getrusage ru_maxrss, wait4): "
@@ -2307,81 +2350,102 @@ def check_checkpoint(smi: str) -> None:
         tok = get_tokenizer(None, vocab_size=cfg.vocab_size)
         chats = [tok.apply_chat_template([{"role": "user", "content": c}])
                  for c in CKPT_CHATS]
-        for quant in (False, True):
-            tag = "int8" if quant else "bf16"
-            tpu = {"checkpoint_path": ckpt,
-                   **({"quantization": "int8"} if quant else {})}
-            ref_params = params_from_numpy(host_tree, device="cuda",
-                                           dtype=torch.bfloat16)
-            if quant:
-                ref_params = quantize_params(ref_params)
-            defaults = TpuConfig.from_dict(tpu)
-            engine = InferenceEngine(
-                cfg, ref_params, tok, max_slots=defaults.max_batch_size,
-                max_seq_len=defaults.max_seq_len,
-                prefill_buckets=defaults.prefill_buckets,
-                cache_dtype=torch.bfloat16,
-                decode_block=defaults.decode_block,
-                prefill_chunk=defaults.prefill_chunk)
-            warm = weights.load_warm_cache(ckpt, dtype=torch.bfloat16,
-                                           quantize=quant)
-            if warm is not None:
+        tags = {False: "bf16", True: "int8"}
+        tpus = {quant: {"checkpoint_path": ckpt,
+                        **({"quantization": "int8"} if quant else {})}
+                for quant in tags}
+        for quant in tags:
+            if weights.load_warm_cache(ckpt, dtype=torch.bfloat16,
+                                       quantize=quant) is not None:
                 raise AssertionError("a warm cache before the first start")
-            engine.warmup()
-            want_text = serve_in_turn(engine, chats, 24,
-                                      defaults.pipeline_depth)
-            del engine
-            texts, ready, rss = {}, {}, {}
+        # The bf16 and int8 hosts start together, cold and then warm; the
+        # in-process references are served while the cold ones start.
+        texts, ready, rss = ({quant: {} for quant in tags} for _ in range(3))
+        hosts = {quant: HostProc(f"ckpt_{tags[quant]}_cold", tpus[quant])
+                 for quant in tags}
+        try:
+            want_text, ref_params = {}, {}
+            for quant in tags:
+                ref_params[quant] = params_from_numpy(
+                    host_tree, device="cuda", dtype=torch.bfloat16)
+                if quant:
+                    ref_params[quant] = quantize_params(ref_params[quant])
+                defaults = TpuConfig.from_dict(tpus[quant])
+                engine = InferenceEngine(
+                    cfg, ref_params[quant], tok,
+                    max_slots=defaults.max_batch_size,
+                    max_seq_len=defaults.max_seq_len,
+                    prefill_buckets=defaults.prefill_buckets,
+                    cache_dtype=torch.bfloat16,
+                    decode_block=defaults.decode_block,
+                    prefill_chunk=defaults.prefill_chunk)
+                engine.warmup()
+                want_text[quant] = serve_in_turn(engine, chats, 24,
+                                                 defaults.pipeline_depth)
+                del engine
             for start in ("cold", "warm"):
-                host = HostProc(f"ckpt_{tag}_{start}", tpu)
-                try:
-                    ready[start] = host.wait_for(
+                if start == "warm":
+                    hosts = {quant: HostProc(f"ckpt_{tags[quant]}_warm",
+                                             tpus[quant]) for quant in tags}
+                for quant, host in hosts.items():
+                    ready[quant][start] = host.wait_for(
                         lambda f: f.get("op") == "ready")
                     for i, content in enumerate(CKPT_CHATS):
                         submit(host, f"c{i}", content, 24)
                         host.wait_done([f"c{i}"])
-                    texts[start] = [stream(host, f"c{i}")["text"]
-                                    for i in range(len(CKPT_CHATS))]
+                    texts[quant][start] = [stream(host, f"c{i}")["text"]
+                                           for i in range(len(CKPT_CHATS))]
                     host.send({"op": "shutdown"})
-                    rc, rss[start] = reap(host.proc)
-                finally:
-                    host.kill()
-                if rc != 0:
-                    raise AssertionError(f"host {host.label} exit code {rc}")
-                text = host.log_text()
-                path = ("warm" if "weights loaded from warm cache" in text
-                        else "cold" if "weights loaded cold" in text
-                        else None)
-                if path != start:
-                    raise AssertionError(f"host {host.label} took the {path} "
-                                         f"path (log {host.log_path})")
-                if start == "cold" and "warm weight cache written" not in text:
-                    raise AssertionError(f"host {host.label}: no warm cache "
-                                         f"written (log {host.log_path})")
-            if not texts["cold"] == texts["warm"] == want_text:
+                    rc, rss[quant][start] = reap(host.proc)
+                    if rc != 0:
+                        raise AssertionError(f"host {host.label} exit code "
+                                             f"{rc}")
+                    text = host.log_text()
+                    path = ("warm" if "weights loaded from warm cache" in text
+                            else "cold" if "weights loaded cold" in text
+                            else None)
+                    if path != start:
+                        raise AssertionError(
+                            f"host {host.label} took the {path} path (log "
+                            f"{host.log_path})")
+                    if start == "cold" and (
+                            "warm weight cache written" not in text):
+                        raise AssertionError(
+                            f"host {host.label}: no warm cache written (log "
+                            f"{host.log_path})")
+        finally:
+            for host in hosts.values():
+                host.kill()
+        for quant, tag in tags.items():
+            if not (texts[quant]["cold"] == texts[quant]["warm"]
+                    == want_text[quant]):
                 raise AssertionError(
-                    f"{tag}: streamed text cold {texts['cold']} / warm "
-                    f"{texts['warm']} != in-process {want_text}")
+                    f"{tag}: streamed text cold {texts[quant]['cold']} / "
+                    f"warm {texts[quant]['warm']} != in-process "
+                    f"{want_text[quant]}")
             # The warm cache's leaves on the card, bit-equal to the
             # reference tree (int8: quantized on the card from the same
             # tensors).
             warm_params, _ = weights.load_warm_cache(
                 ckpt, dtype=torch.bfloat16, quantize=quant)
-            n = assert_bit_equal(warm_params, ref_params,
+            n = assert_bit_equal(warm_params, ref_params[quant],
                                  f"{tag} warm cache")
-            del warm_params, ref_params
+            del warm_params
+            r = ready[quant]
             log(f"  host {tag} on the checkpoint: build_s cold "
-                f"{ready['cold']['build_s']} s, warm {ready['warm']['build_s']} "
-                f"s (the load inside from_tpu_config; warmup_s "
-                f"{ready['cold']['warmup_s']} / {ready['warm']['warmup_s']}); "
-                f"peak RSS of the host process (getrusage ru_maxrss, wait4) "
-                f"cold {rss['cold']:.3f} GiB, warm {rss['warm']:.3f} GiB; "
-                f"warm-cache leaves bit-equal to the "
-                f"in-process tree ({n} tensors); streamed text identical "
-                f"cold, warm and in-process for {len(CKPT_CHATS)} chats: "
-                f"{[t[:24] for t in want_text]} ({smi})")
-            gc.collect()
-            torch.cuda.empty_cache()
+                f"{r['cold']['build_s']} s, warm {r['warm']['build_s']} s "
+                f"(the load inside from_tpu_config; warmup_s "
+                f"{r['cold']['warmup_s']} / {r['warm']['warmup_s']}; the bf16 "
+                f"and int8 hosts start together); peak RSS of the host "
+                f"process (getrusage ru_maxrss, wait4) cold "
+                f"{rss[quant]['cold']:.3f} GiB, warm "
+                f"{rss[quant]['warm']:.3f} GiB; warm-cache leaves bit-equal "
+                f"to the in-process tree ({n} tensors); streamed text "
+                f"identical cold, warm and in-process for {len(CKPT_CHATS)} "
+                f"chats: {[t[:24] for t in want_text[quant]]} ({smi})")
+        del ref_params
+        gc.collect()
+        torch.cuda.empty_cache()
     except BaseException:
         shutil.rmtree(ckpt, ignore_errors=True)
         raise
@@ -2442,7 +2506,8 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     beside an in-process torch.profiler reading of one decode block; (d)
     the `profile` op on the probed host while it decodes a 160-token
     request returns a trace that names the decode-attention kernel; (e)
-    frame bytes per prefix token, serialize and adopt seconds."""
+    frame bytes per prefix token, serialize and adopt seconds. The four
+    hosts start together; (b) serves before (a)."""
     from symmetry_tpu_torch.engine.engine import (InferenceEngine,
                                                   SamplingParams)
     from symmetry_tpu_torch.engine import weights
@@ -2464,28 +2529,12 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     log(f"  {tag}: prompt tokens {lens}, {DISAGG_NEW} new tokens each, "
         f"prefix blocks of {base['prefix_block_tokens']}")
 
+    # The unified host and the tiers' three start together. The tiers
+    # serve (b) first, as soon as all four are ready, so that the probed
+    # host's first gap is no longer than it was when they started alone;
+    # then (a) runs on the unified host, which waited idle.
     t0 = time.monotonic()
     unified = HostProc(f"disagg_{tag}_unified", base)
-    try:
-        unified.wait_for(lambda f: f.get("op") == "ready")
-        cold = serve_one_by_one(unified, "c", contents, DISAGG_NEW)
-        warm = serve_one_by_one(unified, "w", contents, DISAGG_NEW)
-        if unified.shutdown() != 0:
-            raise AssertionError("unified host exit code != 0")
-    finally:
-        unified.kill()
-    log(f"  (a) unified host served both passes in "
-        f"{time.monotonic() - t0:.1f} s")
-    same = [a["text"] == b["text"] for a, b in zip(cold, warm)]
-    log(f"  (a) unified host: first serve == second (cached) serve "
-        f"{sum(same)}/{len(same)} {same}; second serve reused "
-        f"{[r['reused'] for r in warm]} ({time.monotonic() - t0:.1f} s)")
-    if not all((r["reused"] or 0) > 0 for i, r in enumerate(warm)
-               if i != len(chats)):
-        raise AssertionError(f"unified second serve missed the cache: "
-                             f"{[r['reused'] for r in warm]}")
-
-    t1 = time.monotonic()
     decode_tpu = tier_config(base, "decode")
     pre = HostProc(f"disagg_{tag}_prefill", tier_config(base, "prefill"))
     decs = [HostProc(f"disagg_{tag}_decode", decode_tpu),
@@ -2494,12 +2543,13 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     hosts = [pre, *decs]
     prof_dir = os.path.join(OUT_DIR, f"profiles_{tag}")
     try:
-        for h in hosts:
+        for h in [unified, *hosts]:
             ready = h.wait_for(lambda f: f.get("op") == "ready")
-            if ready["role"] != h.label.split("_")[2]:
+            if h is not unified and ready["role"] != h.label.split("_")[2]:
                 raise AssertionError(f"{h.label} ready as {ready['role']}")
-        log(f"  (b) prefill host and two decode hosts ready in "
-            f"{time.monotonic() - t1:.1f} s")
+        t1 = time.monotonic()
+        log(f"  unified, prefill and two decode hosts started together, all "
+            f"ready in {t1 - t0:.1f} s")
         handoffs = []
         for i, content in enumerate(contents):
             rid = f"d{i}"
@@ -2533,9 +2583,24 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
         for h in hosts:
             if h.shutdown() != 0:
                 raise AssertionError(f"host {h.label} exit code != 0")
+        t2 = time.monotonic()
+        cold = serve_one_by_one(unified, "c", contents, DISAGG_NEW)
+        warm = serve_one_by_one(unified, "w", contents, DISAGG_NEW)
+        if unified.shutdown() != 0:
+            raise AssertionError("unified host exit code != 0")
+        t3 = time.monotonic()
     finally:
-        for h in hosts:
+        for h in [unified, *hosts]:
             h.kill()
+    log(f"  (a) unified host served both passes in {t3 - t2:.1f} s")
+    same = [a["text"] == b["text"] for a, b in zip(cold, warm)]
+    log(f"  (a) unified host: first serve == second (cached) serve "
+        f"{sum(same)}/{len(same)} {same}; second serve reused "
+        f"{[r['reused'] for r in warm]}")
+    if not all((r["reused"] or 0) > 0 for i, r in enumerate(warm)
+               if i != len(chats)):
+        raise AssertionError(f"unified second serve missed the cache: "
+                             f"{[r['reused'] for r in warm]}")
     for label, rs in zip(("probes off", "probes on"), got):
         for i, (a, b) in enumerate(zip(rs, warm)):
             if (a["text"], a["tokens"], a["reason"]) != (
@@ -2547,7 +2612,7 @@ def check_disagg(smi: str, *, int8: bool) -> dict:
     log(f"  (b) prefill -> decode tiers: streamed text identical to the "
         f"unified host's second serve, probes off and on, "
         f"{len(contents)} requests; equal to its first serve "
-        f"{sum(cold_same)}/{len(cold_same)} ({time.monotonic() - t1:.1f} s)")
+        f"{sum(cold_same)}/{len(cold_same)} ({t2 - t1:.1f} s)")
     short, repeat = len(chats), len(chats) + 1
     if handoffs[short]["p"] != 0 or handoffs[short]["blocks"] != 0:
         raise AssertionError(f"short chat not routing-only: "
@@ -2714,7 +2779,10 @@ class ProviderProc:
 
     def stop(self, timeout: float = 180.0) -> int:
         """SIGTERM (the provider drains and shuts its hosts down), then
-        make sure that it and every host it ran are gone."""
+        make sure that it and every host it ran are gone. Once: a second
+        call returns the first one's exit code."""
+        if self._log.closed:
+            return self.proc.returncode
         self.host_pids()
         rc = self.proc.poll()
         if rc is None:
@@ -2912,20 +2980,22 @@ async def provider_unified(server, client, smi: str, contents: list,
     log(f"  (a) provider stopped (rc {rc})")
 
 
-async def provider_disagg(server, client, contents: list, ref: list) -> None:
+DISAGG_PROVIDER = {**TIERS_MODEL, "prefix_cache_mb": 1024,
+                   "prefix_block_tokens": 32, "quantization": "int8",
+                   "kv_quantization": "int8", "fused_dequant": True,
+                   "role": "disagg"}
+
+
+async def provider_disagg(server, client, prov: ProviderProc,
+                          contents: list, ref: list) -> None:
     """(b): phase 11's int8 configuration as a local disagg pair behind
-    the port's provider: its own broker pipes handoff -> adopt."""
-    base = {**TIERS_MODEL, "prefix_cache_mb": 1024,
-            "prefix_block_tokens": 32, "quantization": "int8",
-            "kv_quantization": "int8", "fused_dequant": True,
-            "role": "disagg"}
-    label = "llama3-8b-int8-disagg"
-    prov = ProviderProc(label, base, server.address,
-                        server.identity.public_hex)
+    the port's provider (`prov`, DISAGG_PROVIDER, started beside (a)): its
+    own broker pipes handoff -> adopt."""
+    label = prov.label
     try:
         t_reg = await wait_registered(server, prov)
-        log(f"  (b) disagg provider up and registered in {t_reg:.1f} s "
-            f"(host pids {prov.host_pids()})")
+        log(f"  (b) disagg provider (started beside (a)) registered, "
+            f"{t_reg:.1f} s after (a) ended (host pids {prov.host_pids()})")
         session = await client.connect(await client.request_provider(
             server.address, server.identity.public_key, label))
         got = [await wire_chat(session, c, DISAGG_NEW) for c in contents]
@@ -2980,12 +3050,16 @@ def check_provider(smi: str, ref_bf16: dict, ref_int8: dict) -> None:
         await server.start("tcp://127.0.0.1:0")
         client = SymmetryClient(Identity.from_name("chip-smoke-client"),
                                 TcpTransport())
+        # (b)'s provider starts beside (a)'s and waits, registered.
+        disagg = ProviderProc("llama3-8b-int8-disagg", DISAGG_PROVIDER,
+                              server.address, server.identity.public_hex)
         try:
             await provider_unified(server, client, smi, ref_bf16["contents"],
                                    ref_bf16)
-            await provider_disagg(server, client, ref_int8["contents"],
-                                  ref_int8["tiers"])
+            await provider_disagg(server, client, disagg,
+                                  ref_int8["contents"], ref_int8["tiers"])
         finally:
+            disagg.stop()
             await server.stop()
 
     asyncio.run(run())
@@ -3798,7 +3872,8 @@ def tp_rank_main(spec_path: str, rank: int) -> int:
     mesh_for(default)
     results = {}
     for job in spec["jobs"]:
-        run = cp_ring_job if job["model"] == "ring" else tp_job
+        run = {"ring": cp_ring_job, "ring_mesh": cp_mesh_job}.get(
+            job["model"], tp_job)
         results[job["name"]] = run(mesh_for(job.get("mesh", default)), rank,
                                    job)
         # the job's engine (the loop and its recorder hold a cycle) goes
@@ -3956,12 +4031,12 @@ def _tiny_reference(int8, together, fused, model, geometry, lens):
     return serve(engine, prompts, 12, 2), logits
 
 
-async def tp_provider(contents: list[str], want: list[str]) -> dict:
+async def tp_provider(contents: list[str]) -> dict:
     """(c): the port's provider as rank 0 (its engine host joins a
     `tpu.multihost` job of 2 processes) and `python -m
     symmetry_tpu_torch.provider --worker` as rank 1, both on the one card,
-    serving (b)'s chats one at a time over TCP to the port's client;
-    text equal to (b)'s bf16 serve."""
+    serving (b)'s chats one at a time over TCP to the port's client; the
+    text of each (check_tp holds it to (b)'s bf16 serve)."""
     import yaml
 
     from symmetry_tpu_torch.client.client import SymmetryClient
@@ -4009,10 +4084,6 @@ async def tp_provider(contents: list[str], want: list[str]) -> dict:
                 worker.kill()
                 worker.wait()
             wlog.close()
-    for i, (g, w) in enumerate(zip(got, want)):
-        if g["text"] != w:
-            raise AssertionError(f"(c) chat {i}: over the wire "
-                                 f"{g['text']!r} != (b) {w!r}")
     if rc != 0 or wrc != 0:
         raise AssertionError(f"(c) provider rc={rc}, worker rc={wrc} (logs "
                              f"{prov.log_path}, {wlog.name})")
@@ -4020,6 +4091,7 @@ async def tp_provider(contents: list[str], want: list[str]) -> dict:
     if not mesh or mesh.get("shape") != {"model": TP}:
         raise AssertionError(f"(c) the engine's stats show no mesh: {mesh}")
     return {"registered_s": t_reg, "mesh": mesh,
+            "texts": [g["text"] for g in got],
             "first_text_s": [round(g["first"] - g["sent"], 4) for g in got]}
 
 
@@ -4042,11 +4114,16 @@ def check_tp(smi: str) -> dict[str, int]:
     jobs += [dict(name=f"ckpt_{'int8' if i8 else 'bf16'}", model="ckpt",
                   tpu=tp_section(i8), contents=contents, new=TP_NEW)
              for i8 in (False, True)]
+    # (c)'s two processes run beside (a)-(b)'s two ranks.
     t0 = time.monotonic()
-    ranks = tp_spawn("tp_gloo", TP_DEVICES, jobs)
-    log(f"  two ranks on {TP_DEVICES} ran (a)-(b) in "
-        f"{time.monotonic() - t0:.1f} s (backend "
-        f"{ranks[0]['ckpt_bf16']['backend']})")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        prov_run = pool.submit(asyncio.run, tp_provider(contents))
+        ranks = tp_spawn("tp_gloo", TP_DEVICES, jobs)
+        t_spawn = time.monotonic() - t0
+        prov = prov_run.result()
+    log(f"  two ranks on {TP_DEVICES} ran (a)-(b) in {t_spawn:.1f} s "
+        f"(backend {ranks[0]['ckpt_bf16']['backend']}), (c)'s provider and "
+        f"worker beside them, done in {time.monotonic() - t0:.1f} s")
     if any(r[j["name"]]["backend"] != "gloo" for r in ranks for j in jobs):
         raise AssertionError("two ranks on one card must run over gloo")
     for job in jobs:
@@ -4120,13 +4197,15 @@ def check_tp(smi: str) -> dict[str, int]:
         log(f"  nccl pass not run: {torch.cuda.device_count()} card(s) on "
             f"this machine")
     # (c)
-    t0 = time.monotonic()
-    prov = asyncio.run(tp_provider(contents, ranks[0]["ckpt_bf16"]["texts"][0]))
+    for i, (g, w) in enumerate(zip(prov["texts"],
+                                   ranks[0]["ckpt_bf16"]["texts"][0])):
+        if g != w:
+            raise AssertionError(f"(c) chat {i}: over the wire {g!r} != (b) "
+                                 f"{w!r}")
     log(f"  (c) provider (rank 0) + --worker (rank 1): {len(contents)} chats "
         f"over TCP, text equal to (b); registered in "
         f"{prov['registered_s']:.1f} s; seconds to first text "
-        f"{prov['first_text_s']}; engine stats mesh {prov['mesh']}; "
-        f"{time.monotonic() - t0:.1f} s")
+        f"{prov['first_text_s']}; engine stats mesh {prov['mesh']}")
     c = {name: ranks[0][name]["counts"] for name in
          ("tiny_int8", "ckpt_bf16", "ckpt_int8")}
     return {"flash_prefill": c["ckpt_bf16"]["flash_prefill"]
@@ -4221,15 +4300,16 @@ def check_dp(smi: str) -> dict[str, int]:
                         new=DP_NEW, together=True, serves=1)
                    for i8 in (False, True)]
     t0 = time.monotonic()
-    ranks = tp_spawn("dp_gloo", DP_DEVICES, jobs, mesh={"data": DP})
-    log(f"  two data ranks on {DP_DEVICES} ran (a)-(b) in "
-        f"{time.monotonic() - t0:.1f} s (backend "
-        f"{ranks[0]['dp_ckpt_bf16']['backend']})")
-    t0 = time.monotonic()
-    four = tp_spawn("dp_tp_gloo", DP_TP_DEVICES,
-                    [dict(tiny[0], name="dp_tp_tiny_f32")],
-                    mesh={"data": DP, "model": 2})
-    log(f"  four ranks {{data: 2, model: 2}} on {DP_TP_DEVICES} ran (a) in "
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        spawns = [pool.submit(tp_spawn, "dp_gloo", DP_DEVICES, jobs,
+                              mesh={"data": DP}),
+                  pool.submit(tp_spawn, "dp_tp_gloo", DP_TP_DEVICES,
+                              [dict(tiny[0], name="dp_tp_tiny_f32")],
+                              mesh={"data": DP, "model": 2})]
+        ranks, four = (f.result() for f in spawns)
+    log(f"  two data ranks on {DP_DEVICES} ((a)-(b), backend "
+        f"{ranks[0]['dp_ckpt_bf16']['backend']}) and four ranks {{data: 2, "
+        f"model: 2}} on {DP_TP_DEVICES} ((a)), the two spawns together, in "
         f"{time.monotonic() - t0:.1f} s")
     for job in jobs:
         tp_check_ranks("dp", job["name"], ranks)
@@ -4342,6 +4422,23 @@ PP_MICRO = 2
 CP_SEQ = 4096
 CP_LENS = [4096, 3000]
 CP_TOL = 0.25
+# (c) beside the model and data axes: the same bucket on four ranks, one
+# spawn, each job on its own mesh. The decode step after the prefill
+# writes row 0's position CP_SEQ, so those caches hold one more span of
+# the decode kernel's 256 positions.
+CP4_DEVICES = ["cuda:0"] * 4
+CP_TP_MESH = {"context": CP, "model": 2}
+CP_DP_MESH = {"data": 2, "context": CP}
+CP_CAP = CP_SEQ + 256
+CP_REF = os.path.join(OUT_DIR, "cp_mesh_reference.pt")
+CP_REF_TIMEOUT = 300.0
+# Rows no launch of (c)'s four-rank path reaches, and why.
+CP_TP_REASON = {
+    "flash_prefill": "0 by design: the ring and Ulysses replace the flash "
+                     "kernel in a ring_mesh prefill, as in the JAX forward",
+    "w8a16_matmul[gemv_f32]": "0: (c) serves bf16 activations only",
+    "kv_append": "0: the decode launch writes the row (append mode)",
+    "w8a8_matmul": "0: no serving path routes W8A8"}
 # W8A16 launches at {stage: 2} are 0 by design, as in the JAX engine.
 PP_W8A16_REASON = ("0 under the stage axis: fused_dequant keeps every int8 "
                    "leaf on the mixed dot (QMM_FALLBACK reason stage_axis), "
@@ -4361,6 +4458,25 @@ def cp_section(int8: bool) -> dict:
     return {**dp_section(int8, mesh=False), "mesh": {"context": CP}}
 
 
+def cp_tokens(vocab_size: int, device) -> tuple[torch.Tensor, torch.Tensor,
+                                                torch.Tensor]:
+    """(c)'s inputs: B = 2 rows of a CP_SEQ bucket, their seq_lens
+    CP_LENS, and one token a row for the decode step after them."""
+    rng = np.random.default_rng(16)
+    tokens = torch.from_numpy(rng.integers(0, vocab_size,
+                                           (2, CP_SEQ))).to(device)
+    step = torch.from_numpy(rng.integers(0, vocab_size, (2, 1))).to(device)
+    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=device)
+    return tokens, lens, step
+
+
+def cp_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The max abs difference of two [2, CP_SEQ, E] hidden states over the
+    valid positions of each row."""
+    return max(float((a[i, :n] - b[i, :n]).abs().max())
+               for i, n in enumerate(CP_LENS))
+
+
 def cp_ring_job(mesh, rank: int, job: dict) -> dict:
     """(c) on this rank of {context: 2}: phase 10's checkpoint whole (the
     context ranks are replicas), forward_hidden over B = 2 rows of a
@@ -4372,10 +4488,7 @@ def cp_ring_job(mesh, rank: int, job: dict) -> dict:
 
     params, cfg = weights.load_warm_cache(CKPT_DIR, dtype=torch.bfloat16,
                                           quantize=False, device=mesh.device)
-    rng = np.random.default_rng(16)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                           (2, CP_SEQ))).to(mesh.device)
-    lens = torch.tensor(CP_LENS, dtype=torch.int32, device=mesh.device)
+    tokens, lens, _ = cp_tokens(cfg.vocab_size, mesh.device)
     torch.cuda.reset_peak_memory_stats()
 
     def run(**kw):
@@ -4388,24 +4501,204 @@ def cp_ring_job(mesh, rank: int, job: dict) -> dict:
         torch.cuda.synchronize()
         return h.float(), time.monotonic() - t0
 
-    def err(a, b) -> float:
-        return max(float((a[i, :n] - b[i, :n]).abs().max())
-                   for i, n in enumerate(CP_LENS))
-
     ref, out = run()
     out = {"flash_s": out}
     hs = {}
     for mode in ("ring", "ulysses"):
         hs[mode], out[f"{mode}_s"] = run(ring_mesh=mesh, sp_mode=mode)
-        out[f"{mode}_err"] = err(hs[mode], ref)
+        out[f"{mode}_err"] = cp_err(hs[mode], ref)
         if not torch.isfinite(hs[mode]).all():
             raise AssertionError(f"(c) {mode}: non-finite hidden states")
-    out["ring_ulysses_err"] = err(hs["ring"], hs["ulysses"])
+    out["ring_ulysses_err"] = cp_err(hs["ring"], hs["ulysses"])
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out
 
 
-def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
+def cp_prefill_decode(params, cfg, int8: bool, device, mesh=None, **ring
+                      ) -> dict:
+    """(c)'s path on one rank or a mesh rank: forward_hidden over the
+    bucket (the flash route, or with ring_mesh and sp_mode in `ring`), then
+    one decode step from the cache it wrote. Returns the hidden states
+    [2, CP_SEQ, E] (bf16), the step's logits [2, V] (float32, whole on a
+    mesh), the cache's bytes and the prefill's seconds."""
+    from symmetry_tpu_torch.models.llama import (forward_hidden, init_cache,
+                                                 logits_from_hidden)
+
+    tokens, lens, step = cp_tokens(cfg.vocab_size, device)
+    cache = init_cache(cfg, 2, CP_CAP, torch.bfloat16, quantized=int8,
+                       device=device, mesh=mesh)
+    kv_bytes = sum(t.numel() * t.element_size() for t in cache
+                   if t is not None and t.dim() > 1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    h, cache = forward_hidden(params, cfg, tokens, cache, lens,
+                              prefill_flash=True, mesh=mesh, **ring)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    hs, cache = forward_hidden(params, cfg, step, cache, mesh=mesh)
+    logits = logits_from_hidden(params, cfg, hs, mesh)[:, 0]
+    if cache.lengths.tolist() != [n + 1 for n in CP_LENS]:
+        raise AssertionError(f"(c) lengths {cache.lengths.tolist()} after "
+                             f"the decode step")
+    return {"h": h, "logits": logits, "kv_bytes": kv_bytes, "s": secs}
+
+
+def cp_load(int8: bool, mesh=None, device="cuda") -> tuple[dict, object]:
+    """Phase 10's checkpoint from its warm cache as the engine serves it
+    (int8: packed for fused_dequant), whole or this rank's blocks of
+    `mesh`."""
+    from symmetry_tpu_torch.engine import weights
+    from symmetry_tpu_torch.models.llama import pack_params
+
+    params, cfg = weights.load_warm_cache(CKPT_DIR, dtype=torch.bfloat16,
+                                          quantize=int8, mesh=mesh,
+                                          device=device)
+    if int8:
+        pack_params(params, config=cfg, mesh=mesh)
+    return params, cfg
+
+
+def cp_mesh_reference() -> dict:
+    """One rank's (the whole model's) run of (c)'s path by the flash
+    route, bf16 and int8 (+ kv_quant, fused_dequant): written to CP_REF
+    for the four ranks (hidden states and the step's logits); returns the
+    weight and KV bytes of each and the seconds it took."""
+    t0 = time.monotonic()
+    refs, sizes = {}, {}
+    for int8 in (False, True):
+        params, cfg = cp_load(int8)
+        got = cp_prefill_decode(params, cfg, int8, "cuda")
+        key = "int8" if int8 else "bf16"
+        refs[key] = {"h": got["h"].cpu(), "logits": got["logits"].cpu()}
+        sizes[key] = {"kv_bytes": got["kv_bytes"], "param_bytes": sum(
+            t.numel() * t.element_size() for t in tree_leaves(params))}
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(refs, CP_REF + ".part")
+    os.replace(CP_REF + ".part", CP_REF)
+    return {**sizes, "s": time.monotonic() - t0}
+
+
+def cp_mesh_job(mesh, rank: int, job: dict) -> dict:
+    """(c) on this rank of a four-rank mesh ({context: 2, model: 2} or
+    {data: 2, context: 2}): phase 10's checkpoint loaded as this rank's
+    blocks, then the path of cp_prefill_decode with ring_mesh, by the ring
+    and by Ulysses, against one rank's flash run (CP_REF, which the parent
+    writes while the ranks start): the hidden states' max abs errors over
+    the valid positions, ring against Ulysses, the decode step's logits',
+    a digest of the hidden states (replicas compare them), the launches
+    (set to 0 after the load), the bytes and the seconds."""
+    t0 = time.monotonic()
+    params, cfg = cp_load(job["int8"], mesh, mesh.device)
+    t_load = time.monotonic() - t0
+    deadline = time.monotonic() + CP_REF_TIMEOUT
+    while not os.path.exists(CP_REF):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no reference at {CP_REF}")
+        time.sleep(0.5)
+    ref = torch.load(CP_REF)["int8" if job["int8"] else "bf16"]
+    ref_h = ref["h"].to(mesh.device).float()
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {"load_s": t_load, "backend": mesh.backend}
+    hs = {}
+    for mode in ("ring", "ulysses"):
+        got = cp_prefill_decode(params, cfg, job["int8"], mesh.device,
+                                mesh=mesh, ring_mesh=mesh, sp_mode=mode)
+        hs[mode] = got["h"].float()
+        if not torch.isfinite(hs[mode]).all():
+            raise AssertionError(f"(c) {mode}: non-finite hidden states")
+        out[f"{mode}_err"] = cp_err(hs[mode], ref_h)
+        out[f"{mode}_logit_err"] = float(
+            (got["logits"].cpu() - ref["logits"]).abs().max())
+        out[f"{mode}_digest"] = hashlib.sha256(
+            got["h"].contiguous().view(torch.uint8).cpu().numpy()
+        ).hexdigest()
+        out[f"{mode}_s"] = got["s"]
+        out["kv_bytes"] = got["kv_bytes"]
+    out["ring_ulysses_err"] = cp_err(hs["ring"], hs["ulysses"])
+    torch.cuda.synchronize()
+    out["counts"] = tp_counts()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(params))
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def cp_mesh_check(ranks: list[dict], refs: dict, shapes: dict) -> None:
+    """(c)'s four-rank rows against one rank's: hidden states within CP_TOL
+    by the ring and by Ulysses and of each other, the decode step's
+    logits within LOGIT_TOL, launches equal on every rank and the ones
+    the path makes non-zero; at {context: 2, model: 2} each rank's KV
+    cache and weights half of one rank's, at {data: 2, context: 2} whole
+    and the hidden states equal on both data replicas."""
+    from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
+
+    for name, shape in shapes.items():
+        got = [r[name] for r in ranks]
+        key = "int8" if name.endswith("int8") else "bf16"
+        kv = [g["kv_bytes"] / refs[key]["kv_bytes"] for g in got]
+        weights_share = [g["param_bytes"] / refs[key]["param_bytes"]
+                         for g in got]
+        for rank, g in enumerate(got):
+            log(f"  (c) {name} rank {rank}: B=2 x {CP_SEQ} (seq_lens "
+                f"{CP_LENS}) hidden states against one rank's flash "
+                f"forward: ring max_abs_err {g['ring_err']:.4f}, ulysses "
+                f"{g['ulysses_err']:.4f}, ring vs ulysses "
+                f"{g['ring_ulysses_err']:.4f} (bound {CP_TOL}); the decode "
+                f"step's logits after the ring {g['ring_logit_err']:.4f}, "
+                f"after Ulysses {g['ulysses_logit_err']:.4f} (bound "
+                f"{LOGIT_TOL}); KV cache {g['kv_bytes']} B of one rank's "
+                f"{refs[key]['kv_bytes']} (share {kv[rank]:.4f}); weights "
+                f"{g['param_bytes']} B of {refs[key]['param_bytes']} "
+                f"(share {weights_share[rank]:.4f}); max_memory_allocated "
+                f"{g['max_memory_allocated'] / 2**30:.3f} GiB; seconds: "
+                f"load {g['load_s']:.1f}, ring prefill {g['ring_s']:.3f}, "
+                f"ulysses {g['ulysses_s']:.3f}, job {g['seconds']:.1f} "
+                f"({g['backend']}; four ranks on one card: not a speed of "
+                f"either scheme); launches {g['counts']}")
+            if max(g["ring_err"], g["ulysses_err"],
+                   g["ring_ulysses_err"]) > CP_TOL:
+                raise AssertionError(f"(c) {name} rank {rank}: hidden "
+                                     f"states beyond {CP_TOL}")
+            if max(g["ring_logit_err"], g["ulysses_logit_err"]) > LOGIT_TOL:
+                raise AssertionError(f"(c) {name} rank {rank}: decode "
+                                     f"logits beyond {LOGIT_TOL}")
+        if any(g["counts"] != got[0]["counts"] for g in got):
+            raise AssertionError(f"(c) {name}: launches differ by rank "
+                                 f"{[g['counts'] for g in got]}")
+        c = got[0]["counts"]
+        want = (("w8a16_tc", "w8a16_gemv", "decode_attention_append")
+                if key == "int8" else ()) + ("decode_attention",)
+        if any(c[k] <= 0 for k in want) or c["flash_prefill"]:
+            raise AssertionError(f"(c) {name}: launches {c}")
+        model = shape.get("model", 1)
+        # a model rank also holds the norms and the row-parallel leaves'
+        # int8 scales whole: within 0.01 of half, as phase 14 holds it
+        if kv != [1 / model] * 4 or not all(
+                abs(w - 1 / model) < 0.01 if model > 1 else w == 1
+                for w in weights_share):
+            raise AssertionError(f"(c) {name}: KV shares {kv}, weight "
+                                 f"shares {weights_share}")
+        if shape.get("data", 1) > 1:
+            for mode in ("ring", "ulysses"):
+                by_data: dict = {}
+                for rank, g in enumerate(got):
+                    coords = Mesh(MeshSpec(**shape), rank=rank).coords
+                    by_data.setdefault(coords["context"], set()).add(
+                        g[f"{mode}_digest"])
+                if any(len(d) != 1 for d in by_data.values()):
+                    raise AssertionError(f"(c) {name} {mode}: the data "
+                                         f"replicas' hidden states differ")
+            log(f"  (c) {name}: hidden states equal on both data replicas "
+                f"(equal on all four ranks: "
+                f"{len({g['ring_digest'] for g in got}) == 1})")
+
+
+def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int],
+                                   dict[str, int]]:
     """Phase 16. (a) `tiny` in float32 at {stage: 2} (pipeline
     microbatches 1 and 2, dense and int8 + int8 KV) and at {context: 2}
     (dense and int8 + int8 KV), the prompts submitted together over 4
@@ -4419,39 +4712,62 @@ def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
     rank's, its weights its layer plus the embedding, head and final norm.
     (c) the checkpoint at {context: 2}: forward_hidden with ring_mesh,
     ring then Ulysses, within CP_TOL of one rank's flash forward and of
-    each other; the engine, bf16 and int8, text equal to one rank's.
-    Returns each kernel row's launches on rank 0 at {stage: 2} and at
-    {context: 2}."""
-    contents = tp_contents()
-    contents = contents + contents[:1]
-    pp_tiny = [dict(name=f"pp_tiny_{'int8' if i8 else 'f32'}_m{m}",
-                    model="tiny", int8=i8, new=12, together=True, serves=1,
-                    geometry={"max_slots": DP_SLOTS,
-                              "pipeline_microbatches": m})
-               for i8 in (False, True) for m in (1, PP_MICRO)]
-    pp_ckpt = [dict(name=f"pp_ckpt_{'int8' if i8 else 'bf16'}",
-                    model="ckpt", tpu=pp_section(i8), contents=contents,
-                    new=DP_NEW, together=True, serves=1)
-               for i8 in (False, True)]
-    t0 = time.monotonic()
-    pp = tp_spawn("pp_gloo", PP_DEVICES, pp_tiny + pp_ckpt,
-                  mesh={"stage": PP})
-    log(f"  two stage ranks on {PP_DEVICES} ran (a)-(b) in "
-        f"{time.monotonic() - t0:.1f} s")
-    cp_tiny = [dict(name=f"cp_tiny_{'int8' if i8 else 'f32'}", model="tiny",
-                    int8=i8, new=12, together=True, serves=1,
-                    geometry={"max_slots": DP_SLOTS})
-               for i8 in (False, True)]
-    cp_ckpt = [dict(name=f"cp_ckpt_{'int8' if i8 else 'bf16'}",
-                    model="ckpt", tpu=cp_section(i8), contents=contents,
-                    new=DP_NEW, together=True, serves=1)
-               for i8 in (False, True)]
-    t0 = time.monotonic()
-    cp = tp_spawn("cp_gloo", CP_DEVICES,
-                  cp_tiny + cp_ckpt + [dict(name="cp_ring", model="ring")],
-                  mesh={"context": CP})
-    log(f"  two context ranks on {CP_DEVICES} ran (a), (c) in "
-        f"{time.monotonic() - t0:.1f} s")
+    each other; the engine, bf16 and int8, text equal to one rank's. Then
+    on four ranks, one spawn that runs beside (a)-(c)'s while this process
+    makes one rank's references: at {context: 2, model: 2}, each rank
+    loading its `model` block, bf16 and int8 (+ kv_quant, fused_dequant),
+    and at {data: 2, context: 2}, bf16: ring and Ulysses hidden states
+    within CP_TOL of one rank's flash forward and of each other, one
+    decode step from the cache each wrote within LOGIT_TOL of one rank's
+    (cp_mesh_check). The three spawns run together. Returns each kernel
+    row's launches on rank 0 at {stage: 2}, at {context: 2} and at
+    {context: 2, model: 2}."""
+    if os.path.exists(CP_REF):
+        os.remove(CP_REF)
+    cp4 = [dict(name="cp_tp_bf16", model="ring_mesh", int8=False,
+                mesh=CP_TP_MESH),
+           dict(name="cp_tp_int8", model="ring_mesh", int8=True,
+                mesh=CP_TP_MESH),
+           dict(name="cp_dp_bf16", model="ring_mesh", int8=False,
+                mesh=CP_DP_MESH)]
+    t4 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        cp4_spawn = pool.submit(tp_spawn, "cp4_gloo", CP4_DEVICES, cp4,
+                                mesh=CP_TP_MESH)
+        contents = tp_contents()
+        contents = contents + contents[:1]
+        pp_tiny = [dict(name=f"pp_tiny_{'int8' if i8 else 'f32'}_m{m}",
+                        model="tiny", int8=i8, new=12, together=True, serves=1,
+                        geometry={"max_slots": DP_SLOTS,
+                                  "pipeline_microbatches": m})
+                   for i8 in (False, True) for m in (1, PP_MICRO)]
+        pp_ckpt = [dict(name=f"pp_ckpt_{'int8' if i8 else 'bf16'}",
+                        model="ckpt", tpu=pp_section(i8), contents=contents,
+                        new=DP_NEW, together=True, serves=1)
+                   for i8 in (False, True)]
+        pp_spawn = pool.submit(tp_spawn, "pp_gloo", PP_DEVICES,
+                               pp_tiny + pp_ckpt, mesh={"stage": PP})
+        cp_tiny = [dict(name=f"cp_tiny_{'int8' if i8 else 'f32'}",
+                        model="tiny", int8=i8, new=12, together=True, serves=1,
+                        geometry={"max_slots": DP_SLOTS})
+                   for i8 in (False, True)]
+        cp_ckpt = [dict(name=f"cp_ckpt_{'int8' if i8 else 'bf16'}",
+                        model="ckpt", tpu=cp_section(i8), contents=contents,
+                        new=DP_NEW, together=True, serves=1)
+                   for i8 in (False, True)]
+        cp_spawn = pool.submit(
+            tp_spawn, "cp_gloo", CP_DEVICES,
+            cp_tiny + cp_ckpt + [dict(name="cp_ring", model="ring")],
+            mesh={"context": CP})
+        cp_refs = cp_mesh_reference()
+        log(f"  (c) one rank's references for four ranks' rows in "
+            f"{cp_refs['s']:.1f} s")
+        pp, cp, cp4_ranks = (f.result() for f in (pp_spawn, cp_spawn,
+                                                  cp4_spawn))
+    log(f"  two stage ranks on {PP_DEVICES} ((a)-(b)), two context ranks on "
+        f"{CP_DEVICES} ((a), (c)) and four ranks on {CP4_DEVICES} ((c) at "
+        f"{CP_TP_MESH} and {CP_DP_MESH}), all three spawns together, in "
+        f"{time.monotonic() - t4:.1f} s")
     for group, jobs, tag in ((pp, pp_tiny + pp_ckpt, "pp"),
                              (cp, cp_tiny + cp_ckpt, "cp")):
         for job in jobs:
@@ -4558,6 +4874,26 @@ def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
                                  f"not one rank's (replicas)")
         log(f"  (c) {name}: text equal to one rank's for {len(contents)} "
             f"chats; serve {[round(t, 1) for t in g0['serve_s']]} s")
+    cp_mesh_check(cp4_ranks, cp_refs, {j["name"]: j["mesh"] for j in cp4})
+    if cp4_ranks[0]["cp_tp_bf16"]["backend"] != "gloo":
+        raise AssertionError("four ranks on one card must run over gloo")
+    if torch.cuda.device_count() >= 4:
+        # the parent's reference file is still in place
+        nccl = tp_spawn("cp4_nccl", [f"cuda:{i}" for i in range(4)],
+                        cp4[:1], mesh=CP_TP_MESH)
+        if nccl[0]["cp_tp_bf16"]["backend"] != "nccl":
+            raise AssertionError("four cards must run over nccl")
+        cp_mesh_check(nccl, cp_refs, {"cp_tp_bf16": CP_TP_MESH})
+        log(f"  nccl pass of (c) at {CP_TP_MESH} bf16 on four cards: ring "
+            f"prefill {[round(r['cp_tp_bf16']['ring_s'], 3) for r in nccl]}"
+            f" s, ulysses "
+            f"{[round(r['cp_tp_bf16']['ulysses_s'], 3) for r in nccl]} s "
+            f"(gloo on one card: "
+            f"{[round(r['cp_tp_bf16']['ring_s'], 3) for r in cp4_ranks]}, "
+            f"{[round(r['cp_tp_bf16']['ulysses_s'], 3) for r in cp4_ranks]})")
+    else:
+        log(f"  nccl pass of (c) at {CP_TP_MESH} not run: "
+            f"{torch.cuda.device_count()} card(s) on this machine")
     if torch.cuda.device_count() >= 2:
         nccl = tp_spawn("pp_nccl", ["cuda:0", "cuda:1"], [pp_ckpt[0]],
                         mesh={"stage": PP})
@@ -4593,7 +4929,10 @@ def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int]]:
     cc = {"bf16": cp[0]["cp_ckpt_bf16"]["counts"],
           "int8": cp[0]["cp_ckpt_int8"]["counts"],
           "tiny": cp[0]["cp_tiny_int8"]["counts"]}
-    return launches(pc, "tiny"), launches(cc, "tiny")
+    tc = {"bf16": cp4_ranks[0]["cp_tp_bf16"]["counts"],
+          "int8": cp4_ranks[0]["cp_tp_int8"]["counts"]}
+    return (launches(pc, "tiny"), launches(cc, "tiny"),
+            launches(tc, "int8"))
 
 
 # ---------------------------------------------------------------------------
@@ -4918,8 +5257,8 @@ def tp_main() -> int:
     launches = check_pp_cp(smi)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     t4 = time.perf_counter()
-    log(f"phase 16 took {t4 - t3:.1f} s; launches_pp, launches_cp "
-        f"{launches}")
+    log(f"phase 16 took {t4 - t3:.1f} s; launches_pp, launches_cp, "
+        f"launches_cp_tp {launches}")
     write_moe_checkpoint()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4956,7 +5295,8 @@ def main() -> int:
     phase_done(1)
 
     log("phase 2: build")
-    log(f"  kernels built in {kernels.build_all():.3f} s")
+    log(f"  kernels built in {kernels.build_all():.3f} s; nvcc seconds per "
+        f"source {kernels.BUILD_SECONDS}")
     phase_done(2)
 
     log("phase 3: kernels against their plain versions (bf16)")
@@ -5004,13 +5344,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done(6)
 
-    log("phase 7: engine host, tiny, card against CPU")
-    check_host_tiny()
+    log("phase 7: engine host, tiny, card against CPU (phase 8's host "
+        "starting beside it)")
+    full_host = HostProc("llama3_8b", HOST_FULL_TPU)
+    try:
+        check_host_tiny()
+    except BaseException:
+        full_host.kill()
+        raise
     phase_done(7)
 
     log("phase 8: engine host, llama3-8b bf16, the provider's default tpu: "
         "section")
-    tpu = check_host_full(smi)
+    tpu = check_host_full(smi, full_host)
     profile_host_path(tpu)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5116,12 +5462,22 @@ def main() -> int:
         f"float32 at {{stage: 2}} (1 and {PP_MICRO} microbatches) and "
         f"{{context: 2}}, llama3-8b width at {CKPT_LAYERS} layers (phase "
         f"10's checkpoint) bf16 and int8 at both, ring and Ulysses prefill "
-        f"over {CP_SEQ} tokens")
-    pp_launches, cp_launches = check_pp_cp(smi)
+        f"over {CP_SEQ} tokens at {{context: 2}}, {CP_TP_MESH} (bf16, int8) "
+        f"and {CP_DP_MESH}")
+    pp_launches, cp_launches, cp_tp_launches = check_pp_cp(smi)
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
     for row in rows:
         row["launches_pp"] = pp_launches[row["name"]]
         row["launches_cp"] = cp_launches[row["name"]]
+        row["launches_cp_tp"] = cp_tp_launches[row["name"]]
+        if row["name"] in CP_TP_REASON:
+            row["launches_cp_tp_reason"] = CP_TP_REASON[row["name"]]
+            if row["launches_cp_tp"]:
+                raise AssertionError(f"{row['name']} launched at context=2 "
+                                     f"x model=2")
+        elif row["launches_cp_tp"] <= 0:
+            raise AssertionError(f"{row['name']} never launched at "
+                                 f"context=2 x model=2")
         off_pp = row["name"] in ("kv_append", "w8a8_matmul") or row[
             "name"].startswith("w8a16_matmul")
         if row["name"].startswith("w8a16_matmul"):
@@ -5160,8 +5516,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "launches_moe", "launches_tp", "launches_dp", "launches_pp",
-            "launches_cp", "launches_ep")
-    extra = ("path", "launches_pp_reason")
+            "launches_cp", "launches_cp_tp", "launches_ep")
+    extra = ("path", "launches_pp_reason", "launches_cp_tp_reason")
     print(json.dumps({"kernels": [
         {**{k: row[k] for k in keys},
          **{k: row[k] for k in extra if k in row}}

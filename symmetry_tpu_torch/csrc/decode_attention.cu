@@ -71,8 +71,47 @@
 #include "common.cuh"
 #include "wgmma.cuh"
 
+// The file builds as eleven translation units, compiled at once
+// (ops/kernels.py SOURCES): as one, nvcc took 179 s over its 240 kernels
+// on an H100 host's 8 cores, against 13 s for the next slowest source.
+// SYMTORCH_PART p in 0..9 compiles the kernels of the built head dim
+// 16 << (p / 2) for float32 (p even) or bf16 (p odd) queries, dense and
+// int8 caches; 10 compiles the C entry point alone, which reaches them
+// through launch_c's declaration; undefined, the whole file is one unit.
+#ifndef SYMTORCH_PART
+#define SYMTORCH_PART -1
+#endif
+
+namespace symtorch {
+
+struct DecodeArgs {
+  const void* q;
+  void* kc;
+  void* vc;
+  void* ks;
+  void* vs;
+  const void* kv_length;
+  const void* k_new;  // append mode: all three, or none
+  const void* v_new;
+  const void* positions;
+  void* out;
+  float* part_acc;
+  float* part_ml;
+  int B, Tcap, K, G, layer, window, span, n_spans, hd;
+  cudaStream_t stream;
+};
+
+// The launch at one built head dim D (defined with the kernels below).
+template <typename TQ, typename TKV, int D>
+cudaError_t launch_c(const DecodeArgs& a);
+
+}  // namespace symtorch
+
+#if SYMTORCH_PART != 10
 namespace symtorch {
 namespace {
+
+using Args = DecodeArgs;
 
 constexpr int NW = 4;             // warps per block
 constexpr int STAGES = 4;         // cp.async ring depth of each warp
@@ -444,23 +483,6 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   }
 }
 
-struct Args {
-  const void* q;
-  void* kc;
-  void* vc;
-  void* ks;
-  void* vs;
-  const void* kv_length;
-  const void* k_new;  // append mode: all three, or none
-  const void* v_new;
-  const void* positions;
-  void* out;
-  float* part_acc;
-  float* part_ml;
-  int B, Tcap, K, G, layer, window, span, n_spans, hd;
-  cudaStream_t stream;
-};
-
 template <typename TQ, typename TKV, int D, int GT, int CB, bool kAppend>
 cudaError_t launch(const Args& a) {
   auto kernel = decode_split_kernel<TQ, TKV, D, GT, CB, kAppend>;
@@ -504,19 +526,37 @@ cudaError_t launch_g(const Args& a) {
   return launch_a<TQ, TKV, D, 8, CB>(a);
 }
 
+}  // namespace
+
 // Rows of 16-byte multiples take 16-byte copies; int8 rows of 8 (mod 16)
 // bytes take 8-byte ones (their rows are only 8-byte aligned).
 template <typename TQ, typename TKV, int D>
-cudaError_t launch_c(const Args& a) {
+cudaError_t launch_c(const DecodeArgs& a) {
   if ((a.hd * int(sizeof(TKV))) % 16 == 0) return launch_g<TQ, TKV, D, 16>(a);
   if constexpr (std::is_same<TKV, int8_t>::value)
     return launch_g<TQ, TKV, D, 8>(a);
   return cudaErrorInvalidValue;
 }
 
+#if SYMTORCH_PART >= 0
+using PartQ = std::conditional<SYMTORCH_PART % 2 == 1, __nv_bfloat16,
+                               float>::type;
+template cudaError_t launch_c<PartQ, PartQ, 16 << (SYMTORCH_PART / 2)>(
+    const DecodeArgs&);
+template cudaError_t launch_c<PartQ, int8_t, 16 << (SYMTORCH_PART / 2)>(
+    const DecodeArgs&);
+#endif
+
+}  // namespace symtorch
+#endif  // SYMTORCH_PART != 10
+
+#if SYMTORCH_PART == -1 || SYMTORCH_PART == 10
+namespace symtorch {
+namespace {
+
 // The next built head dim at or above the real one (a multiple of 8).
 template <typename TQ, typename TKV>
-cudaError_t launch_d(const Args& a) {
+cudaError_t launch_d(const DecodeArgs& a) {
   const int hd = a.hd;
   if (hd < 16 || hd > 256 || hd % 8) return cudaErrorInvalidValue;
   if (hd <= 16) return launch_c<TQ, TKV, 16>(a);
@@ -560,7 +600,7 @@ extern "C" int decode_attention_launch(int dtype, int kv_dtype, const void* q,
     return cudaErrorInvalidValue;
   float* part_acc = static_cast<float*>(scratch);
   float* part_ml = part_acc + (long long)B * n_q * n_spans * D;
-  const Args a{q, k_cache, v_cache, k_scale, v_scale, kv_length, k_new,
+  const DecodeArgs a{q, k_cache, v_cache, k_scale, v_scale, kv_length, k_new,
                v_new, positions, out, part_acc, part_ml, B, T, K, n_q / K,
                layer, window, span, n_spans, D,
                static_cast<cudaStream_t>(stream)};
@@ -575,3 +615,4 @@ extern "C" int decode_attention_launch(int dtype, int kv_dtype, const void* q,
   if (dtype == kBF16) return launch_d<__nv_bfloat16, __nv_bfloat16>(a);
   return cudaErrorInvalidValue;
 }
+#endif  // SYMTORCH_PART == -1 || SYMTORCH_PART == 10

@@ -222,6 +222,9 @@ class EngineHost:
         # Held by every engine call and the profile capture's start/stop
         # (GatedEngine).
         self._device_gate = threading.RLock()
+        # Whether the profiler's CUDA tracing has been started once on the
+        # main thread (the first `profile` op does it).
+        self._capture_ready = False
         self._cancelled: set[str] = set()
         self._reported: dict[str, int] = {}  # id -> tokens already reported
         # The host's own trace ring (submit and flush spans); the
@@ -385,12 +388,6 @@ class EngineHost:
         t_build = time.perf_counter() - t0
         t1 = time.perf_counter()
         self._engine.warmup()  # the kernels build here, before `ready`
-        if self._engine.device.type == "cuda":
-            try:
-                init_capture()  # on this (main) thread, for `profile`
-            except Exception as exc:  # noqa: BLE001 — diagnostics only
-                logger.warning(f"torch.profiler did not start; the "
-                               f"profile op will reply its error: {exc}")
         t_warmup = time.perf_counter() - t1
         self._scheduler = Scheduler(
             self._engine, emit_batch=self._emit_batch,
@@ -526,6 +523,19 @@ class EngineHost:
         duration_s = 2.0 if raw is None else float(raw)
         out_dir = str(msg.get("dir") or "") or os.path.join(
             tempfile.gettempdir(), "symmetry_torch_profiles")
+        if (self._engine is not None and self._engine.device.type == "cuda"
+                and not self._capture_ready):
+            # The first capture starts the profiler's CUDA tracing here,
+            # on the main thread, with the engine held: a few seconds
+            # (~9 on an H100 host) that every host start paid before.
+            try:
+                with self._device_gate:
+                    init_capture()
+            except Exception as exc:  # noqa: BLE001 — reply, never crash
+                self._write({"op": HostOp.PROFILE,
+                             "error": f"torch.profiler did not start: {exc}"})
+                return
+            self._capture_ready = True
 
         def run() -> None:
             try:

@@ -48,13 +48,18 @@ Sequence-parallel prefill (`ring_mesh`, `sp_mode`): a prefill from an
 empty cache shards its attention's sequence over the `context` axis of
 `ring_mesh`, by the K/V ring (parallel/ring.py) or by the Ulysses head
 scatter (parallel/ulysses.py), in place of the flash kernel, as in the JAX
-package. The projections, the MLP and the cache writes run whole on every
-rank of the axis, as the JAX forward leaves them outside its shard_map;
-the attention's output shards are all-gathered, so every rank returns the
-whole hidden states and a whole cache. MoE layers run on every rank of a
-context-only `ring_mesh`, as the JAX forward runs them outside its
-shard_map. `ring_mesh` with any other axis above 1 is refused (ROADMAP
-Queue 1 item 14).
+package. The projections, the MLP and the cache writes run on every rank
+of the axis, as the JAX forward leaves them outside its shard_map; the
+attention's output shards are all-gathered, so every rank returns the
+whole hidden states and its whole block of the cache. Beside `context`,
+`ring_mesh` may have every other axis above 1, as the JAX forward serves
+it: the attention runs over this rank's `context` line. With `mesh` (the
+same shape) a `model` rank runs it on its heads and writes its kv-head
+block of the cache, and an MoE layer runs outside it on the rank's experts
+and `model` block (models/moe.py); `data`, `expert` (a dense model's) and
+`stage` ranks hold the whole batch and are replicas, as under JAX's
+DEFAULT_RULES. A stage rank's block of the layers takes no `ring_mesh`
+(parallel/pipeline.py; the JAX pipeline takes none).
 
 Pipeline parallelism (parallel/pipeline.py) runs `run_layers` over a stage
 rank's block of the layers against its block of the cache
@@ -89,6 +94,7 @@ from symmetry_tpu_torch.ops.quant import (
 )
 from symmetry_tpu_torch.ops.quant import quantize as quantize_leaf
 from symmetry_tpu_torch.ops.rope import apply_rope
+from symmetry_tpu_torch.parallel import ring, ulysses
 from symmetry_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     Sharding,
@@ -654,19 +660,17 @@ def _layer(
             cache.v[layer][b_idx, pos_w] = v.to(cache.v.dtype)
 
         if ring_mesh is not None:
-            # Long-context prefill: the sequence sharded over the `context`
-            # axis -- K/V blocks rotating (parallel/ring.py), or one
-            # all-to-all head scatter when heads divide the shard count
-            # (parallel/ulysses.py); the output comes back whole.
+            # Long-context prefill: the sequence sharded over this rank's
+            # `context` line -- K/V blocks rotating (parallel/ring.py), or
+            # one all-to-all head scatter when heads divide the shard count
+            # (parallel/ulysses.py); the output comes back whole, on this
+            # rank's heads.
             if sp_mode == "ulysses":
-                from symmetry_tpu_torch.parallel.ulysses import (
-                    ulysses_attention)
-
-                attn = ulysses_attention(q, k, v, seq_lens, ring_mesh)
+                attn = ulysses.ulysses_attention(
+                    q, k, v, seq_lens, ring_mesh,
+                    head_axis="model" if tp > 1 else None)
             else:
-                from symmetry_tpu_torch.parallel.ring import ring_attention
-
-                attn = ring_attention(q, k, v, seq_lens, ring_mesh)
+                attn = ring.ring_attention(q, k, v, seq_lens, ring_mesh)
         elif prefill_flash:
             # Prefill from empty: attention over this call's own K/V; the
             # cache is never read back.
@@ -794,9 +798,15 @@ def forward_hidden(
     shard count, and is unused when S == 1. sp_mode picks the scheme:
     "ring" rotates K/V blocks (parallel/ring.py, any head count),
     "ulysses" head-scatters by all-to-all (parallel/ulysses.py, needs
-    kv_heads % shards == 0). The schemes take no window: with ring_mesh
+    num_kv_heads % shards == 0, judged on the whole model's heads as the
+    JAX function judges them). The schemes take no window: with ring_mesh
     set, a sliding-window model runs the flash kernel instead, as in the
-    JAX package.
+    JAX package. ring_mesh may have any other axis above 1: with `mesh`,
+    which must then have its shape, params and cache are this rank's
+    blocks (its heads on a `model` rank, its experts on an `expert` rank);
+    without, they are whole and the other axes' ranks are replicas. A
+    stage rank's block of the layers is refused (pipeline_forward_hidden
+    takes no ring_mesh, as the JAX one takes none).
 
     `batch_axis` names the mesh axis whose ranks each hold a block of the
     batch (the engine's decode and verify on a `data` axis): an MoE layer
@@ -807,13 +817,18 @@ def forward_hidden(
             # the prefill-from-empty contract makes that correct.
             raise ValueError("ring_mesh requires prefill_flash=True "
                              "(prefill-from-empty contract)")
-        other = sorted(a for a, n in ring_mesh.shape.items()
-                       if n > 1 and a != "context")
-        if other or _tp(mesh) > 1:
-            raise NotImplementedError(
-                f"ring_mesh on a mesh with axes {other or ['model']} above "
-                f"1 besides `context` is not ported yet (ROADMAP Queue 1 "
-                f"item 14): pass a context-only mesh")
+        if _pp(mesh) > 1:
+            raise ValueError(
+                "ring_mesh with a stage rank's block of the layers: "
+                "pipeline_forward_hidden takes no ring_mesh, as the JAX "
+                "pipeline takes none; pass whole params and cache without "
+                "`mesh`, over which the stage ranks are replicas")
+        if mesh is not None and mesh.size > 1 and (
+                mesh.shape != ring_mesh.shape):
+            raise ValueError(f"ring_mesh {ring_mesh.shape} and mesh "
+                             f"{mesh.shape} differ: params and cache are "
+                             f"blocks of `mesh`, and the ring runs on its "
+                             f"ranks")
     B, S = tokens.shape
     if seq_lens is None:
         seq_lens = torch.full((B,), S, dtype=torch.int32,
@@ -825,6 +840,14 @@ def forward_hidden(
     use_ring = ring_mesh if (ring_mesh is not None and S > 1
                              and config.sliding_window is None) else None
     use_flash = prefill_flash and use_ring is None and S > 1
+    if use_ring is not None:
+        # refused before any layer runs, as the JAX functions refuse at
+        # trace time
+        n = use_ring.axis_size("context")
+        if sp_mode == "ulysses":
+            ulysses.check_shards(S, config.num_heads, config.num_kv_heads, n)
+        else:
+            ring.check_shards(S, n)
 
     n_stacked = _stacked_layers(params["layers"]["wq"])
     if n_stacked != config.num_layers:

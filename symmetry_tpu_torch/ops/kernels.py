@@ -2,15 +2,20 @@
 
 Each source is compiled by nvcc for Hopper (sm_90a) into its own shared
 library with a plain C interface, loaded with ctypes. No PyTorch header is
-included, so a build takes seconds. Libraries land in build/torch_kernels/
-at the repository root, named by a hash of their source, so a changed
-source rebuilds and an unchanged one loads at once. Nothing is built when a
-module is imported: the first launch (or build_all) builds. The host moves
-the build to the directory `tpu.compile_cache` names
-(utils/compile_cache.py) before its first build.
+included, so a build takes seconds; a source with many kernels (PARTS)
+compiles as several translation units at once, linked after. Libraries
+land in build/torch_kernels/ at the repository root, named by a hash of
+their source, so a changed source rebuilds and an unchanged one loads at
+once. Nothing is built when a module is imported: the first launch (or
+build_all) builds. The host moves the build to the directory
+`tpu.compile_cache` names (utils/compile_cache.py) before its first build.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
+
+or, for a source in PARTS, `-c -DSYMTORCH_PART=<p> -o <p>.o` in place of
+`-shared -o <lib>.so` for each part p, then `nvcc -gencode ... -shared -o
+<lib>.so *.o`.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -75,11 +81,17 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
     }),
 }
 
+# Sources built as several translation units, compiled at once and linked
+# into one library: name -> units (csrc/decode_attention.cu SYMTORCH_PART).
+PARTS = {"decode_attention": 11}
+
 # Kernel dtype codes shared with csrc/.
 DTYPE_F32, DTYPE_BF16, DTYPE_INT8 = 0, 1, 2
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# Library name -> seconds its nvcc took in this process's last build of it.
+BUILD_SECONDS: dict[str, float] = {}
 
 
 class KernelError(RuntimeError):
@@ -115,32 +127,71 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def _units(name: str) -> list[list[str]]:
+    """nvcc's extra arguments for each translation unit of library `name`:
+    one unit, or one per SYMTORCH_PART value for a source built in
+    PARTS parts."""
+    if name not in PARTS:
+        return [[]]
+    return [[f"-DSYMTORCH_PART={p}"] for p in range(PARTS[name])]
+
+
 def build_all(names: list[str] | None = None) -> float:
-    """Compile every library not yet built, one nvcc per source, all started
-    together. Returns the wall seconds spent; raises KernelError with the
-    compiler's output if any build fails. nvcc's -Xptxas -v report
-    (registers, shared memory, spills) is kept beside each library as
-    <lib>.log."""
+    """Compile every library not yet built, one nvcc per translation unit,
+    all started together (a source in PARTS compiles to objects, linked
+    into its library after). Returns the wall seconds spent; raises
+    KernelError with the compiler's output if any build fails. nvcc's
+    -Xptxas -v report (registers, shared memory, spills) is kept beside
+    each library as <lib>.log, and each library's own seconds (its slowest
+    unit and its link) in BUILD_SECONDS."""
     t0 = time.perf_counter()
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         todo = [(n, lib_path(n)) for n in (names or list(SOURCES))
                 if not lib_path(n).exists()]
-        procs = []
+        arch = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a"]
+
+        def run(cmd: list[str]) -> tuple:
+            t = time.perf_counter()
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            return proc, time.perf_counter() - t
+
+        jobs = []  # (library, output, extra arguments)
         for name, out in todo:
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", str(tmp),
-                   str(CSRC / SOURCES[name][0])]
-            procs.append((name, out, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            units = _units(name)
+            for i, extra in enumerate(units):
+                obj = (tmp if len(units) == 1
+                       else tmp.with_suffix(f".{i}.o"))
+                jobs.append((name, obj, extra + (
+                    ["-shared"] if len(units) == 1 else ["-c"])))
+        with ThreadPoolExecutor(max(len(jobs), 1)) as pool:
+            done = list(pool.map(lambda job: run(
+                arch + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                        "-Xptxas", "-v", *job[2], "-o", str(job[1]),
+                        str(CSRC / SOURCES[job[0]][0])]), jobs))
         failed = []
-        for name, out, tmp, proc in procs:
-            log, _ = proc.communicate()
-            out.with_suffix(".log").write_text(log)
-            if proc.returncode != 0:
+        for name, out in todo:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            mine = [(job, res) for job, res in zip(jobs, done)
+                    if job[0] == name]
+            log = "".join(proc.stdout for _, (proc, _) in mine)
+            seconds = max(sec for _, (_, sec) in mine)
+            ok = all(proc.returncode == 0 for _, (proc, _) in mine)
+            if ok and len(mine) > 1:
+                proc, sec = run(arch + ["-shared", "-o", str(tmp)] + [
+                    str(job[1]) for job, _ in mine])
+                log += proc.stdout
+                seconds += sec
+                ok = proc.returncode == 0
+            if len(mine) > 1:
+                for job, _ in mine:
+                    job[1].unlink(missing_ok=True)
+            BUILD_SECONDS[name] = seconds
+            out.with_suffix(".log").write_text(
+                f"{log}\nnvcc seconds: {seconds:.1f}\n")
+            if not ok:
                 failed.append(f"{name}:\n{log[-4000:]}")
                 tmp.unlink(missing_ok=True)
             else:

@@ -16,6 +16,14 @@ does. Plain torch, as the JAX module is plain jnp: no kernel.
 arrays: each rank cuts its shard, runs the ring, and the output shards are
 all-gathered on the sequence dim, so every rank returns the whole
 [B, S, H, D] (the JAX function's sequence-sharded global result).
+
+On a mesh with other axes above 1 the ring runs over this rank's
+`context` line only: the ranks that share its other coordinates (the
+shift and the gather use that line's process group). A `model` rank
+passes its block of the heads, and attention is independent per head, so
+its output is its block of the JAX function's, whose shard_map holds the
+heads whole. A `data`, `expert` or `stage` rank holds the whole batch and
+every head of its block, as the JAX function replicates them.
 """
 
 from __future__ import annotations
@@ -91,6 +99,13 @@ def _ring_shard_fn(q, k, v, seq_lens, mesh, *, axis: str, shard_len: int,
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sc, H, D)
 
 
+def check_shards(S: int, n: int) -> None:
+    """The JAX function's refusal, in its words: S must divide by the ring
+    size n."""
+    if S % n:
+        raise ValueError(f"sequence {S} not divisible by ring size {n}")
+
+
 def ring_attention(
     q: torch.Tensor,         # [B, S, H, D], whole on every rank
     k: torch.Tensor,         # [B, S, K, D]
@@ -101,11 +116,11 @@ def ring_attention(
 ) -> torch.Tensor:
     """Causal ring attention over the context mesh axis. Returns the whole
     [B, S, H, D] on every rank of the axis; each rank computes its sequence
-    shard, and the shards are all-gathered."""
+    shard, and the shards are all-gathered. Any head count: q/k/v may hold
+    a rank's block of the heads."""
     n = mesh.axis_size(axis)
     B, S, H, D = q.shape
-    if S % n:
-        raise ValueError(f"sequence {S} not divisible by ring size {n}")
+    check_shards(S, n)
     shard_len = S // n
     lo = mesh.axis_index(axis) * shard_len
 

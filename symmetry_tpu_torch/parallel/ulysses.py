@@ -24,6 +24,17 @@ global arrays: each rank cuts its sequence shard, runs the two
 all-to-alls around the local attention, and the output shards are
 all-gathered on the sequence dim, so every rank returns the whole
 [B, S, H, D].
+
+On a mesh with a `model` axis too (`head_axis`), a rank's q/k/v hold its
+block of the heads, and the all-to-alls run over its own `context` line.
+The JAX function sees the whole heads inside its shard_map (GSPMD gathers
+the model-sharded projections in and scatters the output out), so the
+refusals judge the whole head counts. Where the rank's kv heads split
+over `context` the rank scatters them and no other traffic is added;
+where only the whole heads split (`tiny`'s two kv heads at {context: 2,
+model: 2}: one a rank), the rank gathers its `model` line's heads first,
+runs Ulysses on the whole heads and keeps its block of the output, as
+GSPMD does.
 """
 
 from __future__ import annotations
@@ -57,6 +68,17 @@ def _ulysses_shard_fn(q, k, v, seq_lens, mesh, *, axis: str):
     return heads_to_seq(out)   # [B, Sc, H, D]
 
 
+def check_shards(S: int, H: int, K: int, n: int) -> None:
+    """The JAX function's refusals, in its words: S, and the whole head
+    counts H and K, must divide by the shard count n."""
+    if S % n:
+        raise ValueError(f"sequence {S} not divisible by shard count {n}")
+    if K % n or H % n:
+        raise ValueError(
+            f"ulysses needs heads divisible by shards: H={H}, K={K}, n={n} "
+            f"(use ring attention otherwise)")
+
+
 def ulysses_attention(
     q: torch.Tensor,         # [B, S, H, D], whole on every rank
     k: torch.Tensor,         # [B, S, K, D]
@@ -64,27 +86,31 @@ def ulysses_attention(
     seq_lens: torch.Tensor,  # [B] valid lengths
     mesh,
     axis: str = "context",
+    head_axis: str | None = None,
 ) -> torch.Tensor:
     """Causal attention with sequence parallelism via head scatter.
 
     Returns the whole [B, S, H, D] on every rank of the axis. Requires
     num_kv_heads (and so num_heads) divisible by the shard count and S
-    divisible by it as well."""
+    divisible by it as well. With `head_axis`, q/k/v and the output hold
+    this rank's block of the heads along that axis, and the whole head
+    counts must divide."""
     n = mesh.axis_size(axis)
     B, S, H, D = q.shape
     K = k.shape[2]
-    if S % n:
-        raise ValueError(f"sequence {S} not divisible by shard count {n}")
-    if K % n or H % n:
-        raise ValueError(
-            f"ulysses needs heads divisible by shards: H={H}, K={K}, n={n} "
-            f"(use ring attention otherwise)")
+    blocks = mesh.axis_size(head_axis)
+    check_shards(S, H * blocks, K * blocks, n)
     shard_len = S // n
     lo = mesh.axis_index(axis) * shard_len
 
     def shard(x):
-        return x[:, lo:lo + shard_len].contiguous()
+        x = x[:, lo:lo + shard_len].contiguous()
+        # the local kv heads do not split over the axis: the whole heads do
+        return mesh.all_gather(x, head_axis, dim=2) if K % n else x
 
     out = _ulysses_shard_fn(shard(q), shard(k), shard(v), seq_lens, mesh,
                             axis=axis)
+    if K % n:
+        h0 = mesh.axis_index(head_axis) * H
+        out = out[:, :, h0:h0 + H].contiguous()
     return mesh.all_gather(out, axis, dim=1)

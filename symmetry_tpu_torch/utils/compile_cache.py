@@ -3,7 +3,7 @@
 Port of symmetry_tpu/utils/compile_cache.py. The JAX package points XLA's
 persistent compilation cache at a directory so that a restart does not
 recompile the serving grid. The port runs eagerly and compiles nothing but
-its CUDA kernels (ops/kernels.py: one nvcc per csrc/ source, libraries
+its CUDA kernels (ops/kernels.py: nvcc over the csrc/ sources, libraries
 named by a hash of their source), so its cache is the directory those
 libraries are built into and loaded from:
 

@@ -214,7 +214,8 @@ def init_capture() -> None:
     the thread that first starts a session, and only there if that is the
     thread that registered it: a first session started on another thread
     (the host's `profile` op runs on its own) records no kernels. The host
-    calls this on its main thread at start, with a CUDA engine."""
+    calls this on its main thread at its first `profile` op, with a CUDA
+    engine (the engine held meanwhile)."""
     from torch.profiler import profile
 
     with profile(activities=device_trace_activities()):

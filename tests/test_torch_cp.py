@@ -2,12 +2,13 @@
 forward_hidden's `ring_mesh`) against the JAX package on its CPU mesh.
 
 The JAX references run here on the conftest's virtual CPU devices
-(`build_mesh(MeshSpec(context=N))`, alone or with `model` or `data`). The
+(`build_mesh(MeshSpec(context=N))`, alone or beside another axis). The
 port's ranks are processes (tests/torch_tp_worker.py) joined by
 torch.distributed over gloo on the CPU. One spawn of two ranks runs the
 {context: 2} jobs; one spawn of four runs ring and Ulysses at context 4
-(the mesh tests/test_ring.py and tests/test_ulysses.py use) and the
-engine at {context: 2, model: 2} and {data: 2, context: 2}.
+(the mesh tests/test_ring.py and tests/test_ulysses.py use), the engine
+at {context: 2, model: 2} and {data: 2, context: 2}, and forward_hidden
+with ring_mesh beside the other axes, each job on its own mesh.
 
   - ring_attention and ulysses_attention within 2e-4 of the JAX functions
     at context 2 and 4, (nq, nkv) (4, 4) and (4, 2) (Ulysses at 4 ranks:
@@ -16,6 +17,15 @@ engine at {context: 2, model: 2} and {data: 2, context: 2}.
   - forward_hidden(ring_mesh, sp_mode), both modes: hidden states within
     2e-4 of the JAX forward on its context mesh, with the JAX forward's
     cache, and logits within 1e-5 of one port rank's flash forward;
+  - the same beside the other axes, each rank holding its blocks:
+    `tiny` at {context: 2, model: 2} (Ulysses gathers the heads: one kv
+    head a rank) and {data: 2, context: 2}, float32 and int8 KV,
+    `tiny-mha` at {context: 2, model: 2} (Ulysses scatters a rank's own
+    heads), `tiny-moe` at {context: 2, expert: 2}, and a whole `tiny`
+    tree over {stage: 2, context: 2} (the stage ranks replicas): every
+    rank's hidden states within 2e-4 of the JAX forward on the same mesh,
+    its cache the matching head block of the JAX cache; Ulysses at
+    {context: 4, model: 2} refused in the JAX words;
   - the engine (whose context ranks are replicas, as the JAX engine's)
     gives the JAX engine's greedy tokens on the same mesh;
   - the engine host with `tpu.mesh: {context: 2}` starts its follower,
@@ -44,8 +54,9 @@ from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from symmetry_tpu_torch.parallel.ring import ring_attention
 from symmetry_tpu_torch.parallel.ulysses import ulysses_attention
 from test_torch_dp import serve_together
-from test_torch_tp import (HostProc, children, gone, jax_serve, jax_tree,
-                           load_out, run_ranks, to_npz)
+from test_torch_moe import moe_tree
+from test_torch_tp import (HostProc, children, gone, jax_serve, jax_sharded,
+                           jax_tree, load_out, run_ranks, to_npz)
 
 SP_TOL = 2e-4   # the JAX ring and Ulysses tests' tolerance
 ATOL = 1e-5
@@ -60,6 +71,19 @@ _rng = np.random.default_rng(1)
 FWD_TOKENS = _rng.integers(0, 512, (2, 64))
 MESHES = {"context2_model2": {"context": 2, "model": 2},
           "data2_context2": {"data": 2, "context": 2}}
+# forward_hidden(ring_mesh) beside another axis, on four ranks: job ->
+# (preset, mesh, sharded: the ranks hold their blocks and pass `mesh`;
+# else the whole tree, the other axis's ranks replicas).
+RING_MESH = {
+    "tiny_context2_model2": ("tiny", MESHES["context2_model2"], True),
+    "mha_context2_model2": ("tiny-mha", MESHES["context2_model2"], True),
+    "tiny_data2_context2": ("tiny", MESHES["data2_context2"], True),
+    "moe_context2_expert2": ("tiny-moe", {"context": 2, "expert": 2}, True),
+    "tiny_stage2_context2": ("tiny", {"stage": 2, "context": 2}, False),
+}
+RING_MESH_INT8_KV = ("tiny_context2_model2", "tiny_data2_context2")
+RING_MESH_RUNS = [(job, q) for job in RING_MESH
+                  for q in (False, True) if not q or job in RING_MESH_INT8_KV]
 
 
 def jax_mesh(shape: dict):
@@ -104,7 +128,23 @@ def engine_job(name: str, weights: str, mesh: dict, **engine) -> dict:
 @pytest.fixture(scope="module")
 def trees():
     return {"tiny": jax_tree("tiny", 0),
-            "int8": jax_tree("tiny", 0, quantize=True)}
+            "int8": jax_tree("tiny", 0, quantize=True),
+            "tiny-mha": jax_tree("tiny-mha", 0), "tiny-moe": moe_tree()}
+
+
+def ring_mesh_name(job: str, kv_quant: bool) -> str:
+    return f"ringfwd_{job}{'_q' if kv_quant else ''}"
+
+
+def ring_mesh_jobs(files: dict) -> list[dict]:
+    jobs = []
+    for job, kv_quant in RING_MESH_RUNS:
+        name, shape, sharded = RING_MESH[job]
+        jobs.append(dict(name=ring_mesh_name(job, kv_quant), kind="ring_fwd",
+                         preset=name, weights=files[name], sharded=sharded,
+                         tokens=FWD_TOKENS.tolist(), seq_lens=FWD_LENS,
+                         kv_quant=kv_quant, mesh=shape))
+    return jobs
 
 
 @pytest.fixture(scope="module")
@@ -129,10 +169,12 @@ def context2(tmp_path_factory, trees):
 @pytest.fixture(scope="module")
 def four(tmp_path_factory, trees):
     tmp = tmp_path_factory.mktemp("cp4")
-    files = {"tiny": to_npz(trees["tiny"], str(tmp / "tiny.npz"))}
+    files = {k: to_npz(trees[k], str(tmp / f"{k}.npz"))
+             for k in ("tiny", "tiny-mha", "tiny-moe")}
     jobs = sp_jobs(tmp, 4)
     jobs += [engine_job(f"serve_{name}", files["tiny"], shape)
              for name, shape in MESHES.items()]
+    jobs += ring_mesh_jobs(files)
     out = run_ranks(tmp, jobs, world=4, mesh={"context": 4})
     return types.SimpleNamespace(out=out, world=4)
 
@@ -195,16 +237,21 @@ class TestSequenceParallelAttention:
                                            rtol=SP_TOL, atol=SP_TOL)
 
 
-def jax_ring_forward(tree, mode: str, kv_quant: bool):
-    """The JAX forward_hidden with ring_mesh on its context=2 mesh:
+def jax_ring_forward(tree, mode: str, kv_quant: bool, name: str = "tiny",
+                     shape: dict | None = None):
+    """The JAX forward_hidden with ring_mesh on its mesh (`shape`, by
+    default context=2; params placed by the default rules):
     (hidden states, the cache)."""
-    cfg = jax_preset("tiny")
-    params = jax.tree.map(jnp.asarray, tree)
+    cfg = jax_preset(name)
+    mesh = jax_mesh(shape or {"context": 2})
+    params = (jax.tree.map(jnp.asarray, tree) if shape is None
+              else jax_sharded(tree, cfg, mesh))
     cache = jax_llama.init_cache(cfg, 2, 64, jnp.float32, quantized=kv_quant)
-    h, cache = jax_llama.forward_hidden(
-        params, cfg, jnp.asarray(FWD_TOKENS, jnp.int32), cache,
-        seq_lens=jnp.asarray(FWD_LENS, jnp.int32), prefill_flash=True,
-        ring_mesh=jax_mesh({"context": 2}), sp_mode=mode)
+    fwd = jax.jit(lambda p, t, c, n: jax_llama.forward_hidden(
+        p, cfg, t, c, seq_lens=n, prefill_flash=True, ring_mesh=mesh,
+        sp_mode=mode))
+    h, cache = fwd(params, jnp.asarray(FWD_TOKENS, jnp.int32), cache,
+                   jnp.asarray(FWD_LENS, jnp.int32))
     return np.asarray(h), jax.tree.map(np.asarray, cache)
 
 
@@ -254,8 +301,12 @@ class TestRingForward:
                                                    rtol=1e-4)
 
     def test_contract(self, trees):
-        """ring_mesh requires the prefill-from-empty contract, and on a
-        mesh with another axis above 1 is refused, naming item 14."""
+        """ring_mesh requires the prefill-from-empty contract. Beside
+        another axis above 1 it is served (the four-rank jobs below): at
+        {context: 2, model: 2} a one-position call, which shards nothing,
+        runs as with no ring_mesh. A stage rank's block of the layers
+        (`mesh` with a stage axis) is refused, since the pipeline takes no
+        ring_mesh, and so is a `mesh` of another shape than ring_mesh."""
         cfg = llama.preset("tiny")
         params = params_from_numpy(trees["tiny"], device="cpu")
         tokens = torch.from_numpy(FWD_TOKENS)
@@ -263,11 +314,85 @@ class TestRingForward:
         with pytest.raises(ValueError, match="prefill_flash"):
             llama.forward_hidden(params, cfg, tokens, cache,
                                  ring_mesh=Mesh(MeshSpec(context=2)))
-        with pytest.raises(NotImplementedError, match="item 14"):
+        outs = []
+        for ring in (None, Mesh(MeshSpec(context=2, model=2))):
+            cache = llama.init_cache(cfg, 2, 64, torch.float32, device="cpu")
+            h, _ = llama.forward_hidden(params, cfg, tokens[:, :1], cache,
+                                        prefill_flash=True, ring_mesh=ring)
+            outs.append(h)
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+        stage = Mesh(MeshSpec(stage=2, context=2))
+        with pytest.raises(ValueError, match="pipeline_forward_hidden takes "
+                                             "no ring_mesh"):
+            llama.forward_hidden(params, cfg, tokens, cache,
+                                 prefill_flash=True, ring_mesh=stage,
+                                 mesh=stage)
+        with pytest.raises(ValueError, match="differ"):
             llama.forward_hidden(params, cfg, tokens, cache,
                                  prefill_flash=True,
-                                 ring_mesh=Mesh(MeshSpec(context=2,
-                                                         model=2)))
+                                 ring_mesh=Mesh(MeshSpec(context=2)),
+                                 mesh=Mesh(MeshSpec(model=2)))
+
+    @pytest.mark.parametrize("mode", ["ring", "ulysses"])
+    @pytest.mark.parametrize("job,kv_quant", RING_MESH_RUNS)
+    def test_beside_other_axes_equal_jax_forward(self, four, trees, job,
+                                                 kv_quant, mode):
+        """forward_hidden(ring_mesh) on a mesh with another axis above 1,
+        over the valid positions of every rank: hidden states within 2e-4
+        of the JAX forward on the same mesh of the virtual devices (params
+        placed by the default rules), the cache the JAX cache's block of
+        this rank's kv heads (its `model` coordinate's; whole without one,
+        or on a whole tree) within float32 summation order (int8 payloads
+        within one step of a rounding boundary), and the lengths."""
+        name, shape, sharded = RING_MESH[job]
+        want_h, jcache = jax_ring_forward(trees[name], mode, kv_quant, name,
+                                          shape)
+        spec = MeshSpec(**shape)
+        kv = llama.preset(name).num_kv_heads // (spec.model if sharded
+                                                 else 1)
+        for rank in range(spec.size):
+            got = load_out(four.out, ring_mesh_name(job, kv_quant), rank)
+            h0 = Mesh(spec, rank=rank).axis_index("model") * kv
+            np.testing.assert_array_equal(got[f"{mode}_lengths"], FWD_LENS)
+            for b, n in enumerate(FWD_LENS):
+                np.testing.assert_allclose(got[f"{mode}_h"][b, :n],
+                                           want_h[b, :n], atol=SP_TOL,
+                                           rtol=SP_TOL, err_msg=f"rank {rank}")
+                for nm in ("k", "v"):
+                    block = got[f"{mode}_{nm}"][:, b, :n]
+                    ref = getattr(jcache, nm)[:, b, :n, h0:h0 + kv]
+                    assert block.shape == ref.shape
+                    if kv_quant:
+                        assert np.abs(block.astype(np.int32) - ref).max() <= 1
+                    else:
+                        np.testing.assert_allclose(block, ref, atol=5e-4,
+                                                   rtol=1e-4)
+
+    def test_ulysses_refused_at_context4_model2(self, trees):
+        """Ulysses for `tiny` at {context: 4, model: 2}: four shards do not
+        divide its two kv heads, so the JAX forward raises its ValueError;
+        the port raises the same words, judged on the whole heads, before
+        any layer runs, on a whole tree and on a rank's blocks (whose one
+        local kv head is not what JAX judges)."""
+        shape = {"context": 4, "model": 2}
+        with pytest.raises(ValueError) as want:
+            jax_ring_forward(trees["tiny"], "ulysses", False, "tiny", shape)
+        assert "H=4, K=2, n=4" in str(want.value)
+        cfg = llama.preset("tiny")
+        for rank in (0, 5):
+            mesh = Mesh(MeshSpec(**shape), rank=rank)
+            for block in (None, mesh):
+                params = params_from_numpy(trees["tiny"], device="cpu",
+                                           mesh=block, config=cfg)
+                cache = llama.init_cache(cfg, 2, 64, torch.float32,
+                                         device="cpu", mesh=block)
+                with pytest.raises(ValueError) as got:
+                    llama.forward_hidden(
+                        params, cfg, torch.from_numpy(FWD_TOKENS), cache,
+                        torch.tensor(FWD_LENS, dtype=torch.int32),
+                        prefill_flash=True, ring_mesh=mesh,
+                        sp_mode="ulysses", mesh=block)
+                assert str(got.value) == str(want.value)
 
     def test_unused_at_one_position_and_for_windows(self, trees):
         """At S == 1, and for a sliding-window model, the trunk does not

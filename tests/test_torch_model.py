@@ -214,19 +214,25 @@ class TestModelSurface:
                              torch.ones(1, dtype=torch.int32))
 
     def test_ring_mesh_refused(self):
-        """Sequence-parallel prefill serves a context-only mesh
-        (tests/test_torch_cp.py); with a model axis too it is refused,
-        naming item 14, and without the empty-cache contract in the JAX
-        words."""
+        """Sequence-parallel prefill serves a context-only mesh and, since
+        item 14 closed, one with a model axis too (tests/test_torch_cp.py):
+        what it refuses there is the JAX functions' own case, a sequence
+        the context axis does not divide, in their words, before any layer
+        runs; and without the empty-cache contract, in the JAX words."""
         from symmetry_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
         cfg = preset("tiny")
         params = init_params(cfg, torch.Generator(), torch.float32)
-        with pytest.raises(NotImplementedError, match="item 14"):
-            forward_hidden(params, cfg, torch.zeros((1, 4), dtype=torch.long),
-                           init_cache(cfg, 1, 8, torch.float32, device="cpu"),
-                           prefill_flash=True,
-                           ring_mesh=Mesh(MeshSpec(context=2, model=2)))
+        for mode, words in (("ring", "ring size 2"),
+                            ("ulysses", "shard count 2")):
+            with pytest.raises(ValueError,
+                               match=f"sequence 3 not divisible by {words}"):
+                forward_hidden(params, cfg,
+                               torch.zeros((1, 3), dtype=torch.long),
+                               init_cache(cfg, 1, 8, torch.float32,
+                                          device="cpu"),
+                               prefill_flash=True, sp_mode=mode,
+                               ring_mesh=Mesh(MeshSpec(context=2, model=2)))
         with pytest.raises(ValueError, match="prefill_flash"):
             forward_hidden(params, cfg, torch.zeros((1, 4), dtype=torch.long),
                            init_cache(cfg, 1, 8, torch.float32, device="cpu"),

@@ -354,8 +354,8 @@ class TestRefusals:
         pointing nowhere is never dialled). What the port does not serve,
         a stage axis beside another above 1, is refused in the JAX
         engine's words, naming ROADMAP item 14; so are the pipeline knobs
-        outside their contract. (`ring_mesh` beside `model` or `data`:
-        test_ring_mesh_with_model_refused.)"""
+        outside their contract. (`ring_mesh` beside `model` or `data` is
+        served: test_ring_mesh_with_model_refused.)"""
         with pytest.raises(EngineError, match=match):
             InferenceEngine.from_tpu_config(TpuConfig.from_dict(raw),
                                             device="cpu")
@@ -415,17 +415,32 @@ class TestRefusals:
 
     def test_ring_mesh_with_model_refused(self):
         """Sequence-parallel prefill over a mesh with a model axis too is
-        not ported: refused, naming item 14."""
+        no longer refused: it is served (tests/test_torch_cp.py holds it to
+        the JAX forward on four ranks). In one process: a one-position call
+        at {context: 2, model: 2}, which shards nothing, runs as with no
+        ring_mesh; what is refused there is the JAX function's own case,
+        in its words, before any layer runs: Ulysses over kv heads the
+        context axis does not divide (`tiny`'s two at context 4)."""
         cfg = llama.preset("tiny")
         params = llama.init_params(cfg, torch.Generator().manual_seed(0),
                                    torch.float32)
+        outs = []
+        for ring in (None, Mesh(MeshSpec(context=2, model=2))):
+            cache = llama.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+            h, _ = llama.forward_hidden(
+                params, cfg, torch.full((1, 1), 3, dtype=torch.long), cache,
+                prefill_flash=True, ring_mesh=ring)
+            outs.append(h)
+        torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
         cache = llama.init_cache(cfg, 1, 8, torch.float32, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(ValueError, match=r"ulysses needs heads divisible "
+                                             r"by shards: H=4, K=2, n=4"):
             llama.forward_hidden(params, cfg, torch.zeros((1, 4),
                                                           dtype=torch.long),
                                  cache, prefill_flash=True,
-                                 ring_mesh=Mesh(MeshSpec(context=2,
-                                                         model=2)))
+                                 ring_mesh=Mesh(MeshSpec(context=4,
+                                                         model=2)),
+                                 sp_mode="ulysses")
 
 
 # ---------------------------------------------------------------------------

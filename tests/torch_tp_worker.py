@@ -26,7 +26,8 @@ rank recorded). Jobs:
   load     sharded load_checkpoint / load_warm_cache of a checkpoint dir;
   qmm      w8a16_apply_sharded on one leaf, row- and column-parallel;
   sp       ring_attention and ulysses_attention on numpy q/k/v;
-  ring_fwd forward_hidden with `ring_mesh`, sp_mode "ring" and "ulysses";
+  ring_fwd forward_hidden with `ring_mesh`, sp_mode "ring" and "ulysses",
+           on whole weights or (`sharded`) this rank's blocks;
   pipeline pipeline_forward_hidden: a prefill, then decode steps, each
            rank's block of the cache after each;
   moe      models/moe.py's moe_mlp on one layer's blocks of numpy
@@ -152,23 +153,28 @@ def job_sp(job, mesh, rank):
 
 
 def job_ring_fwd(job, mesh, rank):
+    """forward_hidden with ring_mesh = the job's mesh; with `sharded`,
+    params and cache are this rank's blocks of it (`mesh` passed too),
+    else whole (the other axes' ranks replicas)."""
     import torch
 
     from symmetry_tpu_torch.convert import params_from_numpy
     from symmetry_tpu_torch.models.llama import forward_hidden, init_cache
 
     cfg = job_config(job)
-    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu")
+    block = mesh if job.get("sharded") else None
+    params = params_from_numpy(tree_from_npz(job["weights"]), device="cpu",
+                               mesh=block, config=cfg)
     tokens = torch.tensor(job["tokens"])
     lens = torch.tensor(job["seq_lens"], dtype=torch.int32)
     B, S = tokens.shape
     out = {}
     for mode in ("ring", "ulysses"):
         cache = init_cache(cfg, B, S, torch.float32, device="cpu",
-                           quantized=bool(job.get("kv_quant")))
+                           quantized=bool(job.get("kv_quant")), mesh=block)
         h, cache = forward_hidden(params, cfg, tokens, cache, lens,
                                   prefill_flash=True, ring_mesh=mesh,
-                                  sp_mode=mode)
+                                  sp_mode=mode, mesh=block)
         out[f"{mode}_h"] = h.numpy()
         out[f"{mode}_k"] = cache.k.float().numpy()
         out[f"{mode}_v"] = cache.v.float().numpy()
