@@ -377,8 +377,11 @@ class Scheduler:
         # stamped at block boundaries. Read via trace_export() through the
         # host-pipe `trace` op — a ring snapshot off the hot loop, never a
         # blocking call inside it. ~10 records per block: noise next to
-        # the device sync it sits beside.
-        self.tracer = Tracer(capacity=8192)
+        # the device sync it sits beside. The loop's phases (decode
+        # dispatch, sync, admission, chunks, flush) are spans too, and
+        # profiler ranges `sched.<phase>` while a torch.profiler records
+        # on the engine thread, around the model's own ranges.
+        self.tracer = Tracer(capacity=8192, prefix="sched")
         # Engine-side latency distributions: TTFT as the scheduler saw it
         # (enqueue → first sampled token), admission dispatch wall, and the
         # interval between consecutive decode-block syncs while streams are
@@ -819,12 +822,14 @@ class Scheduler:
                         pending.append(vb)
                         did_dispatch = did_verify = True
             if self._slots and not did_dispatch and len(pending) <= self._depth:
-                pending.append((
-                    "decode_block", self.engine.decode_steps_dispatch(),
-                    dict(self._slots), time.monotonic(), None))
+                with self.tracer.span("decode_dispatch"):
+                    toks = self.engine.decode_steps_dispatch()
+                pending.append(("decode_block", toks, dict(self._slots),
+                                time.monotonic(), None))
                 self.metrics["steps"] += self.engine.decode_block
                 did_dispatch = True
-            drained = self._admit_new()
+            with self.tracer.span("admit"):
+                drained = self._admit_new()
             if not self._slots and not pending and not self._prefill_jobs:
                 # Terminal/error events from the admission pass must reach
                 # their consumers BEFORE blocking on an empty inbox.
@@ -858,7 +863,8 @@ class Scheduler:
                 # would reorder it BEHIND arrivals that raced in while we
                 # were blocked — inverted FIFO for the earliest request).
                 t_iter = time.perf_counter()
-                self._admit_new(carry=item)
+                with self.tracer.span("admit"):
+                    self._admit_new(carry=item)
                 self._flush_events()
                 self.metrics["dispatch_thread_s"] += (
                     time.perf_counter() - t_iter)
@@ -873,7 +879,9 @@ class Scheduler:
             # number of chunk dispatches per block keeps long-prompt
             # admission from stalling active streams for more than ~a
             # chunk's device time.
-            self._advance_prefills()
+            if self._prefill_jobs:
+                with self.tracer.span("chunks"):
+                    self._advance_prefills()
             # Admission-time events (first tokens from placement, chunked-
             # prefill finishes, admission errors) leave NOW, before the
             # device sync below can hold them for up to a whole block —
@@ -979,7 +987,8 @@ class Scheduler:
         to exactly the bench's tokens_streamed. tokens_generated keeps
         counting the EOS (the budget convention)."""
         t0 = time.perf_counter()
-        toks = np.asarray(device_toks)  # blocks on THIS block only
+        with self.tracer.span("sync"):
+            toks = np.asarray(device_toks)  # blocks on THIS block only
         t1 = time.perf_counter()
         self.metrics["block_syncs"] += 1
         self.metrics["sync_s"] += t1 - t0
@@ -998,19 +1007,12 @@ class Scheduler:
         # tracks — a handful of registry ops per block, never per token.
         self._m_occupancy.set(len(self._slots))
         self._m_queue_depth.set(self._inbox.qsize() + len(self._deferred))
+        t1m = time.monotonic()
         if self.tracer.enabled:
             # Block span covers dispatch → device done (the device-side
             # wall the double buffer hides host work behind); the gauge
             # tracks are stamped once per block — boundary-granular, so
             # the hot loop never pays more than a few ring appends.
-            t1m = time.monotonic()
-            if dispatched_at is not None and kind == "decode_block":
-                # (Verify entries record their own verify_dispatch span
-                # in _process_pending.)
-                self.tracer.record("decode_block", dispatched_at,
-                                   t1m - dispatched_at,
-                                   slots=len(snapshot),
-                                   steps=int(toks.shape[0]))
             self.tracer.counter("occupancy", len(self._slots), t=t1m)
             self.tracer.counter(
                 "queue_depth",
@@ -1026,10 +1028,10 @@ class Scheduler:
         # unattributed so conservation closes.
         led_share = 0.0
         led_phase = "verify" if kind == "verify" else "decode"
+        n_live = sum(1 for s, a in snapshot.items()
+                     if self._slots.get(s) is a)
         if self.ledger.enabled:
             wall = t1 - t0
-            n_live = sum(1 for s, a in snapshot.items()
-                         if self._slots.get(s) is a)
             if n_live:
                 led_share = wall / n_live
             else:
@@ -1117,6 +1119,15 @@ class Scheduler:
         self.metrics["tokens"] += block_tokens
         if block_tokens:
             self._m_tokens.inc(block_tokens)
+        if dispatched_at is not None and kind == "decode_block":
+            # Recorded once the scan has counted what the block streamed:
+            # `tokens` over `steps` × the engine's slots is the share of
+            # lane-steps that produced a token; `lanes` are the snapshot's
+            # lanes still live at sync. (Verify entries record their own
+            # verify_dispatch span in _process_pending.)
+            self.tracer.record("decode_block", dispatched_at,
+                               t1m - dispatched_at, slots=len(snapshot),
+                               steps=K, tokens=block_tokens, lanes=n_live)
 
     def _spec_peek(self) -> bool:
         """Would any active slot propose a draft from its CURRENT
@@ -1760,11 +1771,17 @@ class Scheduler:
         if self._emit_offload:
             if self._block_jobs:
                 jobs, self._block_jobs = self._block_jobs, []
-                self._emit_queue.put(jobs)
+                with self.tracer.span("flush"):
+                    self._emit_queue.put(jobs)
             return
         if not self._pending_events:
             return
         batch, self._pending_events = self._pending_events, []
+        with self.tracer.span("flush"):
+            self._deliver_inline(batch)
+
+    def _deliver_inline(self, batch: list[tuple[GenRequest, TokenEvent]]
+                        ) -> None:
         self.metrics["emit_flushes"] += 1
         self.metrics["emit_events"] += len(batch)
         if self._emit_batch is not None:

@@ -102,6 +102,7 @@ from symmetry_tpu_torch.parallel.sharding import (
     mesh_rules,
     shard_leaf,
 )
+from symmetry_tpu_torch.utils.trace import device_range
 
 
 @dataclass(frozen=True)
@@ -585,7 +586,27 @@ def _act(x: torch.Tensor, config: ModelConfig) -> torch.Tensor:
     return F.silu(x)
 
 
-def _layer(
+def _layer(h: torch.Tensor, lp: dict, cache: KVCache, layer: int,
+           positions: torch.Tensor, kv_valid: torch.Tensor,
+           seq_lens: torch.Tensor, config: ModelConfig, prefill_flash: bool,
+           mesh=None, ring_mesh=None, sp_mode: str = "ring",
+           batch_axis: str | None = None) -> torch.Tensor:
+    """One decoder layer: the attention half, then the MLP half, each a
+    profiler range (`model.attention`, `model.mlp`) while a profiler
+    records, so its kernels are told apart from the other half's."""
+    with device_range("model.attention"):
+        h = _attention(h, lp, cache, layer, positions, kv_valid, seq_lens,
+                       config, prefill_flash, mesh, ring_mesh, sp_mode)
+    with device_range("model.mlp"):
+        x = rms_norm(h, norm_weight(lp["mlp_norm"], config.norm_plus_one),
+                     config.rms_eps)
+        if "router" in lp:
+            return h + moe_mlp(x, lp, config, mesh, batch_axis)
+        return h + _row_parallel(_act(qmatmul(x, lp["wg"]), config)
+                                 * qmatmul(x, lp["wu"]), lp["wd"], mesh)
+
+
+def _attention(
     h: torch.Tensor,             # [B, S, E]
     lp: dict,                    # one layer's params (leading L dim stripped)
     cache: KVCache,              # FULL [L, B, T, K, D] cache, written in place
@@ -598,8 +619,9 @@ def _layer(
     mesh=None,                   # tensor parallel over its `model` axis
     ring_mesh=None,              # sequence-parallel prefill (fresh cache)
     sp_mode: str = "ring",       # "ring" | "ulysses"
-    batch_axis: str | None = None,  # h's batch is a block of this axis
 ) -> torch.Tensor:
+    """The attention half of a layer: norm, QKV, rope, attention over the
+    cache, `wo` and the residual add."""
     B, S, E = h.shape
     tp = _tp(mesh)
     D = config.dim_per_head
@@ -682,13 +704,7 @@ def _layer(
                 sliding_window=config.sliding_window,
                 k_scale=cache.k_scale[layer] if cache.quantized else None,
                 v_scale=cache.v_scale[layer] if cache.quantized else None)
-    h = h + _row_parallel(attn.reshape(B, S, nq * D), lp["wo"], mesh)
-
-    x = rms_norm(h, norm_weight(lp["mlp_norm"], plus_one), config.rms_eps)
-    if "router" in lp:
-        return h + moe_mlp(x, lp, config, mesh, batch_axis)
-    return h + _row_parallel(_act(qmatmul(x, lp["wg"]), config)
-                             * qmatmul(x, lp["wu"]), lp["wd"], mesh)
+    return h + _row_parallel(attn.reshape(B, S, nq * D), lp["wo"], mesh)
 
 
 def _row_parallel(x: torch.Tensor, w, mesh) -> torch.Tensor:

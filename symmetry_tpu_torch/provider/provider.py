@@ -50,7 +50,7 @@ from symmetry_tpu_torch.utils.metrics import (
     SloMonitor,
     render_prometheus,
 )
-from symmetry_tpu_torch.utils.trace import FlightRecorder, Tracer
+from symmetry_tpu_torch.utils.trace import FlightRecorder, Histogram, Tracer
 
 RECONNECT_BASE_S = 1.0
 RECONNECT_MAX_S = 60.0
@@ -131,11 +131,16 @@ class SymmetryProvider:
         self._in_flight = 0
         self._stopped = asyncio.Event()
         self._server_ready = asyncio.Event()
-        # Metrics (SURVEY §5.5: tok/s, queue depth first-class). Latency
-        # distributions live in this provider's Tracer (utils/trace.py):
-        # spans feed the same log-bucketed histograms stats() reads, so
-        # there is exactly one aggregation path — p50/p99 TTFT is the
-        # BASELINE.json headline metric.
+        # Metrics (SURVEY §5.5: tok/s, queue depth first-class). The TTFT
+        # and end-to-end distributions stats() reports are observed where
+        # their spans are recorded — p50/p99 TTFT is the BASELINE.json
+        # headline metric. The registry's _m_ttft/_m_e2e below see the
+        # same values but cannot stand in: they are process-wide (every
+        # provider of the process, and off with the registry) and give
+        # bucketed percentiles, where these are this provider's, exact up
+        # to the reservoir.
+        self._ttft_hist = Histogram()
+        self._e2e_hist = Histogram()
         self.tracer = Tracer()
         self.metrics: dict[str, Any] = {
             "requests": 0, "tokens_out": 0, "errors": 0, "shed": 0,
@@ -733,8 +738,8 @@ class SymmetryProvider:
             "wire": self._wire_stats(),
             "uptime_s": round(uptime, 1),
             "tok_s": round(self.metrics["tokens_out"] / uptime, 2),
-            "ttft_s": self.tracer.histogram("ttft_s").to_dict(),
-            "e2e_s": self.tracer.histogram("inference_s").to_dict(),
+            "ttft_s": self._ttft_hist.to_dict(),
+            "e2e_s": self._e2e_hist.to_dict(),
             # symledger headline: windowed SLO-goodput from the
             # per-request cost folds (absent until one arrives).
             **({"goodput": goodput} if goodput is not None else {}),
@@ -1219,6 +1224,7 @@ class SymmetryProvider:
                         self.tracer.record("ttft", start, first_token_s,
                                            request_id=request_id,
                                            trace_id=trace_id)
+                        self._ttft_hist.observe(first_token_s)
                         self._unstarted -= 1
                         self._pending_gauges()
                         self._first_token_stamps.append(now_chunk)
@@ -1271,6 +1277,7 @@ class SymmetryProvider:
             self.tracer.record("inference", start, e2e_s,
                                request_id=request_id, trace_id=trace_id,
                                tokens=n_tokens, chunks=n_chunks)
+            self._e2e_hist.observe(e2e_s)
             if (self.flight is not None and self.flight.slo_e2e_s
                     and e2e_s > self.flight.slo_e2e_s):
                 # Latency-SLO breach: capture the window that CONTAINS

@@ -5,13 +5,17 @@ hypertrace hooks it never enables, and the only counters are wire-level
 byte counts on the peer object. Here the equivalents are first-class:
 
   - Span/Tracer: per-request spans (receive → first-token → end) with a
-    bounded in-memory ring, cheap enough to leave on. Each provider owns
-    one Tracer instance (provider/provider.py) whose histograms back its
-    stats() snapshot.
+    bounded in-memory ring, cheap enough to leave on. Each component owns
+    its Tracer (provider, host, scheduler). While a torch.profiler records
+    on the calling thread, Tracer.span is also a profiler range named
+    `<prefix>.<name>`, and device_range gives the model such a range
+    with no ring record: the profiler then attributes each kernel to the
+    innermost range that launched it.
   - Histogram: log-bucketed latency/throughput distributions with
     percentile estimates — p50/p99 TTFT is the BASELINE.json north-star
     metric, so it must be computable from a running provider, not from
-    offline logs.
+    offline logs. Their owners observe them (the provider its TTFT and
+    end-to-end times); recording a span observes none.
   - device_trace: on-demand torch.profiler capture for the CUDA engine (the
     "trace capture endpoint" of SURVEY §5.1); writes a Chrome/Perfetto
     trace file.
@@ -45,6 +49,7 @@ import json
 import math
 import os
 import random
+import sys
 import threading
 import time
 import uuid
@@ -195,39 +200,71 @@ class Span:
                 "trace_id": self.trace_id, **self.attrs}
 
 
-class Tracer:
-    """Bounded ring of completed spans + named histograms.
+class _NoRange:
+    """The range device_range gives while no profiler records: nothing."""
 
-    Instantiate one per component that needs isolated metrics (the
-    provider owns one); hot-path cost when disabled is a single attribute
-    check.
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+
+_NO_RANGE = _NoRange()
+
+
+def device_range(name: str) -> Any:
+    """A context that is a torch.profiler range named `name` while a
+    profiler records on this thread, and nothing otherwise: one check, no
+    allocation. The profiler attributes each kernel launched inside to the
+    range; nothing is written to any ring (the model's per-layer ranges
+    would be ~1,000 records a decode block)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return _NO_RANGE
+    return torch.autograd.profiler.record_function(name)
+
+
+class Tracer:
+    """Bounded ring of completed spans and gauge observations.
+
+    Instantiate one per component; `prefix` names the component in the
+    profiler ranges its spans open (`sched.decode_dispatch`). Hot-path
+    cost when disabled is a single attribute check, and the ranges one
+    check more.
     """
 
-    def __init__(self, capacity: int = 4096) -> None:
+    def __init__(self, capacity: int = 4096, prefix: str = "") -> None:
         self.enabled = True
+        self.prefix = prefix
         self._spans: deque[Span] = deque(maxlen=capacity)
         # Gauge tracks (queue depth, slot occupancy): (t, name, value)
         # triples in one bounded ring — same always-on cost model as the
         # span ring, exported as Perfetto counter tracks.
         self._counters: deque[tuple[float, str, float]] = deque(
             maxlen=capacity)
-        self._hists: dict[str, Histogram] = {}
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
     def span(self, name: str, request_id: str = "", trace_id: str = "",
              **attrs: Any) -> Iterator[dict[str, Any]]:
         """Times the enclosed block. Yields the attrs dict so the block can
-        annotate the span (e.g. token counts) before it closes."""
-        if not self.enabled:
-            yield attrs
-            return
-        t0 = time.monotonic()
-        try:
-            yield attrs
-        finally:
-            self.record(name, t0, time.monotonic() - t0,
-                        request_id=request_id, trace_id=trace_id, **attrs)
+        annotate the span (e.g. token counts) before it closes. While a
+        profiler records on this thread the block is also its range
+        `<prefix>.<name>`, whether the ring is enabled or not."""
+        with device_range(f"{self.prefix}.{name}" if self.prefix else name):
+            if not self.enabled:
+                yield attrs
+                return
+            t0 = time.monotonic()
+            try:
+                yield attrs
+            finally:
+                self.record(name, t0, time.monotonic() - t0,
+                            request_id=request_id, trace_id=trace_id,
+                            **attrs)
 
     def record(self, name: str, start: float, duration_s: float,
                request_id: str = "", trace_id: str = "",
@@ -239,7 +276,6 @@ class Tracer:
                                     duration_s=duration_s,
                                     request_id=request_id,
                                     trace_id=trace_id, attrs=dict(attrs)))
-        self.histogram(f"{name}_s").observe(duration_s)
 
     def counter(self, name: str, value: float,
                 t: float | None = None) -> None:
@@ -249,12 +285,6 @@ class Tracer:
         with self._lock:
             self._counters.append(
                 (time.monotonic() if t is None else t, name, value))
-
-    def histogram(self, name: str) -> Histogram:
-        with self._lock:
-            if name not in self._hists:
-                self._hists[name] = Histogram()
-            return self._hists[name]
 
     def export(self, request_id: str | None = None) -> list[dict[str, Any]]:
         with self._lock:
@@ -277,16 +307,10 @@ class Tracer:
         return {"name": name, "clock_offset_s": clock_offset_s,
                 "spans": self.export(), "counters": self.export_counters()}
 
-    def stats(self) -> dict[str, Any]:
-        with self._lock:
-            hists = dict(self._hists)
-        return {name: h.to_dict() for name, h in hists.items()}
-
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
             self._counters.clear()
-            self._hists.clear()
 
 
 # --------------------------------------------------------------- perfetto

@@ -188,7 +188,7 @@ DEVIATIONS = {
          "needed only to read or write a file",
          ["-import yaml", "+            import yaml", "+    import yaml"]),
     ]),
-    "utils/trace.py": (5, [
+    "utils/trace.py": (18, [
         ("device_trace over torch.profiler",
          "the capture is the card's (CUPTI through torch.profiler, a Chrome "
          "trace file), with a gate held around its start and stop (a stop "
@@ -198,6 +198,58 @@ DEVIATIONS = {
           "+def device_trace(log_dir: str, gate: Any = None)",
           "+    gate = gate if gate is not None else contextlib.nullcontext()",
           "-        jax.profiler.stop_trace()"]),
+        ("spans are torch.profiler ranges; device_range",
+         "while a profiler records on the thread, Tracer.span is also a "
+         "range `<prefix>.<name>` and device_range a range alone, so the "
+         "device trace attributes each kernel to the scheduler's phase and "
+         "the model's layer half that launched it",
+         ["Tracer.span is also a profiler range named",
+          "+import sys",
+          "+def device_range(name: str) -> Any:",
+          "+    profiler ranges its spans open (`sched.decode_dispatch`).",
+          '+    def __init__(self, capacity: int = 4096, prefix: str = "")',
+          "+        self.prefix = prefix",
+          '+        with device_range(f"{self.prefix}.{name}"']),
+        ("no histograms in the Tracer",
+         "a span's histogram cost a lock and a reservoir update on every "
+         "scheduler span and only the provider read two of them; the "
+         "provider observes its own (provider/provider.py)",
+         ["recording a span observes none.",
+          '+    """Bounded ring of completed spans and gauge observations.',
+          "-        self._hists: dict[str, Histogram] = {}",
+          '-        self.histogram(f"{name}_s").observe(duration_s)',
+          "-    def histogram(self, name: str) -> Histogram:",
+          "-    def stats(self) -> dict[str, Any]:",
+          "-            self._hists.clear()"]),
+    ]),
+    "engine/scheduler.py": (13, [
+        ("the loop's phases as spans and profiler ranges",
+         "decode_dispatch, sync, admit, chunks and flush in the ring, and "
+         "ranges `sched.<phase>` while a profiler records on the engine "
+         "thread (utils/trace.py)",
+         ['+        self.tracer = Tracer(capacity=8192, prefix="sched")',
+          '+                with self.tracer.span("decode_dispatch"):',
+          'with self.tracer.span("admit"):',
+          '+                with self.tracer.span("chunks"):',
+          '+        with self.tracer.span("sync"):',
+          'with self.tracer.span("flush"):']),
+        ("the decode_block span after the token scan",
+         "it carries the tokens the block streamed and the lanes live at "
+         "sync beside slots and steps: the decode lanes' use",
+         ['-                self.tracer.record("decode_block", dispatched_at,',
+          "+        t1m = time.monotonic()",
+          "steps=K, tokens=block_tokens, lanes=n_live)",
+          "n_live = sum(1 for s, a in snapshot.items()"]),
+    ]),
+    "provider/provider.py": (5, [
+        ("the TTFT and end-to-end histograms the provider's own",
+         "Tracer.record observes no histogram (utils/trace.py); stats() "
+         "reads the two the provider observes where it records the spans",
+         ["import FlightRecorder, Histogram, Tracer",
+          "+        self._ttft_hist = Histogram()",
+          '+            "ttft_s": self._ttft_hist.to_dict(),',
+          "+                        self._ttft_hist.observe(first_token_s)",
+          "+            self._e2e_hist.observe(e2e_s)"]),
     ]),
     "provider/backends/base.py": (3, [
         (*HISTORY, ["+    # (nothing in the reference's src/provider.ts"]),
