@@ -12,7 +12,7 @@ four-rank pass where it has four.)
 Phases (any failure raises and exits non-zero):
   1. device   require CUDA; print the card, its capability, name and power
               limit (nvidia-smi);
-  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (five
+  2. build    compile the CUDA kernels from symmetry_tpu_torch/csrc/ (six
               libraries, one nvcc per translation unit, all started
               together: decode_attention.cu is eleven, ops/kernels.py
               PARTS);
@@ -40,7 +40,11 @@ Phases (any failure raises and exits non-zero):
               1e-5), the row-parallel K-slices of wo and wd, at GEMV and
               tensor-core rows; W8A8 bit for bit (wq, wg, wd, lm_head at 32,
               128 and 2048 rows, K splits included; no serving path routes
-              it); kernel, plain and library (a yardstick only) device
+              it); the grouped int8 expert GEMV at mixtral-8x7b's decode
+              shapes (`wg` and `wd`, eight experts, 1, 8 and 16 bf16 rows
+              and 8 float32 rows, scaled and raw) within one bf16 step of
+              its largest output, 3e-5 of it on a float32 output; kernel,
+              plain and library (a yardstick only) device
               times (kernel durations summed by torch.profiler, decode's
               split and combine kernels together; CUDA events around
               each call, logged, where three profiler sessions drop the
@@ -159,10 +163,11 @@ Phases (any failure raises and exits non-zero):
               capacity-factor dispatch: token ids identical; (b)
               mixtral-8x7b at full width and all 32 layers with int8
               weights (init_params(quantize=True), seed 0; the pack_tree
-              report lists exactly the three expert stacks, which stay on
-              the mixed dot) and an int8 KV cache, phase 5's traffic with
-              32 new tokens: flash, decode attention writing its row and
-              W8A16 (attention projections and the LM head) launch
+              report lists exactly the three expert stacks, left flat for
+              the grouped expert GEMV) and an int8 KV cache, phase 5's
+              traffic with 32 new tokens: flash, decode attention writing
+              its row, W8A16 (attention projections and the LM head) and
+              grouped GEMV (three a layer and decode step) launch
               counts, every prefill layer through the dispatch; finish
               reasons, memory, weight_stream_bytes, a greedy digest and
               the same requests served again on the same engine with
@@ -175,8 +180,9 @@ Phases (any failure raises and exits non-zero):
               and one layer with int8 experts against the plain mixed-dot
               mixture within 2e-2 of the largest output, at decode and
               through the dispatch, each path bit-equal when called again,
-              and the distinct results of the decode step's float32
-              expert products under a second stream's load (logged); (e) a mixtral-8x7b-width bf16 checkpoint at 2 layers served
+              and the decode step's grouped GEMV products one result in
+              201 calls under a second stream's load; (e) a
+              mixtral-8x7b-width bf16 checkpoint at 2 layers served
               through from_tpu_config with quantization: int8: quantized
               as it is read (peak memory within the int8 engine's bytes
               plus 2 GiB, under the dense tree's), leaves bit-equal to
@@ -269,7 +275,7 @@ Phases (any failure raises and exits non-zero):
               (b)'s one-rank serve, experts a quarter a rank; under --tp
               with two cards, mixtral-8x7b bf16 at all 32 layers at
               {expert: 2} over nccl (logged when not run);
- report       one JSON line listing the nine kernel rows (W8A16 one per
+ report       one JSON line listing the ten kernel rows (W8A16 one per
               regime; the KV append fused into decode attention on the
               path, and standalone from phase 3; `launches_moe`: each
               row's launches in phase 13; `launches_tp`: rank 0's in
@@ -1172,6 +1178,93 @@ def check_w8a8() -> dict:
                      "launches are phase 3's", **row)
 
 
+def check_moe_gemv() -> dict:
+    """The grouped int8 expert GEMV at mixtral-8x7b's decode shapes: `wg`
+    (and `wu`), [4096, 14336] slabs, x of 1, 8 and 16 rows shared by the
+    eight experts; `wd`, [14336, 4096], each expert's own rows; bf16 rows
+    scaled to bf16 and raw float32 sums (the `model` axis's), float32 rows
+    scaled and raw; against moe_gemv_reference (each expert's mixed dot) on
+    the same card tensors. Tolerance: 2**-7 max|y| on a bf16 output (one
+    rounding; float32 sums in another order), 3e-5 max|y| on a float32
+    output (sums of up to 14,336 float32 terms in another order). Timed cold (L2 flushed
+    before each call; a stack is 470 MB, far past L2 anyway) at 8 bf16
+    rows, the `kernels` line's row at `wg`; the library yardstick is
+    torch.matmul of the bf16 rows and the stack dequantized to bf16."""
+    from symmetry_tpu_torch.ops.moe_gemv import (
+        moe_gemv,
+        moe_gemv_capacity,
+        moe_gemv_plan,
+        moe_gemv_reference,
+        row_tile,
+        tile_cols,
+    )
+    from symmetry_tpu_torch.ops.quant import quantize
+
+    X = 8
+    shapes = {"wg": (4096, 14336, True), "wd": (14336, 4096, False)}
+    g = torch.Generator(device="cuda").manual_seed(60)
+    moe_gemv.launches = 0
+    worst, row = 0.0, None
+    for name, (K, N, shared) in shapes.items():
+        w = quantize(torch.randn((X, K, N), generator=g, device="cuda",
+                                 dtype=torch.bfloat16).mul_(K ** -0.5))
+        for M, dtype, scaled in ((1, torch.bfloat16, True),
+                                 (8, torch.bfloat16, True),
+                                 (16, torch.bfloat16, True),
+                                 (8, torch.bfloat16, False),
+                                 (8, torch.float32, True),
+                                 (8, torch.float32, False)):
+            x = torch.randn((1 if shared else X, M, K), generator=g,
+                            device="cuda", dtype=dtype)
+            kw = {} if scaled else {"out_dtype": torch.float32,
+                                    "apply_scale": False}
+            got = moe_gemv(x, w.q, w.scale, **kw)
+            torch.cuda.synchronize()
+            want = moe_gemv_reference(x, w.q, w.scale, **kw)
+            err = float((got.float() - want.float()).abs().max())
+            tol = (2.0 ** -7 if got.dtype == torch.bfloat16 else 3e-5) * (
+                float(want.float().abs().max()))
+            if (got.dtype != want.dtype or not torch.isfinite(got).all()
+                    or err > tol):
+                raise AssertionError(f"moe_gemv {name} M={M} {dtype} "
+                                     f"scaled={scaled}: error {err} > {tol}")
+            worst = max(worst, err)
+            rows = row_tile(M, dtype)
+            plan = moe_gemv_plan(X, M, K, N, rows, tile_cols(dtype),
+                                 moe_gemv_capacity(x.device, dtype, rows))
+            ms = cold_ms(lambda: moe_gemv(x, w.q, w.scale, **kw), 20,
+                         name="moe_gemv", per_call=1)
+            nbytes = (x.numel() * x.element_size() + X * K * N + X * N * 4
+                      + got.numel() * got.element_size())
+            bound_ms, bound_by = bound(nbytes, 2.0 * X * M * K * N,
+                                       PEAK_BF16_FLOPS if dtype ==
+                                       torch.bfloat16 else PEAK_F32_FLOPS)
+            extra = ""
+            if (name, M, dtype, scaled) == ("wg", 8, torch.bfloat16, True):
+                plain_ms = device_ms(
+                    lambda: moe_gemv_reference(x, w.q, w.scale), 3)
+                wl = (w.q.float() * w.scale[:, None, :]).to(torch.bfloat16)
+                library_ms = cold_ms(lambda: torch.matmul(x, wl), 20)
+                del wl
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+                extra = (f", plain {plain_ms:.4f}, torch.matmul bf16 "
+                         f"{library_ms:.4f}")
+            log(f"  moe_gemv {name} {X} x [{K}, {N}] M={M} "
+                f"{str(dtype)[6:]} {'scaled' if scaled else 'raw float32'} "
+                f"({plan}): max_abs_err={err:.3e} (tol {tol:.3e}); device "
+                f"ms (cold): kernel {ms:.4f}{extra}, bound {bound_ms:.4f} "
+                f"({bound_by}); {ms / bound_ms:.2f}x bound")
+            del x, got, want
+        del w
+        torch.cuda.empty_cache()
+    return dict(name="moe_gemv", route="cuda",
+                source="symmetry_tpu_torch/csrc/moe_gemv.cu",
+                replaces="none: the JAX mixture's int8 expert products are "
+                         "XLA's mixed dot (symmetry_tpu/models/moe.py)",
+                max_abs_err=worst, **row)
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-5: the engine behind the Scheduler
 
@@ -1380,9 +1473,11 @@ def reset_launches() -> None:
     from symmetry_tpu_torch.ops.decode_attention import decode_attention
     from symmetry_tpu_torch.ops.flash import flash_prefill
     from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.moe_gemv import moe_gemv
     from symmetry_tpu_torch.ops.qmm import w8a16_matmul
 
-    for fn in (flash_prefill, decode_attention, kv_append, w8a16_matmul):
+    for fn in (flash_prefill, decode_attention, kv_append, w8a16_matmul,
+               moe_gemv):
         fn.launches = 0
     decode_attention.launches_append = 0
     w8a16_matmul.launches_gemv = w8a16_matmul.launches_tc = 0
@@ -3083,6 +3178,7 @@ def read_launches() -> dict[str, int]:
     from symmetry_tpu_torch.ops.decode_attention import decode_attention
     from symmetry_tpu_torch.ops.flash import flash_prefill
     from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.moe_gemv import moe_gemv
     from symmetry_tpu_torch.ops.qmm import w8a16_matmul
 
     return {"flash_prefill": flash_prefill.launches,
@@ -3095,29 +3191,36 @@ def read_launches() -> dict[str, int]:
             "w8a16_matmul": w8a16_matmul.launches,
             "w8a16_gemv": w8a16_matmul.launches_gemv,
             "w8a16_gemv_f32": w8a16_matmul.launches_gemv_f32,
-            "w8a16_tc": w8a16_matmul.launches_tc}
+            "w8a16_tc": w8a16_matmul.launches_tc,
+            "moe_gemv": moe_gemv.launches}
 
 
 class counting_dispatch:
     """Within the block, count the calls of models/moe.py's capacity-factor
     dispatch (each is one layer of one prefill, chunk or verify of 64 or
-    more tokens). A measurement harness; the port has no such counter."""
+    more tokens), and the grouped expert GEMV's launches inside them (a
+    dispatch whose capacity is at most 64 rows an expert). A measurement
+    harness; the port has no such counter."""
 
     def __enter__(self):
         from symmetry_tpu_torch.models import moe
+        from symmetry_tpu_torch.ops.moe_gemv import moe_gemv
 
         self.saved = moe.moe_mlp_dispatch
-        self.calls = 0
+        self.calls = self.gemv_launches = 0
 
         def counted(x, lp, config, mesh=None):
             self.calls += 1
-            return self.saved(x, lp, config, mesh)
+            before = moe_gemv.launches
+            out = self.saved(x, lp, config, mesh)
+            self.gemv_launches += moe_gemv.launches - before
+            return out
 
         moe.moe_mlp_dispatch = counted
         return self
 
     def reset(self) -> None:
-        self.calls = 0
+        self.calls = self.gemv_launches = 0
 
     def __exit__(self, *exc):
         from symmetry_tpu_torch.models import moe
@@ -3230,11 +3333,12 @@ def near_ties(apart: list[tuple]) -> bool:
 
 
 def check_moe_tiny() -> dict[str, int]:
-    """(a) `tiny-moe` in float32, card against CPU: greedy dense, greedy
-    with int8 weights (attention and head on the float32 GEMV, experts on
-    the mixed dot) and an int8 KV cache, and two prompts of 96 and 70
-    tokens prefilled together (256 tokens: the dispatch). Token ids must
-    be identical. Returns the card's launch counts over the three runs'
+    """(a) `tiny-moe` in float32, card against CPU: greedy dense, greedy with
+    int8 weights (attention and head on the float32 GEMV, the expert stacks
+    on the grouped GEMV's float32 kernel, the CPU on its plain version, the
+    mixed dot) and an int8 KV cache, and two prompts of 96 and 70 tokens
+    prefilled together (256 tokens: the dispatch). Token ids must be
+    identical. Returns the card's launch counts over the three runs'
     requests (each counted from 0 after its warmup)."""
     from symmetry_tpu_torch.models.llama import init_params, preset
 
@@ -3279,7 +3383,8 @@ def check_moe_tiny() -> dict[str, int]:
             f"dispatch calls card/cpu {calls}")
     log(f"  tiny-moe card launches {counts}")
     if min(counts["flash_prefill"], counts["decode_attention_append"],
-           counts["w8a16_gemv_f32"]) <= 0 or counts["kv_append"]:
+           counts["w8a16_gemv_f32"], counts["moe_gemv"]) <= 0 or counts[
+               "kv_append"]:
         raise AssertionError(f"tiny-moe launches {counts}")
     return counts
 
@@ -3287,14 +3392,15 @@ def check_moe_tiny() -> dict[str, int]:
 def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
     """(b) int8: mixtral-8x7b at full width and all 32 layers, int8 weights
     from init_params(quantize=True) with seed 0 packed for the W8A16 kernel
-    (the expert stacks reported flat, on the mixed dot) and an int8 KV
-    cache; (c) bf16 at full width, depth cut to MOE_BF16_LAYERS. Phase 5's
-    traffic (8 slots, capacity 4096, buckets 128/512/2048) with MOE_NEW
-    new tokens, through serve() and the Scheduler; launch counts checked
-    per kernel and regime, every prefill through the dispatch; the same
-    requests again on the same engine give the same tokens. int8 also
-    profiles one decode block and one 2048-token prefill. Returns the
-    launch counts of the serving run."""
+    (the expert stacks reported flat: the grouped expert GEMV at decode and
+    in a dispatch of at most 64 rows an expert, the float32 copy and matmul
+    in a larger one) and an int8 KV cache; (c) bf16 at full width, depth cut
+    to MOE_BF16_LAYERS. Phase 5's traffic (8 slots, capacity 4096, buckets
+    128/512/2048) with MOE_NEW new tokens, through serve() and the
+    Scheduler; launch counts checked per kernel and regime, every prefill
+    through the dispatch; the same requests again on the same engine give
+    the same tokens. int8 also profiles one decode block and one 2048-token
+    prefill. Returns the launch counts of the serving run."""
     import dataclasses
 
     from symmetry_tpu_torch.engine.engine import SamplingParams
@@ -3322,7 +3428,8 @@ def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
         if sorted(report) != MOE_EXPERT_LEAVES:
             raise AssertionError(f"pack_tree report {report}: not exactly "
                                  f"the three expert stacks")
-        log(f"  pack_tree report (leaves left on the mixed dot): {report}")
+        log(f"  pack_tree report (leaves left flat: the expert stacks, for "
+            f"the grouped expert GEMV): {report}")
 
     def ready():
         reset_launches()
@@ -3340,7 +3447,8 @@ def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
     m = res["metrics"]
     L, steps, dispatches = cfg.num_layers, m["steps"], m["admit_dispatches"]
     log(f"  {label}: launches {counts}; admit_dispatches={dispatches} "
-        f"steps={steps} tokens={m['tokens']}; dispatch calls {disp.calls}")
+        f"steps={steps} tokens={m['tokens']}; dispatch calls {disp.calls} "
+        f"(grouped GEMV launches inside them {disp.gemv_launches})")
     reasons = [(r["reason"], r["generated"]) for r in res["requests"]]
     log(f"  {label}: finish reasons {reasons}")
     for i, r in enumerate(res["requests"]):
@@ -3353,10 +3461,12 @@ def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
             "flash_tensor_core": L * dispatches, "flash_fma": 0,
             "decode_attention": L * steps,
             "decode_attention_append": L * steps, "kv_append": 0,
-            # wq, wk, wv, wo per layer and the LM head, per forward; the
-            # expert stacks stay on the mixed dot
+            # wq, wk, wv, wo per layer and the LM head, per forward
             "w8a16_matmul": (4 * L + 1) * (steps + dispatches) if int8 else 0,
-            "w8a16_gemv_f32": 0}
+            "w8a16_gemv_f32": 0,
+            # wg, wu, wd per layer and decode step, and those of the
+            # dispatches whose capacity is at most 64 rows an expert
+            "moe_gemv": (3 * L * steps + disp.gemv_launches) if int8 else 0}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"launches {got} != {want}")
@@ -3365,9 +3475,11 @@ def check_moe_serve(smi: str, *, int8: bool) -> dict[str, int]:
                              f"and the tensor-core kernel at prefill")
     # every prompt is >= 60 tokens in a bucket >= 128: each prefill layer
     # dispatches; decode takes the dense mixture
-    if disp.calls != L * dispatches:
+    if disp.gemv_launches % 3 or disp.calls != L * dispatches:
         raise AssertionError(f"dispatch calls {disp.calls} != "
-                             f"{L * dispatches}")
+                             f"{L * dispatches}, or grouped GEMV launches "
+                             f"inside them {disp.gemv_launches} not 3 a "
+                             f"call")
     ids = [r["ids"] for r in res["requests"]]
     digest = hashlib.sha256(json.dumps(ids).encode()).hexdigest()[:16]
     engine = res["engine"]
@@ -3458,7 +3570,7 @@ def check_moe_layer() -> None:
                              f"the two paths")
 
 
-# Calls of the decode-shaped expert product under load in (d).
+# Calls of the decode step's expert products under load in (d).
 MOE_LOAD_REPEATS = 200
 
 
@@ -3492,10 +3604,10 @@ def check_moe_layer_int8() -> None:
     stacks (init_params(quantize=True), seed 2), against plain_moe_int8 on
     the same inputs within TOL of the largest output: the dense mixture at
     decode (8 tokens) and the dispatch at no-drop capacity (2048 tokens);
-    each path called again on the same inputs, bit-equal; the number of
-    distinct results of the decode step's float32 expert products when
-    they run under a second stream's load (logged: a diagnosis, not a
-    check)."""
+    each path called again on the same inputs, bit-equal; the decode
+    step's expert products (the grouped GEMV, `wg` and `wd` of all eight
+    experts) give one result in MOE_LOAD_REPEATS + 1 calls under a second
+    stream's load."""
     import dataclasses
 
     from symmetry_tpu_torch.models import moe
@@ -3529,33 +3641,39 @@ def check_moe_layer_int8() -> None:
         if not torch.equal(got, again):
             raise AssertionError(f"int8 layer {label}: two calls on the "
                                  f"same inputs differ")
-    # The decode step's expert products (float32 operands at M = 8: cuBLAS
-    # picks a split-K kernel that zeroes its output first) run again and
-    # again while a second stream keeps the card busy with matmuls of
-    # varied sizes, which changes the order in which the split-K blocks
-    # finish. A kernel that sums its K splits in the order they finish
-    # gives more than one result; one that does not gives one.
+    # The decode step's expert products run again and again while a second
+    # stream keeps the card busy with matmuls of varied sizes, which
+    # changes when each of the kernel's blocks runs. Its K splits are summed
+    # in rank order and a stage of its ring always goes to one warpgroup,
+    # so every call gives the idle call's bits.
+    from symmetry_tpu_torch.ops.moe_gemv import moe_gemv
+
     side = torch.cuda.Stream()
     load = torch.randn((4096, 4096), generator=gen, device="cuda")
-    x8 = torch.randn((8, E), generator=gen, device="cuda").to(
-        torch.bfloat16).float()
-    for name, a in (("wg", x8),
-                    ("wd", torch.randn((8, cfg.intermediate_size),
-                                       generator=gen, device="cuda").to(
-                        torch.bfloat16).float())):
-        w = lp[name].q[0].float()
-        seen = {torch.matmul(a, w).cpu().numpy().tobytes()}  # idle
+    for name, a in (("wg", torch.randn((1, 8, E), generator=gen,
+                                       device="cuda", dtype=torch.bfloat16)),
+                    ("wd", torch.randn((cfg.num_experts, 8,
+                                        cfg.intermediate_size),
+                                       generator=gen, device="cuda",
+                                       dtype=torch.bfloat16))):
+        w = lp[name]
+        def bits() -> bytes:
+            return moe_gemv(a, w.q, w.scale).view(torch.int16).cpu().numpy(
+            ).tobytes()
+
+        seen = {bits()}  # idle
         for i in range(MOE_LOAD_REPEATS):
             with torch.cuda.stream(side):
                 for _ in range(1 + i % 3):
                     torch.matmul(load[:256 * (1 + i % 16)], load)
-            seen.add(torch.matmul(a, w).cpu().numpy().tobytes())
+            seen.add(bits())
         torch.cuda.synchronize()
-        log(f"  int8 expert product {list(a.shape)} @ [{w.shape[0]}, "
-            f"{w.shape[1]}] float32 (`{name}`, expert 0) under a second "
-            f"stream's load: {len(seen)} distinct results in "
-            f"{MOE_LOAD_REPEATS + 1} calls")
-        del w
+        log(f"  grouped expert GEMV {list(a.shape)} @ {list(w.q.shape)} "
+            f"(`{name}`, bf16 rows) under a second stream's load: "
+            f"{len(seen)} distinct results in {MOE_LOAD_REPEATS + 1} calls")
+        if len(seen) != 1:
+            raise AssertionError(f"grouped GEMV `{name}` under load: "
+                                 f"{len(seen)} distinct results")
 
 
 # The depth of (e)'s mixtral checkpoint: 2 of 32 layers (6.3 GB in bf16).
@@ -3701,6 +3819,7 @@ def tp_counts() -> dict[str, int]:
     from symmetry_tpu_torch.ops.decode_attention import decode_attention
     from symmetry_tpu_torch.ops.flash import flash_prefill
     from symmetry_tpu_torch.ops.kv_append import kv_append
+    from symmetry_tpu_torch.ops.moe_gemv import moe_gemv
     from symmetry_tpu_torch.ops.qmm import w8a16_matmul
 
     return {"flash_prefill": flash_prefill.launches,
@@ -3709,7 +3828,8 @@ def tp_counts() -> dict[str, int]:
             "kv_append": kv_append.launches,
             "w8a16_gemv": w8a16_matmul.launches_gemv,
             "w8a16_gemv_f32": w8a16_matmul.launches_gemv_f32,
-            "w8a16_tc": w8a16_matmul.launches_tc}
+            "w8a16_tc": w8a16_matmul.launches_tc,
+            "moe_gemv": moe_gemv.launches}
 
 
 def tp_job(mesh, rank: int, job: dict) -> dict:
@@ -4217,7 +4337,8 @@ def check_tp(smi: str) -> dict[str, int]:
             "w8a16_matmul[gemv_f32]": c["tiny_int8"]["w8a16_gemv_f32"],
             "w8a16_matmul[tc]": c["ckpt_int8"]["w8a16_tc"],
             "kv_append": sum(r["kv_append"] for r in c.values()),
-            "w8a8_matmul": 0}
+            "w8a8_matmul": 0,
+            "moe_gemv": sum(r["moe_gemv"] for r in c.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -4397,7 +4518,8 @@ def check_dp(smi: str) -> dict[str, int]:
             "w8a16_matmul[gemv_f32]": c["dp_tiny_int8"]["w8a16_gemv_f32"],
             "w8a16_matmul[tc]": c["dp_ckpt_int8"]["w8a16_tc"],
             "kv_append": sum(r["kv_append"] for r in c.values()),
-            "w8a8_matmul": 0}
+            "w8a8_matmul": 0,
+            "moe_gemv": sum(r["moe_gemv"] for r in c.values())}
 
 
 # ---------------------------------------------------------------------------
@@ -4438,7 +4560,8 @@ CP_TP_REASON = {
                      "kernel in a ring_mesh prefill, as in the JAX forward",
     "w8a16_matmul[gemv_f32]": "0: (c) serves bf16 activations only",
     "kv_append": "0: the decode launch writes the row (append mode)",
-    "w8a8_matmul": "0: no serving path routes W8A8"}
+    "w8a8_matmul": "0: no serving path routes W8A8",
+    "moe_gemv": "0: llama3-8b width, a dense model"}
 # W8A16 launches at {stage: 2} are 0 by design, as in the JAX engine.
 PP_W8A16_REASON = ("0 under the stage axis: fused_dequant keeps every int8 "
                    "leaf on the mixed dot (QMM_FALLBACK reason stage_axis), "
@@ -4921,7 +5044,8 @@ def check_pp_cp(smi: str) -> tuple[dict[str, int], dict[str, int],
                 "w8a16_matmul[gemv_f32]": c[tiny]["w8a16_gemv_f32"],
                 "w8a16_matmul[tc]": c["int8"]["w8a16_tc"],
                 "kv_append": sum(r["kv_append"] for r in c.values()),
-                "w8a8_matmul": 0}
+                "w8a8_matmul": 0,
+                "moe_gemv": sum(r["moe_gemv"] for r in c.values())}
 
     pc = {"bf16": pp[0]["pp_ckpt_bf16"]["counts"],
           "int8": pp[0]["pp_ckpt_int8"]["counts"],
@@ -5178,6 +5302,18 @@ def check_ep(smi: str) -> dict[str, int]:
     c = {"tiny": ranks[0]["ep_tiny_ep_int8"]["counts"],
          "bf16": ranks[0]["ep_ckpt_bf16"]["counts"],
          "int8": ranks[0]["ep_ckpt_int8"]["counts"]}
+    # A rank's expert block runs the grouped GEMV: wg, wu and wd at every
+    # layer of every int8 decode step (one decode-attention launch a layer
+    # and step), three more in each dispatch of at most 64 rows an expert;
+    # bf16 stacks keep their matmul.
+    extra = c["int8"]["moe_gemv"] - 3 * c["int8"]["decode_attention"]
+    if (extra < 0 or extra % 3 or c["bf16"]["moe_gemv"]
+            or c["tiny"]["moe_gemv"] <= 0):
+        raise AssertionError(f"grouped GEMV launches at {{expert: 2}}: tiny "
+                             f"{c['tiny']['moe_gemv']}, int8 "
+                             f"{c['int8']['moe_gemv']} against decode "
+                             f"attention's {c['int8']['decode_attention']}, "
+                             f"bf16 {c['bf16']['moe_gemv']}")
     return {"flash_prefill": c["bf16"]["flash_prefill"]
             + c["int8"]["flash_prefill"],
             "decode_attention": c["bf16"]["decode_attention"],
@@ -5187,7 +5323,8 @@ def check_ep(smi: str) -> dict[str, int]:
             "w8a16_matmul[gemv_f32]": c["tiny"]["w8a16_gemv_f32"],
             "w8a16_matmul[tc]": c["int8"]["w8a16_tc"],
             "kv_append": sum(r["kv_append"] for r in c.values()),
-            "w8a8_matmul": 0}
+            "w8a8_matmul": 0,
+            "moe_gemv": c["tiny"]["moe_gemv"] + c["int8"]["moe_gemv"]}
 
 
 def check_ep_nccl() -> None:
@@ -5307,6 +5444,7 @@ def main() -> int:
     kv_row = check_kv_append()
     check_no_host_sync()
     w8a8_row = check_w8a8()
+    moe_row = check_moe_gemv()
     kv_row["launches"] = kv_append.launches  # the pair's and its own
     torch.cuda.empty_cache()
     phase_done(3)
@@ -5339,7 +5477,10 @@ def main() -> int:
         if row["name"] == "w8a16_matmul[gemv_f32]":
             row["path"] = ("phase 4: float32 tiny with int8 weights, the "
                            "float32 serving path")
-    rows += [kv_row, w8a8_row]
+    moe_row.update(launches=0, path=(
+        "phases 5-6 serve llama3-8b, a dense model: the grouped expert GEMV "
+        "serves MoE stacks only (launches_moe, launches_ep)"))
+    rows += [kv_row, w8a8_row, moe_row]
     gc.collect()  # frees the int8 engine before the host phases
     torch.cuda.empty_cache()
     phase_done(6)
@@ -5418,7 +5559,8 @@ def main() -> int:
         "w8a16_matmul[tc]": moe_int8["w8a16_tc"],
         "kv_append": sum(c["kv_append"] for c in (moe_tiny, moe_int8,
                                                   moe_bf16)),
-        "w8a8_matmul": 0}
+        "w8a8_matmul": 0,
+        "moe_gemv": moe_int8["moe_gemv"] + moe_tiny["moe_gemv"]}
     for row in rows:
         row["launches_moe"] = moe_launches[row["name"]]
         on_path = row["name"] not in ("kv_append", "w8a8_matmul")
@@ -5437,7 +5579,7 @@ def main() -> int:
     tp_launches = check_tp(smi)
     for row in rows:
         row["launches_tp"] = tp_launches[row["name"]]
-        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul", "moe_gemv")
         if on_path and row["launches_tp"] <= 0:
             raise AssertionError(f"{row['name']} never launched at TP=2")
         if not on_path and row["launches_tp"]:
@@ -5451,7 +5593,7 @@ def main() -> int:
     dp_launches = check_dp(smi)
     for row in rows:
         row["launches_dp"] = dp_launches[row["name"]]
-        on_path = row["name"] not in ("kv_append", "w8a8_matmul")
+        on_path = row["name"] not in ("kv_append", "w8a8_matmul", "moe_gemv")
         if on_path and row["launches_dp"] <= 0:
             raise AssertionError(f"{row['name']} never launched at data=2")
         if not on_path and row["launches_dp"]:
@@ -5478,15 +5620,16 @@ def main() -> int:
         elif row["launches_cp_tp"] <= 0:
             raise AssertionError(f"{row['name']} never launched at "
                                  f"context=2 x model=2")
-        off_pp = row["name"] in ("kv_append", "w8a8_matmul") or row[
-            "name"].startswith("w8a16_matmul")
+        off_pp = row["name"] in ("kv_append", "w8a8_matmul",
+                                 "moe_gemv") or row["name"].startswith(
+                                     "w8a16_matmul")
         if row["name"].startswith("w8a16_matmul"):
             row["launches_pp_reason"] = PP_W8A16_REASON
         if not off_pp and row["launches_pp"] <= 0:
             raise AssertionError(f"{row['name']} never launched at stage=2")
         if off_pp and row["launches_pp"]:
             raise AssertionError(f"{row['name']} launched at stage=2")
-        on_cp = row["name"] not in ("kv_append", "w8a8_matmul")
+        on_cp = row["name"] not in ("kv_append", "w8a8_matmul", "moe_gemv")
         if on_cp and row["launches_cp"] <= 0:
             raise AssertionError(f"{row['name']} never launched at "
                                  f"context=2")

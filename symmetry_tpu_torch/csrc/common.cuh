@@ -1,5 +1,5 @@
-// Shared helpers for the package's CUDA kernels: dtype conversion and
-// vectorized row loads into float registers.
+// Shared helpers for the package's CUDA kernels: dtype conversion (int8
+// words to floats too) and vectorized row loads into float registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -36,6 +36,15 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// One int8 value of a 32-bit word already XORed with 0x80808080, as a
+// float, exactly: selector 0x7650 + i puts byte i, b + 128 for the value
+// b, into the mantissa of 0x4B000000 (the float 2^23 + b + 128), and 2^23
+// + 128 is subtracted. A permute and a subtraction, off the quarter-rate
+// int-to-float path.
+__device__ __forceinline__ float magic_f(uint32_t w, uint32_t sel) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
 }
 
 // Load N consecutive elements starting at p into floats. The caller

@@ -66,16 +66,8 @@ namespace {
 
 constexpr int PW = 64;  // packed panel width (output columns)
 
-// One int8 value of a 32-bit word already XORed with 0x80808080, as a
-// float, exactly: selector 0x7650 + i puts byte i, b + 128 for the value
-// b, into the mantissa of 0x4B000000 (the float 2^23 + b + 128), and 2^23
-// + 128 is subtracted. A permute and a subtraction, off the quarter-rate
-// int-to-float path.
-__device__ __forceinline__ float magic_f(uint32_t w, uint32_t sel) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.f;
-}
-
-// The word's four values.
+// The four values of a word already XORed with 0x80808080 (magic_f,
+// common.cuh).
 __device__ __forceinline__ void cvt4f(uint32_t w, float (&f)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) f[i] = magic_f(w, 0x7650u + i);
@@ -394,8 +386,9 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
 // tensor-core kernel's converter: prmt into 2^23's mantissa, one subtract,
 // cvt.rn.bf16x2, 128-byte swizzled rows, fence.proxy.async), issues four
 // wgmma k16 products into its own accumulator, waits for them and hands the
-// stage back; four in turn keep the conversion ahead of the copies. Ring:
-// 20 stages (a deeper one measured no faster).
+// stage back; four in turn keep the conversion ahead of the copies, each
+// taking every fourth step of the ring (a stage always the same one).
+// Ring: 20 stages (a deeper one measured no faster).
 //
 // float32 x, any M (`w8a16_gemv_f32_kernel`), in tiles of NP = 8 or 16
 // rows. The products stay on the CUDA cores in float32 (no TF32), so the
@@ -429,6 +422,12 @@ constexpr int RING = 20;                // stages, bf16 x
 constexpr int RING_F32 = 16;            // stages, float32 x
 constexpr int NRED = NWG;               // partials an item, bf16 x
 constexpr int NRED_F32 = NWG * 4;       // float32 x: one a consuming warp
+// Ring step `it` goes to warpgroup it % NWG, so each stage always goes to
+// the same warpgroup, which never waits on a stage's next phase before it
+// has released the last one: a parity wait cannot see a phase two ahead as
+// complete.
+static_assert(RING % NWG == 0 && RING_F32 % NWG == 0,
+              "a stage must keep its warpgroup");
 
 struct Bars {
   uint64_t full[RING], empty[RING], red_full, red_empty, in_full, in_free;
@@ -630,7 +629,7 @@ w8a16_gemv_tc_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
       for (int e = 0; e < NP / 2; ++e) acc[e] = 0.f;
       for (int j = 0; j < d.nsteps; ++j, ++it) {
-        if (j % NWG != wg) continue;
+        if (it % NWG != wg) continue;
         const int s = it % RING;
         mbar_wait(full + 8 * s, (it / RING) & 1);
         const uint32_t src = sW8 + s * W8_BYTES;
@@ -739,7 +738,7 @@ w8a16_gemv_f32_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
       for (int m = 0; m < NP; ++m) acc[m][0] = acc[m][1] = 0.f;
       for (int j = 0; j < d.nsteps; ++j, ++it) {
-        if (j % NWG != wg) continue;
+        if (it % NWG != wg) continue;
         const int s = it % RING_F32;
         mbar_wait(full + 8 * s, (it / RING_F32) & 1);
         // Rows past K (a half last step) hold stale weight bytes, always
@@ -792,26 +791,6 @@ w8a16_gemv_f32_kernel(const __grid_constant__ CUtensorMap tx,
   cluster_sync();
 }
 
-// A launch of `clusters` clusters of `cluster` blocks (not copyable: the
-// configuration points at its own attribute).
-struct Config {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = {};
-  Config(int cluster, int clusters, size_t smem, cudaStream_t s) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(clusters * cluster);
-    cfg.blockDim = dim3(NT);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = s;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-  }
-  Config(const Config&) = delete;
-};
-
 // The kernel of an x type and row tile, and its shared memory.
 template <typename TX, int NP, typename TO>
 struct Kernel {
@@ -838,7 +817,7 @@ cudaError_t capacity(int cluster, int* fit) {
   using Kn = Kernel<TX, 16, float>;
   cudaError_t err = Kn::allow(cluster);
   if (err != cudaSuccess) return err;
-  Config c(cluster, 1, Kn::smem(cluster), nullptr);
+  ClusterLaunch c(cluster, 1, NT, Kn::smem(cluster), nullptr);
   return cudaOccupancyMaxActiveClusters(fit, Kn::fn(), &c.cfg);
 }
 
@@ -860,7 +839,7 @@ cudaError_t launch(const void* x, const void* w, const void* scale, void* out,
   if (!mapped) return cudaErrorInvalidValue;
   cudaError_t err = Kn::allow(cluster);
   if (err != cudaSuccess) return err;
-  Config c(cluster, clusters, Kn::smem(cluster), s);
+  ClusterLaunch c(cluster, clusters, NT, Kn::smem(cluster), s);
   return cudaLaunchKernelEx(&c.cfg, Kn::fn(), tx,
                             static_cast<const int8_t*>(w),
                             static_cast<const float*>(scale),

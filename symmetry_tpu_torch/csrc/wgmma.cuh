@@ -2,7 +2,8 @@
 // TMA copies into shared memory, mbarriers, named barriers, setmaxnreg,
 // wgmma shared-memory descriptors, and the warpgroup matrix multiplies the
 // kernels run (bf16 in, float32 accumulate; int8 in, int32 accumulate;
-// 64 rows a warpgroup), and the host call that encodes a TMA tensor map.
+// 64 rows a warpgroup), and the host calls that encode a TMA tensor map
+// and configure a launch of thread-block clusters.
 //
 // Accumulator layout of every m64nN product (a warpgroup of 128 threads):
 // thread t = 32 * w + l (warp w, lane l) holds, for each 8-column chunk n,
@@ -135,6 +136,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap,
       : "memory");
 }
 
+// One TMA copy of a 3-D box (coordinates innermost first).
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
 // One TMA copy of a 2-D box (coordinates innermost first).
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
                                             uint32_t bar, int c0, int c1) {
@@ -203,6 +216,41 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
       "@!p bra WAITC;\n}\n" ::"r"(bar),
       "r"(parity)
       : "memory");
+}
+
+// A parity wait (on a local mbarrier, or with acquire at cluster scope on
+// one that other blocks arrive on) that gives up after 2^35 SM cycles
+// (about 20 s): a fault in a pipeline then ends the launch with an error
+// instead of holding the card.
+template <bool CLUSTER>
+__device__ __forceinline__ void mbar_wait_bounded(uint32_t bar,
+                                                  uint32_t parity) {
+  long long t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    if constexpr (CLUSTER)
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+          "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    else
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(bar), "r"(parity)
+          : "memory");
+    if (done) return;
+    if (n % 1024 == 0) {
+      const long long t = clock64();
+      if (t0 == 0) t0 = t;
+      else if (t - t0 > (1ll << 35)) __trap();
+    }
+  }
 }
 
 // Orders this thread's ordinary shared-memory stores before later reads of
@@ -463,6 +511,48 @@ inline bool make_map_2d(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// A row-major [d2, d1, d0] array of `elem`-byte elements as a 3-D TMA map
+// with boxes of box0 x box1 x 1, zero fill past the edges. The pitches
+// (d0 and d0 d1 elements) must be multiples of 16 bytes.
+inline bool make_map_3d(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType type, int elem, long long d0,
+                        long long d1, long long d2, int box0, int box1,
+                        CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(d0), cuuint64_t(d1),
+                              cuuint64_t(d2)};
+  const cuuint64_t strides[2] = {cuuint64_t(d0 * elem),
+                                 cuuint64_t(d0 * d1 * elem)};
+  const cuuint32_t box[3] = {cuuint32_t(box0), cuuint32_t(box1), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 #endif  // CUDA_VERSION
+
+// A launch of `clusters` clusters of `cluster` blocks of `threads`
+// threads (not copyable: the configuration points at its own attribute).
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  ClusterLaunch(int cluster, int clusters, int threads, size_t smem,
+                cudaStream_t s) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(clusters * cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
 
 }  // namespace symtorch

@@ -19,10 +19,17 @@ JAX package chooses them:
 Int8 expert stacks (QuantizedTensor [.., X, K, N] with [.., X, N] scales)
 follow the JAX package's mixed dot: the int8 payload is the operand,
 products and sums are float32, the per-column scale multiplies the float32
-accumulator, and the result is cast to the activation dtype. The float32
-copy of the payload is made one expert at a time, which bounds the
-transient to one [K, N] slab. The W8A16 kernel does not take expert stacks
-(`pack_tree` leaves them flat), as in the JAX package.
+accumulator, and the result is cast to the activation dtype. `pack_tree`
+leaves expert stacks flat, as in the JAX package, and on the card every
+int8 expert product of at most EXPERT_ROWS (64) rows an expert runs on the
+grouped GEMV (ops/moe_gemv.py, csrc/moe_gemv.cu), which launches or
+raises: one launch a stack reads each slab once, for `wg` and `wu` with x
+shared by every expert. That is every dense-mixture call (decode, verify,
+calls under MIN_DISPATCH_TOKENS) and a dispatch whose capacity C is at
+most 64. A larger product (the capacity dispatch at C > 64) keeps the
+float32 path: each expert's payload copied to float32, one expert at a
+time (the transient is one [K, N] slab), and a float32 matmul. On the CPU the grouped GEMV's plain version is that same
+arithmetic. A bf16 stack keeps its batched `torch.matmul`.
 
 Top-k selection is a stable descending sort: `jax.lax.top_k` keeps the
 lower index among tied values, and `torch.topk` does not.
@@ -65,7 +72,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from symmetry_tpu_torch.ops.quant import QuantizedTensor, mixed_dot
+from symmetry_tpu_torch.ops.moe_gemv import EXPERT_ROWS, moe_gemv
+from symmetry_tpu_torch.ops.quant import QuantizedTensor
 
 # Per-expert buffer = ceil(T * top_k / X * CAPACITY_FACTOR) tokens. Pairs
 # past an expert's capacity contribute nothing (switch semantics, no
@@ -103,24 +111,44 @@ def _mixed(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), q.to(torch.float32))
 
 
-def qmatmul_experts(x: torch.Tensor, w) -> torch.Tensor:
-    """[B, S, D] @ per-expert [X, D, F] -> [B, S, X, F]."""
+def _int8_experts(x: torch.Tensor, w: QuantizedTensor, *,
+                  out_dtype: torch.dtype | None = None,
+                  apply_scale: bool = True) -> torch.Tensor:
+    """x [X' or 1, M, K] (1: shared by every expert) against the int8 stack
+    [X', K, N] -> [X', M, N] in out_dtype (default x's): each expert's
+    mixed dot. Up to EXPERT_ROWS rows, the grouped GEMV (its plain
+    version on the CPU; on the card it launches or raises); past them the
+    float32 copy and product of each expert."""
+    if x.shape[1] <= EXPERT_ROWS:
+        return moe_gemv(x.contiguous(), w.q, w.scale, out_dtype=out_dtype,
+                        apply_scale=apply_scale)
+    y = torch.stack([_mixed(x[e if x.shape[0] > 1 else 0], w.q[e])
+                     for e in range(w.q.shape[0])])
+    if apply_scale:
+        y = y * w.scale[:, None, :]
+    return y.to(out_dtype or x.dtype)
+
+
+def _experts(x: torch.Tensor, w) -> torch.Tensor:
+    """[T, D] through every expert's [D, F] -> [X, T, F], expert-major."""
     if isinstance(w, QuantizedTensor):
-        y = torch.stack([_mixed(x, w.q[e]) for e in range(w.q.shape[0])],
-                        dim=-2)                            # [B, S, X, F]
-        return (y * w.scale).to(x.dtype)
-    B, S, D = x.shape
+        return _int8_experts(x[None], w)
     # One batched product with x broadcast over the experts: the weight is
     # read in place, never permuted into a copy.
-    y = torch.matmul(x.reshape(1, B * S, D), w)            # [X, B*S, F]
-    return y.permute(1, 0, 2).reshape(B, S, w.shape[0], w.shape[-1])
+    return torch.matmul(x[None], w)
+
+
+def qmatmul_experts(x: torch.Tensor, w) -> torch.Tensor:
+    """[B, S, D] @ per-expert [X, D, F] -> [B, S, X, F]."""
+    B, S, D = x.shape
+    y = _experts(x.reshape(B * S, D), w)                   # [X, B*S, F]
+    return y.permute(1, 0, 2).reshape(B, S, y.shape[0], y.shape[-1])
 
 
 def _expert_matmul(xg: torch.Tensor, w) -> torch.Tensor:
     """Per-expert batched matmul: [X, C, A] @ [X, A, F] -> [X, C, F]."""
     if isinstance(w, QuantizedTensor):
-        y = torch.stack([_mixed(xg[e], w.q[e]) for e in range(w.q.shape[0])])
-        return (y * w.scale[:, None, :]).to(xg.dtype)
+        return _int8_experts(xg, w)
     return torch.bmm(xg, w)
 
 
@@ -155,9 +183,8 @@ def _expert_down(h: torch.Tensor, wd, mesh) -> torch.Tensor:
     if _axis(mesh, "model") == 1:
         return _expert_matmul(h, wd)
     if isinstance(wd, QuantizedTensor):
-        part = torch.stack([
-            mixed_dot(h[e], wd.q[e], wd.scale[e], out_dtype=torch.float32,
-                      apply_scale=False) for e in range(wd.q.shape[0])])
+        part = _int8_experts(h, wd, out_dtype=torch.float32,
+                             apply_scale=False)
         part = mesh.all_reduce(part, "model")
         return (part * wd.scale[:, None, :]).to(h.dtype)
     from symmetry_tpu_torch.models.llama import _float32_product
@@ -184,11 +211,10 @@ def moe_mlp(x: torch.Tensor, lp: dict, config, mesh=None,
         return whole[lo:lo + B]
     gates = route_top_k(router_logits(x, lp["router"]),
                         config.num_experts_per_tok).to(x.dtype)  # [B, S, X]
-    h = F.silu(qmatmul_experts(x, lp["wg"])) * qmatmul_experts(
-        x, lp["wu"])                                            # [B, S, X', F']
-    X = h.shape[2]
-    y = _expert_down(h.reshape(B * S, X, -1).transpose(0, 1), lp["wd"],
-                     mesh)
+    xt = x.reshape(B * S, -1)
+    h = F.silu(_experts(xt, lp["wg"])) * _experts(xt, lp["wu"])  # [X', T, F']
+    X = h.shape[0]
+    y = _expert_down(h, lp["wd"], mesh)                         # [X', T, E]
     y = y.transpose(0, 1).reshape(B, S, X, -1)                  # [B, S, X', E]
     if not _split(mesh):
         return torch.einsum("bsxe,bsx->bse", y, gates)

@@ -79,6 +79,14 @@ SOURCES: dict[str, tuple[str, dict[str, list]]] = {
         "w8a8_launch": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P],
     }),
+    "moe_gemv": ("moe_gemv.cu", {
+        # x_dtype, out_dtype, x, w, scale, out, X, x_shared, M, K, N, np,
+        # cols, splits, k_per_split, clusters, apply_scale, stream
+        "moe_gemv_launch": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P],
+        # x_dtype, np, cluster, int* fit
+        "moe_gemv_capacity": [_I, _I, _I, _P],
+    }),
 }
 
 # Sources built as several translation units, compiled at once and linked

@@ -150,7 +150,18 @@ def gemv_plan(m: int, k: int, n: int,
     on a tie. So on a card that holds 16 eight-block clusters `wk` (16
     panels) splits 8 ways, and `lm_head` (2,004 panels) is not split."""
     rows = 8 if m <= 8 else GEMV_ROWS
-    items = (n // PANEL) * -(-m // rows)
+    return GemvPlan(rows, *split_deal((n // PANEL) * -(-m // rows), k,
+                                      capacity))
+
+
+def split_deal(items: int, k: int, capacity: dict[int, int]
+               ) -> tuple[int, int, int]:
+    """(cluster size = K splits, K rows a split, clusters) for `items`
+    work items of a K-row contraction each, on a card that holds
+    `capacity[c]` clusters of c blocks at once: for each cluster size that
+    cuts K into that many non-empty GEMV_STEP-row splits and fits, a
+    block's time is its cluster's item count times an item's steps plus a
+    fixed hand-off; the least wins, the smaller cluster on a tie."""
     steps = -(-k // GEMV_STEP)
     best = None
     for c in GEMV_CLUSTERS:  # c = 1 qualifies on any card
@@ -160,7 +171,9 @@ def gemv_plan(m: int, k: int, n: int,
         clusters = min(items, capacity[c])
         cost = -(-items // clusters) * (per + _GEMV_ITEM_OVERHEAD)
         if best is None or cost < best[0]:
-            best = (cost, GemvPlan(rows, c, per * GEMV_STEP, clusters))
+            best = (cost, (c, per * GEMV_STEP, clusters))
+    if best is None:
+        raise ValueError(f"no cluster of the GEMV fits ({capacity})")
     return best[1]
 
 

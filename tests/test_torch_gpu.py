@@ -694,6 +694,38 @@ class TestW8A16Gemv:
                                    atol=1e-5 * float(want.abs().max()))
         assert torch.equal(got, w8a16_matmul(x, q, s))
 
+    @pytest.mark.parametrize("K,N", [(96, 131072), (192, 65536),
+                                     (448, 32768)])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    def test_under_a_second_streams_load(self, K, N, dtype):
+        """Many panels a block, each of 2, 3 or 7 steps (not a multiple of
+        the four consuming warpgroups), so the ring wraps inside an item:
+        100 calls at 8 rows while a second stream runs matmuls of varied
+        sizes all finish, each the first call's bits, the first within the
+        tolerances above of the plain version."""
+        dev = cuda_or_skip()
+        g = torch.Generator(device=dev).manual_seed(K)
+        pt = pack_quantized(quantize(
+            torch.randn((K, N), generator=g, device=dev, dtype=torch.bfloat16)
+            .mul_(K ** -0.5)))
+        x = torch.randn((8, K), generator=g, device=dev).to(dtype)
+        first = w8a16_matmul(x, pt.q, pt.scale)
+        want = w8a16_reference(x, pt.q, pt.scale)
+        tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-4) * float(
+            want.float().abs().max())
+        torch.testing.assert_close(first.float(), want.float(), atol=tol,
+                                   rtol=0)
+        side = torch.cuda.Stream()
+        load = torch.randn((2048, 2048), generator=g, device=dev)
+        torch.cuda.synchronize()
+        differ = 0
+        for i in range(100):
+            with torch.cuda.stream(side):
+                torch.matmul(load[:128 * (1 + i % 16)], load)
+            differ += not torch.equal(w8a16_matmul(x, pt.q, pt.scale), first)
+        torch.cuda.synchronize()
+        assert differ == 0
+
     # Down projections longer than any preset's: Qwen2/2.5-72B and
     # Llama-3.1-405B, at their own widths
     @pytest.mark.parametrize("M", [1, 16])
